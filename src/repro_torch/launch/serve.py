@@ -1,0 +1,168 @@
+"""Serving CLI: ``python -m repro_torch.launch.serve --arch qwen3-4b``.
+
+Continuous-batching decode over the port's BatchScheduler with synthetic
+prompts (random params and prompts from seeded torch Generators).
+
+``--backend crossbar`` serves every linear layer from weight-resident
+crossbar tiles: weights are programmed once at scheduler construction
+and every step is a read-only bit-serial MAC (core/executor.py).
+``--use-kernel`` routes those reads through the CUDA crossbar-MAC kernel
+(``EngineConfig.use_kernel``) and paged decode attention through the
+CUDA paged-attention kernels (``ModelConfig.paged_kernel``); without it
+the plain PyTorch reference computes both.
+
+KV storage defaults to the block-paged pool (``--kv paged``); prompts
+stream into the running batch as ``--chunk``-token prefill chunks.
+``--stream-pages N`` routes decode attention through the streamed
+(online-softmax) lane once a row's page table is at least N pages wide.
+
+``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
+PyTorch path on the CPU.  ``--layers N`` cuts the configuration's depth
+(never its width).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models.model import build_model
+from repro_torch.serve.engine import BatchScheduler, Request
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None, metavar="N",
+                    help="serve only the first N layers (depth cut; width "
+                         "stays the configuration's)")
+    ap.add_argument("--backend", default="digital",
+                    choices=["digital", "crossbar"],
+                    help="crossbar = weight-resident tiles, program-once")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="crossbar reads and paged attention through the "
+                         "CUDA kernels (EngineConfig.use_kernel, "
+                         "ModelConfig.paged_kernel)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--kv", default="paged", choices=["paged", "dense"],
+                    help="KV storage: paged = block-paged pool with "
+                         "per-slot page tables; dense = per-slot dense "
+                         "cache")
+    ap.add_argument("--page-size", type=int, default=8,
+                    help="tokens per KV page (must divide --max-len)")
+    ap.add_argument("--chunk", type=int, default=4,
+                    help="prompt tokens fed per step while a request "
+                         "prefills inside the running decode batch")
+    ap.add_argument("--stream-pages", type=int, default=0, metavar="N",
+                    help="route paged decode attention through the "
+                         "streamed online-softmax lane whenever a row's "
+                         "page table is >= N pages wide (0 = the "
+                         "gather-scratch lane; requires --kv paged)")
+    ap.add_argument("--block-pages", type=int, default=16, metavar="N",
+                    help="pages per streamed attention block (clamped to "
+                         "a divisor of the table width)")
+    args = ap.parse_args(argv)
+    if args.stream_pages and args.kv != "paged":
+        raise SystemExit("--stream-pages routes paged attention; it "
+                         "requires --kv paged")
+    device = resolve_device(args.device)
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = dataclasses.replace(cfg, backend=args.backend)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.use_kernel:
+        cfg = dataclasses.replace(
+            cfg, paged_kernel=True,
+            xbar=dataclasses.replace(cfg.xbar, use_kernel=True))
+    if args.stream_pages:
+        cfg = dataclasses.replace(cfg, paged_stream_pages=args.stream_pages,
+                                  paged_block_pages=args.block_pages)
+    model = build_model(cfg, device=device)
+    params = model.init(0)
+
+    t0 = time.perf_counter()
+    sched = BatchScheduler(model, params, n_slots=args.slots,
+                           max_len=args.max_len, kv=args.kv,
+                           page_size=args.page_size, chunk=args.chunk)
+    _sync(device)
+    program_s = time.perf_counter() - t0
+    print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}, backend {cfg.backend}"
+          f"{' (CUDA kernels)' if args.use_kernel else ''} on {device}")
+    if args.kv == "paged":
+        desc = ", ".join(f"{t}:{r['n_pages']}p"
+                         for t, r in sched.kv_report().items())
+        print(f"paged KV: page_size={args.page_size} tokens, pools "
+              f"[{desc}], chunk={args.chunk} prompt tokens/step")
+    ex = model.executor
+    if ex is not None:
+        print(f"crossbar backend: {ex.n_resident} resident weight grids, "
+              f"{ex.n_devices} programmed devices/plane, "
+              f"{ex.stack_planes}-plane banks "
+              f"({ex.n_devices_physical} physical devices; "
+              f"programmed={ex.stats['programmed']}, "
+              f"cache_hits={ex.stats['cache_hits']}) in {program_s:.2f}s")
+        for t, entry in ex.residency().items():
+            m = entry["modes"]
+            print(f"  resident tenant {t}: v{entry['version']} "
+                  f"fingerprint={entry['fingerprint']} "
+                  f"modes={m['expansion']} expansion / "
+                  f"{m['deepnet']} deep-net")
+
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    reqs = [Request(rid=rid,
+                    prompt=torch.randint(0, cfg.vocab - 1,
+                                         (args.prompt_len,), generator=gen,
+                                         dtype=torch.int32),
+                    max_new=args.max_new)
+            for rid in range(args.requests)]
+    for r in reqs:
+        sched.submit(r)
+
+    t0 = time.perf_counter()
+    done, steps = [], 0
+    while len(done) < args.requests and steps < 10_000:
+        done += sched.step()
+        steps += 1
+    _sync(device)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(r.out) for r in done)
+    print(f"served {len(done)} requests, {total_tokens} tokens in "
+          f"{steps} decode steps, {dt:.2f}s "
+          f"({total_tokens / max(dt, 1e-9):.1f} tok/s)")
+    if args.stream_pages:
+        rep = sched.attn_lane_report()
+        d = rep["dispatch"]
+        print(f"attn lanes: streamed >= {rep['stream_min_pages']}p of "
+              f"{rep['pages_per_seq']}p table, "
+              f"block={rep['block_pages']}p; dispatches "
+              f"scratch={d['paged_scratch']} "
+              f"streamed={d['paged_streamed']} "
+              f"fallback={d['paged_fallback']}")
+    for r in done[:3]:
+        print(f"  req {r.rid}: {r.out[:8]}...")
+    return {"requests": done, "tokens": total_tokens, "steps": steps,
+            "seconds": dt, "tok_per_s": total_tokens / max(dt, 1e-9),
+            "program_s": program_s}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,392 @@
+"""Batched serving runtime: the paged continuous-batching scheduler
+(PyTorch).
+
+The scheduler serves its tenant through ONE window step of fixed shape
+``(width, chunk)`` with per-row valid counts.  Newly admitted prompts
+join the running batch as prefill *chunks* — rows mid prompt consume
+``chunk`` tokens per step, decoding rows consume one — so admission
+never stalls an in-flight decode step.  KV storage is a block-paged pool
+(serve/kv_pool.py): fixed-size pages, per-slot page tables, free-list
+allocation at admission and reclaim at completion.  Each step is one
+eager call; nothing is traced or captured.
+
+This slice serves one tenant.  Hot-swap, multi-tenant multiplexing with
+QoS weights, prefix sharing and preemption are later slices of the port
+and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.models.model import Model
+from repro_torch.serve.kv_pool import PagedKVPool, default_pool_pages
+
+TENANT = "A"
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is a later slice of the PyTorch port (ROADMAP.md); this "
+        f"slice's BatchScheduler serves one tenant")
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: Any                # (S,) int tokens (numpy, list or tensor)
+    max_new: int
+    model_id: str = TENANT     # tenant whose checkpoint serves this request
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # chunked-prefill progress: prompt tokens already fed to the window
+    # step (scheduler-owned; the first token emits once fed == len)
+    fed: int = 0
+    # the admission feed (scheduler-owned): the prompt tokens
+    feed: Optional[np.ndarray] = None
+    # pages the pool allocated at admission (None on the dense path)
+    bucket: Optional[int] = None
+    # lifecycle timestamps (scheduler tracer clock): queue_wait
+    # [t_submit, t_admit] + prefill [t_admit, t_first] + decode
+    # [t_first, t_done] = request wall time
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _Lane:
+    """The tenant's serving state: a fixed slot batch with its cache,
+    queue and window step."""
+    tenant: str
+    params: Any
+    slots: List[Optional[Request]]
+    cache: Any
+    queue: List[Request]
+    decode: Callable
+    pool: Optional[PagedKVPool] = None
+    width: int = 0
+    # modeled per-token device read cost by mode (crossbar backend)
+    device_cost: Optional[Dict[str, Dict[str, float]]] = None
+
+
+class BatchScheduler:
+    """Paged continuous-batching scheduler (ragged, one tenant).
+
+    Per step, every occupied slot contributes either its next ``chunk``
+    prompt tokens (admission prefill, emitting its first token on the
+    final chunk) or one generated token (decode); the per-row valid
+    count ``m`` pins each row's cache fill marker, and pad positions are
+    causally masked, so the streams equal an unpadded per-request
+    reference.  ``kv="paged"`` (default) stores K/V in a block-paged
+    pool; ``kv="dense"`` keeps a per-slot dense cache — same step, same
+    streams.
+    """
+
+    def __init__(self, model: Model, params, n_slots: int, max_len: int,
+                 tenants: Optional[Dict[str, Any]] = None,
+                 mode_policy=None, telemetry: bool = True,
+                 kv: str = "paged", page_size: int = 8, chunk: int = 4,
+                 prefix_share: bool = False, preemption: bool = False):
+        if tenants is not None and set(tenants) != {TENANT}:
+            raise _later("multi-tenant multiplexing (tenants=...)")
+        if mode_policy is not None:
+            raise _later("per-weight read-mode policies (mode_policy=...)")
+        if prefix_share:
+            raise _later("prefix sharing (prefix_share=True)")
+        if preemption:
+            raise _later("QoS preemption (preemption=True)")
+        if kv not in ("paged", "dense"):
+            raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
+        if kv == "paged" and max_len % page_size:
+            raise ValueError(f"page_size {page_size} must divide max_len "
+                             f"{max_len}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if tenants is not None:
+            params = tenants[TENANT]
+        self.model = model
+        self.device = model.device
+        self.n_slots, self.max_len = n_slots, max_len
+        self.kv, self.page_size, self.chunk = kv, page_size, int(chunk)
+        self.pages_per_seq = (max_len // page_size if kv == "paged"
+                              else 0)
+        # per-scheduler telemetry: request lifecycle, token latency,
+        # modeled device time/energy; process-wide signals (engine
+        # dispatch counters) live in obs.registry()
+        self.metrics = obs.MetricsRegistry(enabled=telemetry)
+        self.tracer = obs.Tracer(enabled=telemetry)
+        executor = model.executor
+        if executor is not None:
+            # crossbar backend: program the weights ONCE at construction
+            # (program-at-load, read-at-inference)
+            executor.ensure_programmed(params)
+        self._lane = self._make_lane(params)
+
+    # -- telemetry helpers ---------------------------------------------------
+
+    def _account_tokens(self, lane: _Lane, n: int, kind: str) -> None:
+        """Count ``n`` emitted tokens, plus modeled device-read time and
+        energy split by read mode."""
+        if n <= 0 or not self.metrics.enabled:
+            return
+        self.metrics.counter(
+            "serve_tokens_total",
+            help="tokens emitted, by tenant and kind "
+                 "(admission|decode)").inc(n, tenant=lane.tenant, kind=kind)
+        for mode, c in (lane.device_cost or {}).items():
+            self.metrics.counter(
+                "serve_device_read_seconds_total",
+                help="modeled device read time spent producing tokens, "
+                     "by read mode (t_read accounting)").inc(
+                n * c["read_s"], tenant=lane.tenant, mode=mode)
+            self.metrics.counter(
+                "serve_device_energy_joules_total",
+                help="modeled worst-case analog read energy spent "
+                     "producing tokens, by read mode").inc(
+                n * c["energy_j"], tenant=lane.tenant, mode=mode)
+
+    def _finish_request(self, lane: _Lane, req: Request) -> None:
+        """Completion bookkeeping: counter + the request's span set."""
+        req.done = True
+        self.metrics.counter(
+            "serve_requests_completed_total",
+            help="requests that emitted their full max_new budget").inc(
+                tenant=lane.tenant)
+        tr = self.tracer
+        if not tr.enabled or req.t_submit is None:
+            return
+        tr.record("queue_wait", req.t_submit, req.t_admit,
+                  rid=req.rid, tenant=lane.tenant)
+        tr.record("prefill", req.t_admit, req.t_first,
+                  rid=req.rid, tenant=lane.tenant, bucket=req.bucket)
+        tr.record("decode", req.t_first, req.t_done,
+                  rid=req.rid, tenant=lane.tenant, n_tokens=len(req.out))
+        tr.record("request", req.t_submit, req.t_done,
+                  rid=req.rid, tenant=lane.tenant, bucket=req.bucket,
+                  n_tokens=len(req.out),
+                  ttft_s=req.t_first - req.t_submit)
+
+    # -- the lane --------------------------------------------------------------
+
+    def _make_lane(self, params) -> _Lane:
+        n = self.n_slots
+        ex = self.model.executor
+        pool = None
+        if self.kv == "paged":
+            n_pages = default_pool_pages(n, self.max_len, self.page_size)
+            pool = PagedKVPool(n_pages, self.page_size, self.max_len, n)
+            cache = self.model.init_paged_cache(n, self.max_len, n_pages,
+                                                self.page_size)
+        else:
+            cache = self.model.init_cache(n, self.max_len)
+        return _Lane(tenant=TENANT, params=params, slots=[None] * n,
+                     cache=cache, queue=[], decode=self._make_decode(),
+                     pool=pool, width=n,
+                     device_cost=(ex.device_token_cost(TENANT)
+                                  if ex is not None else None))
+
+    def _make_decode(self) -> Callable:
+        """The window step ``(params, tokens, cache, m, leak) -> (token,
+        cache)``.
+
+        ``tokens`` is the fixed (width, chunk) window; ``m`` the per-row
+        valid counts (chunk tokens for a row mid-prompt, 1 for a decoding
+        row, 0 for an empty slot).  The cache fill marker is pinned to
+        ``old_len + m``, so pad positions past a row's count are never
+        attendable, and the token emitted at row position ``m - 1`` equals
+        an unpadded reference's.  ``leak`` is the write-plane leakage as a
+        device scalar (0.0 in this slice), read by the kernel from device
+        memory."""
+        model = self.model
+        ex = model.executor
+
+        @torch.no_grad()
+        def window(params, tokens, cache, m, leak):
+            old = cache["layers"]["len"].clone()            # (L, B)
+            if ex is None:
+                logits, cache = model.decode_step(params, tokens, cache)
+            else:
+                with ex.leak_scope(leak):
+                    logits, cache = model.decode_step(params, tokens, cache)
+            layers = dict(cache["layers"])
+            layers["len"] = (old + m[None, :]).to(old.dtype)
+            idx = torch.clamp(m - 1, min=0).to(torch.int64)
+            sel = logits[torch.arange(logits.shape[0],
+                                      device=logits.device), idx]
+            tok = torch.argmax(sel.to(torch.float32), dim=-1)
+            return tok.to(torch.int32), dict(cache, layers=layers)
+
+        return window
+
+    def submit(self, req: Request):
+        if req.model_id != TENANT:
+            raise ValueError(
+                f"request {req.rid} routes to unknown tenant "
+                f"{req.model_id!r}; serving [{TENANT!r}]")
+        req.t_submit = self.tracer.now()
+        self.metrics.counter(
+            "serve_requests_submitted_total",
+            help="requests accepted into a tenant queue").inc(tenant=TENANT)
+        self._lane.queue.append(req)
+
+    # -- later slices ----------------------------------------------------------
+
+    def set_weights(self, weights: Dict[str, float]) -> None:
+        raise _later("QoS weights (set_weights)")
+
+    def begin_hot_swap(self, new_params, chunks_per_step: int = 8,
+                       tenant: str = TENANT):
+        raise _later("hot-swap (begin_hot_swap)")
+
+    def stop_the_world_swap(self, new_params, tenant: str = TENANT):
+        raise _later("hot-swap (stop_the_world_swap)")
+
+    # -- admission (host bookkeeping only: slots + pages) --------------------
+
+    def _leak_now(self) -> torch.Tensor:
+        ex = self.model.executor
+        return (ex.current_leak_codes() if ex is not None
+                else torch.zeros((), dtype=torch.float32,
+                                 device=self.device))
+
+    def _admit(self, lane: _Lane) -> None:
+        """Move queued requests into free slots: a slot index, a
+        page-table row and a fill marker — host bookkeeping, so admission
+        never stalls an in-flight step.  When the pool cannot cover a
+        request's whole lifetime (``min(prompt + max_new - 1, max_len)``
+        tokens, claimed up front) the request waits in FIFO order."""
+        while lane.queue:
+            req = lane.queue[0]
+            feed = np.asarray(
+                req.prompt.cpu() if torch.is_tensor(req.prompt)
+                else req.prompt, dtype=np.int32).reshape(-1)
+            plen = int(feed.shape[0])
+            if plen - 1 >= self.max_len:
+                # the last real token's K/V lands at position plen - 1
+                raise ValueError(f"prompt length {plen} exceeds the "
+                                 f"scheduler's max_len {self.max_len}")
+            free = [i for i, s in enumerate(lane.slots) if s is None]
+            if not free:
+                return
+            row = free[0]
+            layers = lane.cache["layers"]
+            if lane.pool is not None:
+                need = min(plen + req.max_new - 1, self.max_len)
+                if not lane.pool.can_alloc(need):
+                    return                        # backpressure: wait, FIFO
+                pages = lane.pool.alloc(row, need)
+                req.bucket = len(pages)
+                tab = torch.from_numpy(lane.pool.table_row(row))
+                layers["pt"][:, row] = tab.to(self.device)[None]
+            layers["len"][:, row] = 0
+            lane.queue.pop(0)
+            req.feed = feed
+            req.fed = 0
+            if req.t_admit is None:
+                req.t_admit = self.tracer.now()
+                if self.metrics.enabled and req.t_submit is not None:
+                    self.metrics.histogram(
+                        "serve_queue_wait_seconds",
+                        help="submit-to-admission wait").observe(
+                        req.t_admit - req.t_submit, tenant=lane.tenant)
+            lane.slots[row] = req
+
+    def _release_slot(self, lane: _Lane, row: int) -> None:
+        """Return a completed slot: reclaim its pages and null its table
+        row so stale writes land on the null page."""
+        lane.slots[row] = None
+        layers = lane.cache["layers"]
+        if lane.pool is not None:
+            lane.pool.free_row(row)
+            layers["pt"][:, row] = 0
+        layers["len"][:, row] = 0
+
+    def step(self) -> List[Request]:
+        """One window step over the active slots; returns the requests
+        that finished.  Each occupied row contributes its next prompt
+        chunk or its last generated token; empty rows ride along at
+        ``m = 0``.  One fixed-shape call serves them all."""
+        lane = self._lane
+        finished: List[Request] = []
+        self._admit(lane)
+        if all(s is None for s in lane.slots):
+            return finished
+        c = self.chunk
+        toks = np.zeros((lane.width, c), np.int32)
+        m = np.zeros((lane.width,), np.int32)
+        emit: List[Optional[str]] = [None] * lane.width
+        for i, req in enumerate(lane.slots):
+            if req is None:
+                continue
+            flen = int(req.feed.shape[0])
+            if req.fed < flen:
+                piece = req.feed[req.fed:req.fed + c]
+                toks[i, :piece.shape[0]] = piece
+                m[i] = piece.shape[0]
+                req.fed += int(piece.shape[0])
+                if req.fed >= flen:
+                    emit[i] = "admission"     # final chunk: first token
+            else:
+                toks[i, 0] = req.out[-1]
+                m[i] = 1
+                emit[i] = "decode"
+        t0 = self.tracer.now()
+        tok, lane.cache = lane.decode(
+            lane.params, torch.from_numpy(toks).to(self.device), lane.cache,
+            torch.from_numpy(m).to(self.device), self._leak_now())
+        tok_host = tok.cpu().numpy()
+        n_admit = n_dec = 0
+        for i, req in enumerate(lane.slots):
+            if req is None or emit[i] is None:
+                continue
+            req.out.append(int(tok_host[i]))
+            if emit[i] == "admission":
+                req.t_first = self.tracer.now()
+                n_admit += 1
+                if self.metrics.enabled and req.t_submit is not None:
+                    self.metrics.histogram(
+                        "serve_ttft_seconds",
+                        help="submit to first emitted token").observe(
+                        req.t_first - req.t_submit, tenant=lane.tenant)
+            else:
+                n_dec += 1
+            if len(req.out) >= req.max_new:
+                req.t_done = self.tracer.now()
+                self._finish_request(lane, req)
+                finished.append(req)
+                self._release_slot(lane, i)
+        self._account_tokens(lane, n_admit, "admission")
+        self._account_tokens(lane, n_dec, "decode")
+        if self.metrics.enabled and (n_admit + n_dec):
+            # every emitted token materialized in this one batched step,
+            # so the per-token latency IS the step wall time
+            dt = self.tracer.now() - t0
+            h = self.metrics.histogram(
+                "serve_token_latency_seconds",
+                help="wall time of the step that produced each token")
+            for _ in range(n_admit + n_dec):
+                h.observe(dt, tenant=lane.tenant)
+        return finished
+
+    def kv_report(self) -> Dict[str, Dict[str, Any]]:
+        """Page-pool accounting (paged lane only), including the
+        conservation invariant ``pages_in_use + pages_free == n_pages``."""
+        lane = self._lane
+        return {TENANT: lane.pool.report()} if lane.pool is not None else {}
+
+    def attn_lane_report(self) -> Dict[str, Any]:
+        """Which paged-attention lane the steps dispatched, plus the
+        model's streaming configuration."""
+        from repro_torch.kernels.paged_attention import paged_path_calls
+        cfg = self.model.cfg
+        return {"paged_kernel": bool(cfg.paged_kernel),
+                "stream_min_pages": int(cfg.paged_stream_pages),
+                "block_pages": int(cfg.paged_block_pages),
+                "pages_per_seq": self.pages_per_seq,
+                "dispatch": dict(paged_path_calls)}

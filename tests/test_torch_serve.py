@@ -1,0 +1,161 @@
+"""The slice as a whole: the port's BatchScheduler against the reference's.
+
+Contract: on the SMOKE config at float32 with the crossbar backend and a
+paged KV cache, the same params (carried across by ``bridge``) and the
+same prompts give IDENTICAL greedy token streams in both packages — and
+in the port with and without its kernel path (on the CPU the wrappers
+run their plain versions), paged or dense.  A divergence would be a
+fault unless shown to be a logit near-tie.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs one worker process per core
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro.models.model import build_model as jax_build  # noqa: E402
+from repro.serve.engine import BatchScheduler as JaxScheduler  # noqa: E402
+from repro.serve.engine import Request as JaxRequest  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import layers as port_layers  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.serve.engine import BatchScheduler, Request  # noqa: E402
+
+PROMPT_LENS = (5, 11, 3)
+MAX_NEW = 4
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    vocab = get_config("qwen3-4b", smoke=True).vocab
+    return [rng.integers(0, vocab - 1, n).astype(np.int32)
+            for n in PROMPT_LENS]
+
+
+def _serve(sched, make_request):
+    for i, p in enumerate(_prompts()):
+        sched.submit(make_request(rid=i, prompt=p, max_new=MAX_NEW))
+    done, steps = [], 0
+    while len(done) < len(PROMPT_LENS) and steps < 100:
+        done += sched.step()
+        steps += 1
+    return {r.rid: list(r.out) for r in done}
+
+
+def _port_model(**over):
+    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True),
+                              backend="crossbar", dtype=torch.float32,
+                              **over)
+    return build_model(cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's streams and params (one JAX run per module)."""
+    cfg = dataclasses.replace(jax_config("qwen3-4b", smoke=True),
+                              backend="crossbar", dtype=jnp.float32)
+    model = jax_build(cfg)
+    params = model.init(jax.random.PRNGKey(0))
+    streams = _serve(JaxScheduler(model, params, n_slots=2, max_len=32),
+                     lambda prompt, **kw: JaxRequest(
+                         prompt=jnp.asarray(prompt), **kw))
+    return {"streams": streams, "params": jax.device_get(params),
+            "fingerprint": model.executor.fingerprint()}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_port_token_streams_equal_the_reference(reference, use_kernel):
+    over = {}
+    if use_kernel:
+        over = dict(paged_kernel=True,
+                    xbar=dataclasses.replace(
+                        get_config("qwen3-4b", smoke=True).xbar,
+                        use_kernel=True))
+    model = _port_model(**over)
+    params = params_from_numpy(reference["params"], "cpu")
+    streams = _serve(BatchScheduler(model, params, n_slots=2, max_len=32),
+                     Request)
+    assert streams == reference["streams"]
+    assert all(len(s) == MAX_NEW for s in streams.values())
+    assert model.executor.fingerprint() == reference["fingerprint"]
+
+
+def test_port_paged_streams_equal_port_dense(reference):
+    params = params_from_numpy(reference["params"], "cpu")
+    paged = _serve(BatchScheduler(_port_model(), params, n_slots=2,
+                                  max_len=32, kv="paged"), Request)
+    dense = _serve(BatchScheduler(_port_model(), params, n_slots=2,
+                                  max_len=32, kv="dense"), Request)
+    assert paged == dense == reference["streams"]
+
+
+def test_scheduler_reclaims_pages_and_reports_telemetry(reference):
+    params = params_from_numpy(reference["params"], "cpu")
+    sched = BatchScheduler(_port_model(), params, n_slots=2, max_len=32)
+    _serve(sched, Request)
+    rep = sched.kv_report()["A"]
+    assert rep["conservation_ok"] and rep["pages_in_use"] == 0
+    m = sched.metrics
+    assert m.total("serve_requests_completed_total") == len(PROMPT_LENS)
+    assert m.total("serve_tokens_total") == len(PROMPT_LENS) * MAX_NEW
+    assert m.total("serve_device_read_seconds_total") > 0
+    assert len(sched.tracer.spans("request")) == len(PROMPT_LENS)
+
+
+def test_later_slices_raise_not_implemented(reference):
+    params = params_from_numpy(reference["params"], "cpu")
+    model = _port_model()
+    for kw in (dict(prefix_share=True), dict(preemption=True),
+               dict(mode_policy="auto"),
+               dict(tenants={"A": params, "B": params})):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            BatchScheduler(model, params, n_slots=2, max_len=32, **kw)
+    sched = BatchScheduler(model, params, n_slots=2, max_len=32)
+    with pytest.raises(NotImplementedError, match="hot-swap"):
+        sched.begin_hot_swap(params)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--use-kernel", "--stream-pages", "2", "--block-pages", "2"]])
+def test_cli_serves_on_the_cpu(extra, capsys):
+    rep = serve_cli.main(["--smoke", "--backend", "crossbar", "--device",
+                          "cpu", "--requests", "3", "--slots", "2",
+                          "--prompt-len", "6", "--max-new", "3",
+                          "--max-len", "32", *extra])
+    assert rep["tokens"] == 9 and len(rep["requests"]) == 3
+    out = capsys.readouterr().out
+    assert "served 3 requests, 9 tokens" in out
+    if extra:
+        assert "streamed=" in out and "fallback=0" in out
+
+
+def test_entry_points_without_cuda_raise_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-4b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_cli.main(["--smoke", "--requests", "1"])
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_copy_paged_page_matches_reference():
+    rng = np.random.default_rng(4)
+    pools = {k: rng.standard_normal((2, 6, 4, 2, 8)).astype(np.float32)
+             for k in ("k", "v")}
+    ref = jax.device_get(jax_layers.paged_copy_page(
+        {k: jnp.asarray(v) for k, v in pools.items()}, jnp.int32(2),
+        jnp.int32(5)))
+    port = {k: torch.from_numpy(v.copy()) for k, v in pools.items()}
+    out = port_layers.paged_copy_page(port, 2, 5)
+    for k in ("k", "v"):
+        assert np.array_equal(out[k].numpy(), np.asarray(ref[k]))
