@@ -11,15 +11,24 @@ Phases, each of which fails the run (exit code 1, no result line):
              card at the main path's shapes, and time kernel, plain
              version and (for paged attention) one PyTorch SDPA call as
              a yardstick; the bound is the larger of bytes / 3.35 TB/s
-             and operations / the type's peak rate (H100 SXM data sheet);
+             and operations / the type's peak rate (H100 SXM data sheet).
+             The deep-net streaming kernel is driven through its entry
+             point ``stream_linear`` at every qwen3-4b projection and
+             held bitwise against the programmed read (``engine.linear``
+             on the crossbar-MAC kernel); the Jacobi kernel is driven
+             through ``ir_solve.solve`` and held against the dense nodal
+             solve;
 3. parity  — full-width qwen3-4b, 2 layers, float32, crossbar backend,
              paged KV: greedy streams with and without the CUDA kernels
-             must be identical;
+             must be identical, with every weight in deep-net layout and
+             under ``--mode-policy auto``;
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
-             with ``--backend crossbar --use-kernel --kv paged``, then a
-             shorter serve through the streamed attention lane; every
-             kernel of each path must have launched, and no plain
-             version may have run.
+             with ``--backend crossbar --use-kernel --kv paged``, the same
+             under ``--mode-policy auto`` (attention and head read as
+             expansion-fused pairs, 256 rows per ADC), then a shorter
+             serve through the streamed attention lane; every kernel of
+             each path must have launched, and no plain version may have
+             run.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` reports them; the line before that the kernels' JSON; the
@@ -95,19 +104,27 @@ def rel_err(torch, got, want):
 
 # -- phase 2: kernels against their plain versions -----------------------------
 
+# (name, K, N): every projection geometry of a qwen3-4b decode step
+GEOMS = [("wq", 2560, 4096), ("wk/wv", 2560, 2048), ("attn wo", 4096, 2560),
+         ("wi/wg", 2560, 9728), ("mlp wo", 9728, 2560),
+         ("head", 2560, 152064)]
+# the projections of one layer, then the head (wk/wv and wi/wg twice)
+LAYER_PATH = ["wq", "wk/wv", "wk/wv", "attn wo", "wi/wg", "wi/wg", "mlp wo",
+              "head"]
+
+
 def phase_crossbar_mac(torch, dev, flush):
     from repro_torch.kernels.crossbar_mac import kernel, ref
 
-    # (name, K, N): every projection geometry of a qwen3-4b decode step
-    geoms = [("wq", 2560, 4096), ("wk/wv", 2560, 2048),
-             ("attn wo", 4096, 2560), ("wi/wg", 2560, 9728),
-             ("mlp wo", 9728, 2560), ("head", 2560, 152064)]
+    geoms = GEOMS
     b, s, in_bits, adc_bits = 16, 4, 8, 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows_out, max_abs = [], 0.0
     runs = [(g, "deepnet", 128, leak) for g in geoms for leak in (0.0, 0.37)]
-    runs.append((geoms[0], "expansion", 256, 0.0))
+    # the expansion-fused reads of the auto policy: 256 rows per ADC
+    runs += [(geoms[0], "expansion", 256, 0.0),
+             (geoms[-1], "expansion", 256, 0.0)]
     for (name, k, n), mode, rows, leak in runs:
         x = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -133,7 +150,7 @@ def phase_crossbar_mac(torch, dev, flush):
         row = {"geometry": name, "k": k, "n": n, "b": b, "mode": mode,
                "leak": leak, "max_abs_err": err, "max_rel_err": rel,
                "tol": tol}
-        if leak == 0.0 and mode == "deepnet":
+        if leak == 0.0:
             row["ms"] = timed(torch, lambda: kernel.crossbar_mac(
                 x, pos, neg, lk, **kw), 10, flush)
             row["plain_ms"] = timed(torch, lambda: ref.crossbar_mac_ref(
@@ -261,9 +278,168 @@ def phase_paged_attention(torch, dev, flush):
     return out
 
 
+def phase_deepnet_stream(torch, dev, flush):
+    """``stream_linear`` (the entry point) at every qwen3-4b projection,
+    B 16, float32 weights: its launches are counted over that run alone.
+    Then each output is held BITWISE against ``engine.linear`` on the
+    crossbar-MAC kernel (program, then read: the same integer codes and
+    the same final conversion), and the kernel against its plain version
+    (1e-5 x max|y|: the plain version shift-adds in f32)."""
+    import dataclasses
+
+    from repro_torch.core import engine
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.deepnet_stream import kernel, ops, ref
+
+    b = 16
+    cfg = engine.EngineConfig(mode="deepnet", quant=QuantConfig())
+    q = cfg.quant
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    geoms = {name: (k, n) for name, k, n in GEOMS}
+    xs = {name: torch.randn((b, k), generator=gen, device=dev)
+          for name, (k, n) in geoms.items()}
+    ws = {name: torch.randn((k, n), generator=gen, device=dev) * 0.05
+          for name, (k, n) in geoms.items()}
+
+    # the entry point's own path: counts from this loop alone
+    kernel.LAUNCHES["deepnet_stream"] = 0
+    outs = {name: ops.stream_linear(xs[name], ws[name], cfg)
+            for name in LAYER_PATH}
+    torch.cuda.synchronize()
+    launches = kernel.LAUNCHES["deepnet_stream"]
+    check(launches == len(LAYER_PATH),
+          f"stream_linear launched deepnet_stream {launches} times for "
+          f"{len(LAYER_PATH)} calls")
+
+    rows, max_abs = [], 0.0
+    kcfg = dataclasses.replace(cfg, use_kernel=True)
+    kw = dict(w_bits=q.w_bits, in_bits=q.in_bits, adc_bits=q.adc_bits,
+              bits_per_cell=q.bits_per_cell, rows_per_adc=cfg.rows_per_adc)
+    for name, (k, n) in geoms.items():
+        x, w = xs[name], ws[name]
+        prog = engine.linear(x, w, kcfg)
+        y = outs[name]
+        check(bool(torch.isfinite(y).all()) and y.shape == (b, n),
+              f"stream_linear {name}: bad output")
+        prog_err = (y - prog).abs().max().item()
+        check(prog_err == 0.0, f"stream_linear {name} differs from the "
+              f"programmed read by {prog_err:.3e}")
+        x_int = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
+                              dtype=torch.int32)
+        scale = ops.weight_scales(w, q)
+        yk = kernel.deepnet_stream(x_int, w, scale, **kw)
+        yr = ref.deepnet_stream_ref(x_int, w, scale, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, yk, yr)
+        tol = 1e-5
+        check(rel <= tol, f"deepnet_stream {name}: max rel err {rel:.3e} "
+              f"> {tol:g}")
+        max_abs = max(max_abs, err)
+        row = {"geometry": name, "k": k, "n": n, "b": b,
+               "prog_max_abs_err": prog_err, "max_abs_err": err,
+               "max_rel_err": rel, "tol": tol}
+        if name == "head":
+            wb = w.to(torch.bfloat16)
+            row["ms"] = timed(torch, lambda: kernel.deepnet_stream(
+                x_int, w, scale, **kw), 10, flush)
+            row["ms_bf16"] = timed(torch, lambda: kernel.deepnet_stream(
+                x_int, wb, scale, **kw), 10, flush)
+            row["plain_ms"] = timed(torch, lambda: ref.deepnet_stream_ref(
+                x_int, w, scale, **kw), 2, flush)
+            ops_n = 2 * 2 * b * q.in_bits * q.n_slices * k * n
+            small = x_int.numel() * 4 + scale.numel() * 4 + b * n * 4
+            row["bound_ms"], row["bound_by"] = bound(
+                small + w.numel() * 4, ops_n, "int8")
+            row["bound_ms_bf16"], _ = bound(small + w.numel() * 2, ops_n,
+                                            "int8")
+            row["library_ms"] = None
+        rows.append(row)
+        log(f"  deepnet_stream {name:8s} K={k:5d} N={n:6d}: programmed "
+            f"read max|diff| {prog_err:.1e}; vs plain max|err| {err:.3e} "
+            f"(rel {rel:.2e} <= {tol:g})" + (
+                f"; kernel {row['ms']:.3f} ms (bf16 weights "
+                f"{row['ms_bf16']:.3f}), plain {row['plain_ms']:.3f} ms, "
+                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; bf16 "
+                f"{row['bound_ms_bf16']:.3f})" if "ms" in row else ""))
+        del x_int, yk, yr, prog
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "max_abs_err": max_abs}
+
+
+def phase_ir_solve(torch, dev, flush):
+    """``jacobi_sweeps`` against ``jacobi_sweep_ref`` at 10 x 10 (the
+    paper's array), 128 x 128 (the engine tile) and 512 x 512, 16 sweeps
+    (rtol 1e-5 / atol 1e-7); then ``ir_solve.solve`` (the entry point,
+    its launches counted over that run alone) against the dense nodal
+    solve at 12 x 8, within 2e-3."""
+    from repro_torch.core import ir_drop
+    from repro_torch.core.timing import PAPER
+    from repro_torch.kernels.ir_solve import kernel, ops
+    from repro_torch.kernels.ir_solve.ref import jacobi_sweep_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    g_w, sweeps = 1.0 / PAPER.r_wire, 16
+    rows = []
+    for n in (10, 128, 512):
+        g = (PAPER.g_reset + (PAPER.g_set - PAPER.g_reset)
+             * torch.rand((n, n), generator=gen, device=dev))
+        v_in = PAPER.v_read * torch.rand((n,), generator=gen, device=dev)
+        vr = v_in[:, None].expand(n, n).contiguous()
+        vc = torch.zeros((n, n), device=dev)
+        vin_col = v_in[:, None].contiguous()
+
+        def run():
+            return kernel.jacobi_sweeps(g, vin_col, vr, vc, g_w=g_w,
+                                        sweeps=sweeps)
+
+        def plain():
+            r, c = vr, vc
+            for _ in range(sweeps):
+                r, c = jacobi_sweep_ref(r, c, g, v_in, g_w, 1.0)
+            return r, c
+
+        kr, kc = run()
+        pr, pc = plain()
+        torch.cuda.synchronize()
+        err = max((kr - pr).abs().max().item(), (kc - pc).abs().max().item())
+        ok = (torch.allclose(kr, pr, rtol=1e-5, atol=1e-7)
+              and torch.allclose(kc, pc, rtol=1e-5, atol=1e-7))
+        check(ok, f"jacobi_sweeps {n}x{n}: max|err| {err:.3e} outside "
+              f"rtol 1e-5 / atol 1e-7")
+        nodes = n * n
+        nbytes = (3 * nodes + n) * 4 + 2 * nodes * 4
+        flops = (18 * sweeps + 4) * nodes
+        bnd, by = bound(nbytes, flops, "fp32")
+        row = {"n": n, "m": n, "sweeps": sweeps, "max_abs_err": err,
+               "bitwise": err == 0.0, "ms": timed(torch, run, 20, flush),
+               "plain_ms": timed(torch, plain, 5, flush),
+               "bound_ms": bnd, "bound_by": by, "library_ms": None}
+        rows.append(row)
+        log(f"  jacobi_sweeps {n:3d}x{n:<3d} {sweeps} sweeps: max|err| "
+            f"{err:.3e}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
+
+    g = torch.full((12, 8), PAPER.g_set, device=dev)
+    v = torch.full((12,), PAPER.v_write, device=dev)
+    kernel.LAUNCHES["jacobi_sweeps"] = 0
+    i_k, _, _ = ops.solve(g, v, n_iter=3000)
+    torch.cuda.synchronize()
+    launches = kernel.LAUNCHES["jacobi_sweeps"]
+    i_d, _, _ = ir_drop.solve_planar(g, v)
+    rel = ((i_k - i_d).abs() / i_d).max().item()
+    check(launches == 3000 // 16, f"solve launched jacobi_sweeps "
+          f"{launches} times")
+    check(rel < 2e-3, f"ir_solve.solve vs dense solve: rel err {rel:.3e}")
+    log(f"  ir_solve.solve 12x8, 3000 sweeps: {launches} kernel calls; max "
+        f"rel err vs the dense nodal solve {rel:.3e} (< 2e-3)")
+    return {"rows": rows, "launches": launches, "solve_rel_err": rel}
+
+
 # -- phase 3: token parity with and without the kernels -------------------------
 
-def phase_parity(torch, dev):
+def phase_parity(torch, dev, mode_policy=None):
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -288,8 +464,10 @@ def phase_parity(torch, dev):
         if params is None:
             params = model.init(0)
         mac.LAUNCHES["crossbar_mac"] = 0
+        mac.LAUNCHES_BY_ROWS.clear()
         pa.LAUNCHES["paged_attention_scratch"] = 0
-        sched = BatchScheduler(model, params, n_slots=2, max_len=64)
+        sched = BatchScheduler(model, params, n_slots=2, max_len=64,
+                               mode_policy=mode_policy)
         for i, p in enumerate(prompts):
             sched.submit(Request(rid=i, prompt=p, max_new=4))
         done, steps = [], 0
@@ -300,47 +478,63 @@ def phase_parity(torch, dev):
         n_mac = mac.LAUNCHES["crossbar_mac"]
         n_pa = pa.LAUNCHES["paged_attention_scratch"]
         check(len(done) == len(prompts), "parity run did not finish")
+        by_rows = dict(mac.LAUNCHES_BY_ROWS)
         check((n_mac > 0 and n_pa > 0) if use_kernel
               else (n_mac == 0 and n_pa == 0),
               f"use_kernel={use_kernel}: launches mac={n_mac} paged={n_pa}")
-        log(f"  use_kernel={use_kernel}: streams {streams[use_kernel]} "
-            f"(kernel launches: crossbar_mac {n_mac}, paged scratch {n_pa})")
+        if use_kernel and mode_policy == "auto":
+            check(by_rows.get(256, 0) > 0 and by_rows.get(128, 0) > 0,
+                  f"auto policy: crossbar_mac launches by rows {by_rows}")
+        log(f"  policy={mode_policy} use_kernel={use_kernel}: streams "
+            f"{streams[use_kernel]} (kernel launches: crossbar_mac {n_mac}"
+            f" {by_rows}, paged scratch {n_pa})")
         del model, sched
         gc.collect()
         torch.cuda.empty_cache()
     check(streams[False] == streams[True],
-          "greedy streams differ with and without the CUDA kernels")
+          f"greedy streams differ with and without the CUDA kernels "
+          f"(mode_policy={mode_policy})")
     return {"streams": {str(k): v for k, v in streams[True].items()},
-            "identical": True, "layers": 2, "dtype": "float32"}
+            "identical": True, "layers": 2, "dtype": "float32",
+            "mode_policy": mode_policy}
 
 
 # -- phase 4: serve through the port's CLI ---------------------------------------
 
-def _reset_counts():
-    from repro_torch import obs
+def _counters():
     from repro_torch.kernels.crossbar_mac import kernel as mac
     from repro_torch.kernels.crossbar_mac import ref as mac_ref
+    from repro_torch.kernels.deepnet_stream import kernel as ds
+    from repro_torch.kernels.deepnet_stream import ref as ds_ref
+    from repro_torch.kernels.ir_solve import kernel as ir
+    from repro_torch.kernels.ir_solve import ref as ir_ref
     from repro_torch.kernels.paged_attention import kernel as pa
     from repro_torch.kernels.paged_attention import ref as pa_ref
-    for counts in (mac.LAUNCHES, pa.LAUNCHES, mac_ref.CALLS, pa_ref.CALLS):
+    return ((mac.LAUNCHES, pa.LAUNCHES, ds.LAUNCHES, ir.LAUNCHES),
+            (mac_ref.CALLS, pa_ref.CALLS, ds_ref.CALLS, ir_ref.CALLS),
+            mac.LAUNCHES_BY_ROWS)
+
+
+def _reset_counts():
+    from repro_torch import obs
+    launches, calls, by_rows = _counters()
+    for counts in launches + calls:
         for key in counts:
             counts[key] = 0
+    by_rows.clear()
     obs.reset()
 
 
 def _read_counts():
     from repro_torch.core import engine
-    from repro_torch.kernels.crossbar_mac import kernel as mac
-    from repro_torch.kernels.crossbar_mac import ref as mac_ref
-    from repro_torch.kernels.paged_attention import kernel as pa
-    from repro_torch.kernels.paged_attention import ref as pa_ref
-    kernels = {**mac.LAUNCHES, **pa.LAUNCHES}
-    plain = {**mac_ref.CALLS, **pa_ref.CALLS,
-             "engine.matmul_reference": engine.path_calls["reference"]}
-    return kernels, plain
+    launches, calls, by_rows = _counters()
+    kernels = {k: v for counts in launches for k, v in counts.items()}
+    plain = {k: v for counts in calls for k, v in counts.items()}
+    plain["engine.matmul_reference"] = engine.path_calls["reference"]
+    return kernels, plain, dict(by_rows)
 
 
-def phase_serve(torch, dev, argv, must_launch):
+def phase_serve(torch, dev, argv, must_launch, rows_per_adc=()):
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
@@ -348,17 +542,21 @@ def phase_serve(torch, dev, argv, must_launch):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    check(held < 1 << 30, f"{held / 2**30:.2f} GiB still allocated before "
+          f"the serve")
     _reset_counts()
     rep = serve.main(argv)
     torch.cuda.synchronize()
-    kernels, plain = _read_counts()
+    kernels, plain, by_rows = _read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     toks = [t for r in rep["requests"] for t in r.out]
     log(f"  tokens/s {rep['tok_per_s']:.2f} ({rep['tokens']} tokens, "
         f"{rep['steps']} steps, {rep['seconds']:.2f} s); programming "
         f"{rep['program_s']:.2f} s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
-    log(f"  kernel launches {kernels}; plain-version calls {plain}")
+    log(f"  kernel launches {kernels} (crossbar_mac by rows per ADC "
+        f"{by_rows}); plain-version calls {plain}")
     n_req = int(argv[argv.index("--requests") + 1])
     max_new = int(argv[argv.index("--max-new") + 1])
     check(len(rep["requests"]) == n_req
@@ -367,13 +565,44 @@ def phase_serve(torch, dev, argv, must_launch):
     check(all(0 <= t < vocab for t in toks), "token outside the vocab")
     for name in must_launch:
         check(kernels[name] > 0, f"{name} never launched on this path")
+    for rows in rows_per_adc:
+        check(by_rows.get(rows, 0) > 0,
+              f"crossbar_mac never read {rows} rows per ADC on this path")
     check(all(v == 0 for v in plain.values()),
           f"plain versions ran on the serving path: {plain}")
     return {"argv": argv, "tok_per_s": rep["tok_per_s"],
             "tokens": rep["tokens"], "steps": rep["steps"],
             "seconds": rep["seconds"], "program_s": rep["program_s"],
-            "max_memory_allocated": peak, "launches": kernels,
-            "plain_calls": plain}
+            "max_memory_allocated": peak, "memory_before": held,
+            "launches": kernels, "launches_by_rows": by_rows,
+            "plain_calls": plain, "mode_report": rep.get("mode_report")}
+
+
+def check_mode_report(rep):
+    """The auto policy's report: attention and head fused, the MLP in
+    deep-net layout, and the IR-drop reduction scored on the card equal
+    to the port's CPU value within 1e-4 (two float32 LU solves of the
+    same nodal system: docs/PORT.md)."""
+    from repro_torch.core import ir_drop
+    from repro_torch.core.timing import PAPER
+
+    agg = rep["aggregate"]
+    layers = int(agg["n_expansion"] + agg["n_deepnet"])
+    check(agg["n_expansion"] == (layers - 1) // 7 * 4 + 1,
+          f"auto policy fused {agg['n_expansion']} of {layers} weights")
+    cpu = ir_drop.mode_ir_report(agg["tile_rows"], agg["tile_cols"],
+                                 r_wire=PAPER.r_wire, device="cpu")
+    diff = abs(agg["ir_drop_reduction_expansion"]
+               - cpu["ir_drop_reduction"])
+    check(diff <= 1e-4, f"IR-drop reduction on the card "
+          f"{agg['ir_drop_reduction_expansion']:.6f} vs the CPU "
+          f"{cpu['ir_drop_reduction']:.6f}")
+    log(f"  mode report: {agg['n_expansion']} expansion / "
+        f"{agg['n_deepnet']} deep-net weights; IR-drop reduction on the "
+        f"card {agg['ir_drop_reduction_expansion']:.6f}, CPU "
+        f"{cpu['ir_drop_reduction']:.6f} (|diff| {diff:.2e} <= 1e-4)")
+    return {"aggregate": agg, "cpu_ir_drop_reduction":
+            cpu["ir_drop_reduction"], "abs_diff": diff}
 
 
 def main() -> int:
@@ -422,6 +651,8 @@ def main() -> int:
         pa = phase_paged_attention(torch, dev, flush)
         report["crossbar_mac"] = mac_rows
         report["paged_attention"] = pa
+        report["deepnet_stream"] = phase_deepnet_stream(torch, dev, flush)
+        report["ir_solve"] = phase_ir_solve(torch, dev, flush)
         del flush
         torch.cuda.empty_cache()
 
@@ -429,6 +660,7 @@ def main() -> int:
         log("[3/4] token parity: full width, 2 layers, fp32, crossbar, "
             "paged KV, with and without the kernels")
         report["parity"] = phase_parity(torch, dev)
+        report["parity_auto"] = phase_parity(torch, dev, "auto")
 
         phase = "serve"
         log(f"[4/4] serve {ARCH} at full width through launch/serve.py")
@@ -438,7 +670,14 @@ def main() -> int:
                      "64", "--chunk", "4"]
         report["serve"] = phase_serve(
             torch, dev, main_argv,
-            ["crossbar_mac", "paged_attention_scratch"])
+            ["crossbar_mac", "paged_attention_scratch"], rows_per_adc=[128])
+        log("  --mode-policy auto (attention and head expansion-fused)")
+        report["serve_auto"] = phase_serve(
+            torch, dev, main_argv + ["--mode-policy", "auto"],
+            ["crossbar_mac", "paged_attention_scratch"],
+            rows_per_adc=[128, 256])
+        report["serve_auto"]["mode_check"] = check_mode_report(
+            report["serve_auto"]["mode_report"])
         log("  streamed lane: --stream-pages 4 --max-len 256, 4 layers")
         stream_argv = ["--arch", ARCH, "--layers", "4", "--backend",
                        "crossbar", "--use-kernel", "--kv", "paged",
@@ -455,7 +694,8 @@ def main() -> int:
 
     report["seconds"] = time.perf_counter() - t_start
     head = next(r for r in report["crossbar_mac"]
-                if r["geometry"] == "head" and "ms" in r)
+                if r["geometry"] == "head" and r["mode"] == "deepnet"
+                and "ms" in r)
     serve_l = report["serve"]["launches"]
     stream_l = report["serve_streamed"]["launches"]
     kernels = [
@@ -482,6 +722,29 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": f"B={r['b']} sq={r['sq']} max_len={r['max_len']}"})
+    ds_head = next(r for r in report["deepnet_stream"]["rows"]
+                   if r["geometry"] == "head")
+    kernels.append({
+        "name": "deepnet_stream", "route": "cuda",
+        "source": "src/repro_torch/csrc/deepnet_stream.cu",
+        "replaces": "src/repro/kernels/deepnet_stream/kernel.py:102",
+        "launches": report["deepnet_stream"]["launches"],
+        "max_abs_err": report["deepnet_stream"]["max_abs_err"],
+        "ms": ds_head["ms"], "plain_ms": ds_head["plain_ms"],
+        "bound_ms": ds_head["bound_ms"], "bound_by": ds_head["bound_by"],
+        "library_ms": None, "shape": f"B=16 K={ds_head['k']} "
+        f"N={ds_head['n']} f32 weights"})
+    tile = next(r for r in report["ir_solve"]["rows"] if r["n"] == 128)
+    kernels.append({
+        "name": "jacobi_sweeps", "route": "cuda",
+        "source": "src/repro_torch/csrc/ir_solve.cu",
+        "replaces": "src/repro/kernels/ir_solve/kernel.py:56",
+        "launches": report["ir_solve"]["launches"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in report["ir_solve"]["rows"]),
+        "ms": tile["ms"], "plain_ms": tile["plain_ms"],
+        "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
+        "library_ms": None, "shape": "128x128, 16 sweeps"})
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"chip_smoke: all phases passed in {report['seconds']:.1f} s")

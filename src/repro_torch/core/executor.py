@@ -18,22 +18,29 @@ Weights are addressed by *name*: ``models/transformer.py`` pushes name
 scopes (``blocks.3.attn``) around each sub-module, so the same layer
 functions resolve their tiles.
 
-This slice serves one tenant (``"A"``) with every weight read in the
-engine config's mode.  Hot-swap, eviction, multi-tenant multiplexing and
-the IR-drop-aware ``"auto"`` mode policy are later slices of the port
-and raise ``NotImplementedError``.
+Each weight's read mode is a physical plane layout fixed at program time
+by a *mode policy*: an expansion-fused plane pair (two row tiles summed
+in analog before one ADC conversion) or a deep-net slot.  ``"auto"``
+fuses the accuracy-critical weights (attention, the LM head) and keeps
+the MLP in deep-net layout; :meth:`CrossbarExecutor.mode_report` scores
+each choice with the exact nodal IR-drop solves of ``core/ir_drop.py``.
+
+This slice serves one tenant (``"A"``).  Hot-swap, eviction and
+multi-tenant multiplexing are later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch import obs
-from repro_torch.core import engine, planes, timing
+from repro_torch.core import engine, ir_drop, planes, timing
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.planes import PlaneBank
 
@@ -46,11 +53,20 @@ _STACKED_ROOTS = ("blocks",)
 #: the one tenant this slice serves
 TENANT = "A"
 
+#: per-weight read modes a policy may assign ("auto" resolves to one)
+READ_MODES = ("expansion", "deepnet")
+
+#: a mode policy: None (= cfg.mode for every weight), a uniform mode,
+#: "auto" (IR-drop-aware per-layer selection), or a mapping from weight
+#: name / dotted name fragment to a mode (values may themselves be
+#: "auto"; the special key "default" covers unmatched weights)
+ModePolicy = Union[None, str, Dict[str, str]]
+
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is a later slice of the PyTorch port (ROADMAP.md); this "
-        f"slice serves one tenant in the engine config's read mode")
+        f"slice serves one tenant")
 
 
 def flatten_with_path(tree: Any, prefix: Tuple[str, ...] = ()
@@ -96,6 +112,11 @@ class CrossbarExecutor:
         self._leak_override: Optional[Any] = None
         self._leak_zero: Optional[torch.Tensor] = None
         self._device: Optional[torch.device] = None
+        # per-weight read mode: one cached EngineConfig per mode, plus the
+        # resolved policy's reasons and the IR scores for mode_report
+        self._mode_cfgs: Dict[str, EngineConfig] = {cfg.mode: cfg}
+        self._mode_reasons: Dict[Tuple[str, str], str] = {}
+        self._ir_scores: Dict[Tuple[int, int], Dict[str, Any]] = {}
         self.stats = {"programmed": 0, "cache_hits": 0, "program_walks": 0}
 
     def _event(self, stat: str, metric: str, help: str, n: int = 1,
@@ -161,6 +182,161 @@ class CrossbarExecutor:
                                           device=self._device)
         return self._leak_zero
 
+    # -- per-weight read-mode policy ---------------------------------------
+
+    def _read_cfg(self, mode: str) -> EngineConfig:
+        """The engine config a read in ``mode`` uses: ``self.cfg`` when
+        the mode matches, else a cached ``dataclasses.replace`` variant.
+        Programming is mode-independent (one ``ProgrammedLinear`` serves
+        both read paths), so the mode only decides the read-time ADC
+        grouping (``rows_per_adc``)."""
+        cfg = self._mode_cfgs.get(mode)
+        if cfg is None:
+            cfg = self._mode_cfgs[mode] = dataclasses.replace(
+                self.cfg, mode=mode)
+        return cfg
+
+    def _row_tiles(self, k: int) -> int:
+        return -(-k // self.cfg.tile_rows)
+
+    def _auto_mode(self, name: str, k: int) -> Tuple[str, str]:
+        """IR-drop-aware per-layer selection.
+
+        Expansion mode cuts worst-case IR deviation (paper: 22%) but
+        fuses both planes read-only — no write shadow, so no overlapped
+        reprogramming.  The policy spends the fused pairs on
+        accuracy-critical layers (attention projections and the LM head)
+        and keeps the swap-heavy MLP mats in deep-net layout.  A layer
+        only qualifies when its row tiles pair up evenly (an odd count
+        would hit the per-plane ADC fallback and forfeit the benefit).
+        """
+        t = self._row_tiles(k)
+        parts = name.split(".")
+        critical = name == "head" or "attn" in parts or "xattn" in parts
+        if not critical:
+            return "deepnet", "auto: swap-heavy (mlp) — keep write shadow"
+        if t < 2 or t % 2:
+            return ("deepnet",
+                    f"auto: {t} row-tile(s) cannot pair across planes")
+        return "expansion", "auto: accuracy-critical (attention/head)"
+
+    def _validate_policy(self, policy: ModePolicy) -> None:
+        """Reject malformed policies before any residency state mutates:
+        a refused ``program_params`` call leaves the executor as it was."""
+        if policy is None:
+            return
+        valid = READ_MODES + ("auto",)
+        if isinstance(policy, str):
+            if policy not in valid:
+                raise ValueError(
+                    f"unknown mode policy {policy!r}: want one of "
+                    f"{valid} or a name->mode mapping")
+            return
+        for pat, mode in policy.items():
+            if mode not in valid:
+                raise ValueError(
+                    f"mode policy entry {pat!r} maps to {mode!r}; want "
+                    f"one of {valid}")
+
+    def _resolve_mode(self, policy: ModePolicy, name: str,
+                      k: int) -> Tuple[str, str]:
+        """(mode, reason) for one weight under ``policy``.
+
+        Mapping keys match the full dotted name, any contiguous dotted
+        fragment of it (``"attn"``, ``"attn.wq"``, ``"blocks.0"``; the
+        most specific — most segments, then longest — wins), or
+        ``"default"`` for the rest; values may be ``"auto"``.  Unmatched
+        weights without a ``"default"`` entry read in deep-net layout.
+        The policy has passed :meth:`_validate_policy`.
+        """
+        if isinstance(policy, str):
+            if policy == "auto":
+                return self._auto_mode(name, k)
+            return policy, f"uniform policy {policy!r}"
+        if name in policy:
+            mode, why = policy[name], f"policy[{name!r}]"
+        else:
+            hay = f".{name}."
+            best = None
+            for pat in policy:
+                if pat != "default" and f".{pat}." in hay:
+                    if (best is None
+                            or pat.count(".") > best.count(".")
+                            or (pat.count(".") == best.count(".")
+                                and len(pat) > len(best))):
+                        best = pat
+            if best is not None:
+                mode, why = policy[best], f"policy[{best!r}]"
+            else:
+                mode, why = policy.get("default", "deepnet"), "policy default"
+        if mode == "auto":
+            return self._auto_mode(name, k)
+        return mode, why
+
+    def mode_for(self, name: str, tenant: Optional[str] = None) -> str:
+        """The read mode the named weight is programmed in (ground truth
+        is bank residency, not the requested policy)."""
+        return self._cache[name].mode_for(self._resolve_tenant(tenant))
+
+    def _tile_scores(self, k: int, n: int,
+                     max_nodes: int = 1024) -> Dict[str, Any]:
+        """Worst-case IR-deviation scores at a weight's tile geometry
+        (nodal solves on the executor's device, cached per effective
+        tile)."""
+        key = (min(k, self.cfg.tile_rows), min(n, self.cfg.tile_cols))
+        score = self._ir_scores.get(key)
+        if score is None:
+            score = self._ir_scores[key] = ir_drop.mode_ir_report(
+                key[0], key[1], r_wire=self.cfg.params.r_wire,
+                params=self.cfg.params, max_nodes=max_nodes,
+                device=self._device)
+        return score
+
+    def mode_report(self, tenant: Optional[str] = None) -> Dict[str, Any]:
+        """Per-weight mode choices with their IR-drop economics.
+
+        For every resident weight of the tenant: the programmed mode, why
+        the policy chose it, and the worst-case IR deviation of a tile at
+        its geometry under each layout (``ir_drop.mode_ir_report``: exact
+        nodal solves at the all-SET/full-drive operating point, planar
+        2n-row tile vs the CrossStack fused pair).  The aggregate carries
+        the mean reduction over expansion-programmed layers — the paper's
+        headline 22% figure.
+        """
+        tenant = self._resolve_tenant(tenant)
+        layers: Dict[str, Any] = {}
+        for name in sorted(self._cache):
+            bank = self._cache[name]
+            if not bank.has_tenant(tenant):
+                continue
+            pw = bank.active_for(tenant)
+            score = self._tile_scores(pw.k, pw.n)
+            layers[name] = {
+                "mode": bank.mode_for(tenant),
+                "fused": bank.is_fused(tenant),
+                "row_tiles": int(pw.pos.shape[1]),
+                "k": pw.k, "n": pw.n,
+                "reason": self._mode_reasons.get((tenant, name), ""),
+                "dev_deepnet": score["dev_deepnet"],
+                "dev_expansion": score["dev_expansion"],
+                "ir_drop_reduction": score["ir_drop_reduction"],
+            }
+        exp = [e for e in layers.values() if e["mode"] == "expansion"]
+        agg = {
+            "tenant": tenant,
+            "n_expansion": len(exp),
+            "n_deepnet": len(layers) - len(exp),
+            "tile_rows": self.cfg.tile_rows,
+            "tile_cols": self.cfg.tile_cols,
+            "stack_planes": self.stack_planes,
+            # mean worst-case IR-drop reduction the fused pairs buy, over
+            # the layers actually programmed in expansion layout
+            "ir_drop_reduction_expansion": (
+                sum(e["ir_drop_reduction"] for e in exp) / len(exp)
+                if exp else 0.0),
+        }
+        return {"layers": layers, "aggregate": agg}
+
     def device_token_cost(self, tenant: Optional[str] = None,
                           ) -> Dict[str, Dict[str, float]]:
         """Modeled device cost of ONE full-model read (one token), split
@@ -208,12 +384,17 @@ class CrossbarExecutor:
                        mode_policy=None) -> int:
         """Program every eligible linear weight in ``params`` onto the
         tenant's planes, weight by weight (each weight's quantization
-        temporaries are freed before the next); idempotent.  Returns the
-        number of weights newly programmed."""
+        temporaries are freed before the next); idempotent.
+
+        ``mode_policy`` decides each weight's plane layout: ``None``
+        (every weight in ``cfg.mode``), a uniform ``"expansion"`` /
+        ``"deepnet"``, ``"auto"``, or a name->mode mapping (see
+        :meth:`_resolve_mode`).  Re-walking the same tree is a cache hit;
+        asking a resident weight for the other layout is an error (modes
+        are physical plane layout).  Returns the number of weights newly
+        programmed."""
         tenant = self._resolve_tenant(tenant)
-        if mode_policy is not None:
-            raise _later(f"mode_policy={mode_policy!r} (per-weight read "
-                         f"modes and the IR-drop-aware 'auto' policy)")
+        self._validate_policy(mode_policy)
         leaves = flatten_with_path(params)
         tree = tuple(w for _, w in leaves)
         if tenant not in self._programmed_leaves:
@@ -228,15 +409,30 @@ class CrossbarExecutor:
         new = 0
         with torch.no_grad():
             for name, w, n_in in self._eligible(leaves):
-                new += self._program_one(name, w, n_in, tenant)
+                if mode_policy is None:
+                    # no preference: resident weights keep their layout,
+                    # new ones program in the engine's cfg.mode
+                    mode, reason = None, "engine default (cfg.mode)"
+                else:
+                    k = math.prod(w.shape[:n_in])
+                    mode, reason = self._resolve_mode(mode_policy, name, k)
+                new += self._program_one(name, w, n_in, tenant, mode,
+                                         reason)
         if new:
             self._versions[tenant] = self._versions.get(tenant, 0) + 1
         return new
 
     def _program_one(self, name: str, w: torch.Tensor, n_in: int,
-                     tenant: str) -> int:
+                     tenant: str, mode: Optional[str], reason: str) -> int:
         bank = self._cache.get(name)
         if bank is not None and bank.has_tenant(tenant):
+            have = bank.mode_for(tenant)
+            if mode is not None and have != mode:
+                raise RuntimeError(
+                    f"{name}: tenant {tenant!r} is already resident in "
+                    f"{have} layout but the policy asks for {mode}; mode "
+                    f"is physical plane layout — re-program a fresh "
+                    f"executor to change it")
             self._event("cache_hits", "crossstack_program_cache_hits_total",
                         "re-walks that found the weight already resident",
                         tenant=tenant)
@@ -249,15 +445,21 @@ class CrossbarExecutor:
             self._n_in[name] = n_in
         if self._device is None:
             self._device = w2d.device
+        # programming is mode-independent: the same ProgrammedLinear
+        # serves both read paths; the mode decides slot layout (fused
+        # pair vs single plane) and the read-time ADC grouping
+        if mode is None:
+            mode = self.cfg.mode
         pw = engine.program(w2d, self.cfg)
         fp = planes.fingerprint_weight(w2d)
-        if self.cfg.mode == "expansion":
+        if mode == "expansion":
             bank.assign_fused(tenant, pw, fp)
         else:
             bank.assign(tenant, pw, fp)
+        self._mode_reasons[(tenant, name)] = reason
         self._event("programmed", "crossstack_programmed_weights_total",
                     "weights programmed onto resident planes",
-                    tenant=tenant, mode=self.cfg.mode)
+                    tenant=tenant, mode=mode)
         return 1
 
     def _same_tree(self, leaves: Tuple[Any, ...], tenant: str) -> bool:
@@ -285,13 +487,15 @@ class CrossbarExecutor:
         """Resident-tile execution of ``x @ W`` for the named weight.
 
         ``w`` is consulted only for its shape; the arithmetic reads the
-        tenant's plane.  An expansion-fused pair never hosts a write, so
-        its reads carry no leak term; other reads carry the ambient
-        :meth:`leak_scope` value (0.0 outside one)."""
+        tenant's plane in the mode of its residency layout (an
+        expansion-fused pair reads with doubled-input ADC grouping).  A
+        fused pair never hosts a write, so its reads carry no leak term;
+        other reads carry the ambient :meth:`leak_scope` value (0.0
+        outside one)."""
         tenant = self._resolve_tenant(tenant)
         bank = self._cache[name]
         pw = bank.active_for(tenant)
-        cfg = self.cfg
+        cfg = self._read_cfg(bank.mode_for(tenant))
         n_in = self._n_in[name]
         lead = x.shape[:-n_in]
         k = math.prod(x.shape[-n_in:])

@@ -47,157 +47,61 @@
 //   * `leak` (the write plane's common-mode pre-ADC offset) is read from a
 //     device tensor, so one build serves leak = 0 and leak != 0.
 //
+// The MAC and ADC live in xbar_mac.cuh, shared with deepnet_stream.cu;
+// this file supplies the cell codes from the int8 planes.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: the ADC rounding must be exact).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "xbar_mac.cuh"
+
 namespace {
 
-constexpr int kBT = 16;           // batch rows per block
-constexpr int kNT = 128;          // output columns per block (= threads)
-constexpr int kMaxInBits = 16;
-constexpr int kMaxAdcBits = 15;   // codes x 2^(in_bits-1) stay in int32
-constexpr int kMaxLut = 512;      // pre-ADC sums 0 .. rows * (2^bpc - 1)
+// One column's cell codes come straight from the int8 planes in device
+// memory: each code is read once per row group and slice.
+template <int BPC, int WORDS>
+struct PlaneCells {
+  const int8_t* __restrict__ pos;
+  const int8_t* __restrict__ neg;
+  size_t kn;
+  int N;
+  int col;
 
-__device__ __forceinline__ int adc_code(int acc, float leak, float lsb,
-                                        float levels) {
-  float v = __fdiv_rn(__fadd_rn(static_cast<float>(acc), leak), lsb);
-  v = rintf(v);
-  v = fminf(fmaxf(v, 0.0f), levels);
-  return static_cast<int>(v);
-}
+  __device__ __forceinline__ void begin_group(int, int) {}
+
+  __device__ __forceinline__ void masks(int s, int k0, int kvalid,
+                                        uint32_t* mp, uint32_t* mn) const {
+    const size_t off = s * kn + static_cast<size_t>(k0) * N + col;
+    const int8_t* ps = pos + off;
+    const int8_t* ns = neg + off;
+    const int n = N;
+    xbar::build_masks<BPC, WORDS>(
+        [ps, ns, n](int row, uint32_t& pv, uint32_t& nv) {
+          pv = static_cast<uint8_t>(ps[static_cast<size_t>(row) * n]);
+          nv = static_cast<uint8_t>(ns[static_cast<size_t>(row) * n]);
+        },
+        kvalid, mp, mn);
+  }
+};
 
 template <int BPC, int WORDS>
-__global__ void __launch_bounds__(kNT) crossbar_mac_kernel(
+__global__ void __launch_bounds__(xbar::kNT) crossbar_mac_kernel(
     const int32_t* __restrict__ x, const int8_t* __restrict__ pos,
     const int8_t* __restrict__ neg, const float* __restrict__ leak_ptr,
     unsigned long long* __restrict__ acc_out, int B, int K, int N, int S,
     int in_bits, int rows, int groups_per_split, float lsb, float levels) {
-  __shared__ uint32_t xm[kBT][kMaxInBits][WORDS];
-  __shared__ int adc_lut[kMaxLut];
-  const int col = blockIdx.x * kNT + threadIdx.x;
-  const int b0 = blockIdx.z * kBT;
-  const int nb = min(kBT, B - b0);
+  __shared__ xbar::Shared<WORDS> sm;
   const int n_groups = K / rows;
   const int g_begin = blockIdx.y * groups_per_split;
   const int g_end = min(n_groups, g_begin + groups_per_split);
-  const float leak = *leak_ptr;
-  const bool col_ok = col < N;
-  const size_t kn = static_cast<size_t>(K) * N;
-  const uint32_t umask = (1u << in_bits) - 1u;
-
-  // the ADC code of every possible pre-ADC sum (ordered before its first
-  // read by the __syncthreads at the top of the group loop)
-  for (int a = threadIdx.x; a <= rows * ((1 << BPC) - 1); a += kNT)
-    adc_lut[a] = adc_code(a, leak, lsb, levels);
-
-  long long out[kBT];
-#pragma unroll
-  for (int b = 0; b < kBT; ++b) out[b] = 0;
-
-  for (int g = g_begin; g < g_end; ++g) {
-    const int k0 = g * rows;
-    __syncthreads();  // the previous group's masks are no longer read
-    // pack this group's input bit planes: xm[b][p][w] bit r = bit p of
-    // x[b0 + b, k0 + 32 w + r] (two's complement, rows past the group 0)
-    for (int item = threadIdx.x; item < nb * WORDS; item += kNT) {
-      const int b = item / WORDS;
-      const int w = item % WORDS;
-      const int32_t* xr = x + static_cast<size_t>(b0 + b) * K + k0;
-      uint32_t u[32];
-#pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        const int row = 32 * w + r;
-        u[r] = row < rows ? (static_cast<uint32_t>(xr[row]) & umask) : 0u;
-      }
-      for (int p = 0; p < in_bits; ++p) {
-        uint32_t m = 0;
-#pragma unroll
-        for (int r = 0; r < 32; ++r) m |= ((u[r] >> p) & 1u) << r;
-        xm[b][p][w] = m;
-      }
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    for (int s = 0; s < S; ++s) {
-      // this column's cell codes of the group, as bit masks per cell bit
-      uint32_t mp[WORDS * BPC], mn[WORDS * BPC];
-      const int8_t* ps = pos + s * kn + static_cast<size_t>(k0) * N + col;
-      const int8_t* ns = neg + s * kn + static_cast<size_t>(k0) * N + col;
-#pragma unroll
-      for (int w = 0; w < WORDS; ++w) {
-        uint32_t pm[BPC], nm[BPC];
-#pragma unroll
-        for (int c = 0; c < BPC; ++c) pm[c] = nm[c] = 0u;
-#pragma unroll
-        for (int r = 0; r < 32; ++r) {
-          const int row = 32 * w + r;
-          if (row < rows) {
-            const uint32_t pv = static_cast<uint8_t>(
-                ps[static_cast<size_t>(row) * N]);
-            const uint32_t nv = static_cast<uint8_t>(
-                ns[static_cast<size_t>(row) * N]);
-#pragma unroll
-            for (int c = 0; c < BPC; ++c) {
-              pm[c] |= ((pv >> c) & 1u) << r;
-              nm[c] |= ((nv >> c) & 1u) << r;
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < BPC; ++c) {
-          mp[w * BPC + c] = pm[c];
-          mn[w * BPC + c] = nm[c];
-        }
-      }
-      int part[kBT];
-#pragma unroll
-      for (int b = 0; b < kBT; ++b) part[b] = 0;
-      for (int p = 0; p < in_bits; ++p) {
-        const int bitw = p < in_bits - 1 ? (1 << p) : -(1 << p);
-#pragma unroll
-        for (int b = 0; b < kBT; ++b) {
-          if (b < nb) {
-            int ap = 0, an = 0;
-#pragma unroll
-            for (int w = 0; w < WORDS; ++w) {
-              const uint32_t xw = xm[b][p][w];
-#pragma unroll
-              for (int c = 0; c < BPC; ++c) {
-                ap += __popc(xw & mp[w * BPC + c]) << c;
-                an += __popc(xw & mn[w * BPC + c]) << c;
-              }
-            }
-            part[b] += bitw * (adc_lut[ap] - adc_lut[an]);
-          }
-        }
-      }
-      const long long slcw = 1ll << (BPC * s);
-#pragma unroll
-      for (int b = 0; b < kBT; ++b) out[b] += part[b] * slcw;
-    }
-  }
-  if (!col_ok) return;
-#pragma unroll
-  for (int b = 0; b < kBT; ++b) {
-    if (b < nb) {
-      atomicAdd(acc_out + static_cast<size_t>(b0 + b) * N + col,
-                static_cast<unsigned long long>(out[b]));
-    }
-  }
-}
-
-__global__ void codes_to_float_kernel(
-    const unsigned long long* __restrict__ acc, float* __restrict__ out,
-    size_t n, float lsb) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-  if (i < n) {
-    const long long v = static_cast<long long>(acc[i]);
-    out[i] = static_cast<float>(static_cast<double>(v) *
-                                static_cast<double>(lsb));
-  }
+  PlaneCells<BPC, WORDS> cells{pos, neg, static_cast<size_t>(K) * N, N,
+                               static_cast<int>(blockIdx.x) * xbar::kNT +
+                                   static_cast<int>(threadIdx.x)};
+  xbar::mac_groups<BPC, WORDS>(cells, sm, x, *leak_ptr, acc_out, B, K, N,
+                               S, in_bits, rows, g_begin, g_end, lsb,
+                               levels);
 }
 
 template <int BPC, int WORDS>
@@ -206,20 +110,9 @@ cudaError_t launch_variant(dim3 grid, cudaStream_t st, const int32_t* x,
                            const float* leak, unsigned long long* acc,
                            int B, int K, int N, int S, int in_bits,
                            int rows, int gps, float lsb, float levels) {
-  crossbar_mac_kernel<BPC, WORDS><<<grid, kNT, 0, st>>>(
+  crossbar_mac_kernel<BPC, WORDS><<<grid, xbar::kNT, 0, st>>>(
       x, pos, neg, leak, acc, B, K, N, S, in_bits, rows, gps, lsb, levels);
   return cudaGetLastError();
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
 }
 
 }  // namespace
@@ -228,7 +121,7 @@ extern "C" {
 
 // Largest rows-per-ADC group and bits per cell this build supports.
 int crossbar_mac_max_rows(int bits_per_cell) {
-  return bits_per_cell == 1 ? 256 : (bits_per_cell == 2 ? 128 : 0);
+  return xbar::max_rows(bits_per_cell);
 }
 
 // x (B, K) int32; pos/neg (S, K, N) int8; leak (1,) f32; acc scratch
@@ -240,24 +133,15 @@ int crossbar_mac_launch(const void* x, const void* pos, const void* neg,
                         int rows, float lsb, float levels, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || N <= 0 || K <= 0 || rows <= 0 || K % rows != 0 ||
-      in_bits < 1 || in_bits > kMaxInBits || levels > (1 << kMaxAdcBits) ||
+      in_bits < 1 || in_bits > xbar::kMaxInBits ||
+      levels > (1 << xbar::kMaxAdcBits) ||
       rows > crossbar_mac_max_rows(bits_per_cell)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaMemsetAsync(
-      acc, 0, static_cast<size_t>(B) * N * sizeof(unsigned long long), st);
+  cudaError_t err = xbar::zero_codes(acc, B, N, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int gx = (N + kNT - 1) / kNT;
-  const int gz = (B + kBT - 1) / kBT;
-  const int n_groups = K / rows;
-  // split the row groups across blocks until the grid covers the card
-  // about four times over (integer accumulation keeps this exact)
-  const int target = 4 * sm_count();
-  int splits = (target + gx * gz - 1) / (gx * gz);
-  splits = splits < 1 ? 1 : (splits > n_groups ? n_groups : splits);
-  const int gps = (n_groups + splits - 1) / splits;
-  splits = (n_groups + gps - 1) / gps;
-  const dim3 grid(gx, splits, gz);
+  int gps = 0;
+  const dim3 grid = xbar::grid_for(B, N, K / rows, &gps);
   const int words = (rows + 31) / 32;
   const int32_t* xp = static_cast<const int32_t*>(x);
   const int8_t* pp = static_cast<const int8_t*>(pos);
@@ -279,12 +163,7 @@ int crossbar_mac_launch(const void* x, const void* pos, const void* neg,
   }
 #undef XB_LAUNCH
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n = static_cast<size_t>(B) * N;
-  const int threads = 256;
-  codes_to_float_kernel<<<static_cast<unsigned>((n + threads - 1) / threads),
-                          threads, 0, st>>>(ap, static_cast<float*>(out), n,
-                                            lsb);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(xbar::codes_to_float(acc, out, B, N, lsb, st));
 }
 
 }  // extern "C"

@@ -8,9 +8,10 @@ shared library with a plain C interface, loaded with ``ctypes``:
 
 Libraries are built at first use (or all at once, in parallel, by
 :func:`build_all`) into ``repro_torch/build/``, which ``.gitignore``
-lists; the file name carries a digest of the source and the flags, so a
-changed source never loads a stale build.  Nothing here runs at import
-time: the CPU tests import every module on a machine without ``nvcc``.
+lists; the file name carries a digest of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source never loads a stale
+build.  Nothing here runs at import time: the CPU tests import every
+module on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Dict, Iterable, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("crossbar_mac", "paged_attention")
+SOURCES = ("crossbar_mac", "paged_attention", "deepnet_stream", "ir_solve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,9 +52,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
     h = hashlib.blake2b(digest_size=6)
-    h.update(src.read_bytes())
+    for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()}.so"
 

@@ -8,6 +8,7 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -17,6 +18,8 @@ from repro_torch.kernels.crossbar_mac import ref
 
 #: kernel launches since the count was last set to 0
 LAUNCHES = {"crossbar_mac": 0}
+#: the same launches by rows per ADC
+LAUNCHES_BY_ROWS: Counter = Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -99,4 +102,5 @@ def crossbar_mac(x_int: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor,
             in_bits, bits_per_cell, rows_per_adc, lsb, levels, stream)
     build.check(err, "crossbar_mac")
     LAUNCHES["crossbar_mac"] += 1
+    LAUNCHES_BY_ROWS[rows_per_adc] += 1
     return out

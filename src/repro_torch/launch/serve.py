@@ -16,6 +16,12 @@ stream into the running batch as ``--chunk``-token prefill chunks.
 ``--stream-pages N`` routes decode attention through the streamed
 (online-softmax) lane once a row's page table is at least N pages wide.
 
+``--mode-policy`` (crossbar backend only) sets each weight's read mode:
+an expansion-fused plane pair cuts worst-case IR drop (paper: 22%) but
+gives up the write shadow; ``auto`` fuses the accuracy-critical layers
+(attention, head) and keeps the MLP in deep-net layout, and the per-layer
+choices and IR-drop deltas print from ``mode_report()``.
+
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
 PyTorch path on the CPU.  ``--layers N`` cuts the configuration's depth
 (never its width).
@@ -34,6 +40,48 @@ from repro_torch.models.model import build_model
 from repro_torch.serve.engine import BatchScheduler, Request
 
 
+def parse_mode_policy(spec):
+    """``--mode-policy`` parsing: ``auto`` | ``expansion`` | ``deepnet``
+    | ``name=mode[,name=mode...]`` (names may be dotted fragments like
+    ``attn`` or ``blocks.0.mlp.wi``; ``default=<mode>`` covers the rest;
+    mapped modes may themselves be ``auto``)."""
+    if spec is None:
+        return None
+    if spec in ("auto", "expansion", "deepnet"):
+        return spec
+    policy = {}
+    for item in spec.split(","):
+        name, sep, mode = item.partition("=")
+        name, mode = name.strip(), mode.strip()
+        if not sep or not name or mode not in ("expansion", "deepnet",
+                                               "auto"):
+            raise SystemExit(
+                f"--mode-policy: bad entry {item!r} (want auto | "
+                f"expansion | deepnet | name=mode,... with mode one of "
+                f"expansion/deepnet/auto)")
+        policy[name] = mode
+    return policy
+
+
+def _print_mode_report(rep) -> None:
+    agg = rep["aggregate"]
+    print(f"mode policy: {agg['n_expansion']} expansion-fused / "
+          f"{agg['n_deepnet']} deep-net weight grids; mean worst-case "
+          f"IR-drop reduction on expansion layers "
+          f"{agg['ir_drop_reduction_expansion'] * 100:.1f}% (paper: 22%)")
+    for name, entry in list(rep["layers"].items())[:6]:
+        gain = (f"-{entry['ir_drop_reduction'] * 100:.1f}% IR drop"
+                if entry["mode"] == "expansion" else
+                f"-{entry['ir_drop_reduction'] * 100:.1f}% if fused")
+        print(f"  {name}: {entry['mode']:9s} "
+              f"dev {entry['dev_deepnet']:.4f} -> "
+              f"{entry['dev_expansion']:.4f} ({gain})  "
+              f"[{entry['reason']}]")
+    if len(rep["layers"]) > 6:
+        print(f"  ... {len(rep['layers']) - 6} more weight grids "
+              f"(sched.mode_report() for the full table)")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -49,6 +97,9 @@ def main(argv=None):
     ap.add_argument("--backend", default="digital",
                     choices=["digital", "crossbar"],
                     help="crossbar = weight-resident tiles, program-once")
+    ap.add_argument("--mode-policy", default=None, metavar="POLICY",
+                    help="per-weight read modes (crossbar backend): auto | "
+                         "expansion | deepnet | name=mode,...")
     ap.add_argument("--use-kernel", action="store_true",
                     help="crossbar reads and paged attention through the "
                          "CUDA kernels (EngineConfig.use_kernel, "
@@ -81,6 +132,9 @@ def main(argv=None):
     if args.stream_pages and args.kv != "paged":
         raise SystemExit("--stream-pages routes paged attention; it "
                          "requires --kv paged")
+    if args.mode_policy and args.backend != "crossbar":
+        raise SystemExit("--mode-policy requires --backend crossbar")
+    mode_policy = parse_mode_policy(args.mode_policy)
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -100,7 +154,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     sched = BatchScheduler(model, params, n_slots=args.slots,
                            max_len=args.max_len, kv=args.kv,
-                           page_size=args.page_size, chunk=args.chunk)
+                           page_size=args.page_size, chunk=args.chunk,
+                           mode_policy=mode_policy)
     _sync(device)
     program_s = time.perf_counter() - t0
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
@@ -125,6 +180,8 @@ def main(argv=None):
                   f"fingerprint={entry['fingerprint']} "
                   f"modes={m['expansion']} expansion / "
                   f"{m['deepnet']} deep-net")
+        if mode_policy is not None:
+            _print_mode_report(sched.mode_report())
 
     gen = torch.Generator()
     gen.manual_seed(1)
@@ -159,9 +216,12 @@ def main(argv=None):
               f"fallback={d['paged_fallback']}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out[:8]}...")
-    return {"requests": done, "tokens": total_tokens, "steps": steps,
-            "seconds": dt, "tok_per_s": total_tokens / max(dt, 1e-9),
-            "program_s": program_s}
+    out = {"requests": done, "tokens": total_tokens, "steps": steps,
+           "seconds": dt, "tok_per_s": total_tokens / max(dt, 1e-9),
+           "program_s": program_s}
+    if mode_policy is not None:
+        out["mode_report"] = sched.mode_report()
+    return out
 
 
 if __name__ == "__main__":

@@ -10,9 +10,11 @@ never stalls an in-flight decode step.  KV storage is a block-paged pool
 allocation at admission and reclaim at completion.  Each step is one
 eager call; nothing is traced or captured.
 
-This slice serves one tenant.  Hot-swap, multi-tenant multiplexing with
-QoS weights, prefix sharing and preemption are later slices of the port
-and raise ``NotImplementedError``.
+This slice serves one tenant, with the executor's per-weight read-mode
+policy (``mode_policy``) and its :meth:`BatchScheduler.mode_report`.
+Hot-swap, multi-tenant multiplexing with QoS weights, prefix sharing and
+preemption are later slices of the port and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -73,6 +75,8 @@ class _Lane:
     width: int = 0
     # modeled per-token device read cost by mode (crossbar backend)
     device_cost: Optional[Dict[str, Dict[str, float]]] = None
+    # tokens emitted by this lane (admission + decode)
+    tokens_served: int = 0
 
 
 class BatchScheduler:
@@ -95,8 +99,6 @@ class BatchScheduler:
                  prefix_share: bool = False, preemption: bool = False):
         if tenants is not None and set(tenants) != {TENANT}:
             raise _later("multi-tenant multiplexing (tenants=...)")
-        if mode_policy is not None:
-            raise _later("per-weight read-mode policies (mode_policy=...)")
         if prefix_share:
             raise _later("prefix sharing (prefix_share=True)")
         if preemption:
@@ -108,6 +110,11 @@ class BatchScheduler:
                              f"{max_len}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if mode_policy is not None and model.executor is None:
+            raise RuntimeError(
+                "mode_policy selects per-weight crossbar read modes; it "
+                "requires the crossbar backend "
+                "(ModelConfig(backend='crossbar'))")
         if tenants is not None:
             params = tenants[TENANT]
         self.model = model
@@ -124,8 +131,9 @@ class BatchScheduler:
         executor = model.executor
         if executor is not None:
             # crossbar backend: program the weights ONCE at construction
-            # (program-at-load, read-at-inference)
-            executor.ensure_programmed(params)
+            # (program-at-load, read-at-inference); mode_policy decides
+            # each weight's plane layout here, and reads follow it
+            executor.ensure_programmed(params, mode_policy=mode_policy)
         self._lane = self._make_lane(params)
 
     # -- telemetry helpers ---------------------------------------------------
@@ -133,7 +141,10 @@ class BatchScheduler:
     def _account_tokens(self, lane: _Lane, n: int, kind: str) -> None:
         """Count ``n`` emitted tokens, plus modeled device-read time and
         energy split by read mode."""
-        if n <= 0 or not self.metrics.enabled:
+        if n <= 0:
+            return
+        lane.tokens_served += n
+        if not self.metrics.enabled:
             return
         self.metrics.counter(
             "serve_tokens_total",
@@ -379,6 +390,46 @@ class BatchScheduler:
         conservation invariant ``pages_in_use + pages_free == n_pages``."""
         lane = self._lane
         return {TENANT: lane.pool.report()} if lane.pool is not None else {}
+
+    def mode_report(self, tenant: Optional[str] = None) -> Dict[str, Any]:
+        """Per-weight read-mode choices and their IR-drop economics
+        (``CrossbarExecutor.mode_report``) plus a ``traffic`` block:
+        tokens served and the modeled device read time / energy /
+        pJ-per-token accumulated per read mode."""
+        ex = self.model.executor
+        if ex is None:
+            raise RuntimeError(
+                "mode_report requires the crossbar backend "
+                "(ModelConfig(backend='crossbar'))")
+        if tenant not in (None, TENANT):
+            raise KeyError(
+                f"no lane for tenant {tenant!r}: this scheduler serves "
+                f"tenants [{TENANT!r}]")
+        lane = self._lane
+        rep = ex.mode_report(tenant=TENANT)
+        tokens = lane.tokens_served
+        modes: Dict[str, Any] = {}
+        for mode, cost in sorted((lane.device_cost or {}).items()):
+            if self.metrics.enabled:
+                read_s = self.metrics.total(
+                    "serve_device_read_seconds_total",
+                    tenant=TENANT, mode=mode)
+                energy = self.metrics.total(
+                    "serve_device_energy_joules_total",
+                    tenant=TENANT, mode=mode)
+            else:
+                # metrics off: the per-token cost is constant, so the
+                # accumulated figure is exactly cost * tokens
+                read_s = cost["read_s"] * tokens
+                energy = cost["energy_j"] * tokens
+            modes[mode] = {
+                "device_read_s": read_s,
+                "energy_j": energy,
+                "pj_per_token": (energy / tokens * 1e12
+                                 if tokens else 0.0),
+            }
+        rep["traffic"] = {"tokens_served": tokens, "modes": modes}
+        return rep
 
     def attn_lane_report(self) -> Dict[str, Any]:
         """Which paged-attention lane the steps dispatched, plus the

@@ -115,7 +115,6 @@ def test_later_slices_raise_not_implemented(reference):
     params = params_from_numpy(reference["params"], "cpu")
     model = _port_model()
     for kw in (dict(prefix_share=True), dict(preemption=True),
-               dict(mode_policy="auto"),
                dict(tenants={"A": params, "B": params})):
         with pytest.raises(NotImplementedError, match="later slice"):
             BatchScheduler(model, params, n_slots=2, max_len=32, **kw)
@@ -125,7 +124,8 @@ def test_later_slices_raise_not_implemented(reference):
 
 
 @pytest.mark.parametrize("extra", [
-    [], ["--use-kernel", "--stream-pages", "2", "--block-pages", "2"]])
+    [], ["--use-kernel", "--stream-pages", "2", "--block-pages", "2"],
+    ["--use-kernel", "--mode-policy", "auto"]])
 def test_cli_serves_on_the_cpu(extra, capsys):
     rep = serve_cli.main(["--smoke", "--backend", "crossbar", "--device",
                           "cpu", "--requests", "3", "--slots", "2",
@@ -134,8 +134,12 @@ def test_cli_serves_on_the_cpu(extra, capsys):
     assert rep["tokens"] == 9 and len(rep["requests"]) == 3
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens" in out
-    if extra:
+    if "--stream-pages" in extra:
         assert "streamed=" in out and "fallback=0" in out
+    if "--mode-policy" in extra:
+        # SMOKE widths are one 128-row tile: nothing pairs, all deep-net
+        assert rep["mode_report"]["aggregate"]["n_deepnet"] == 15
+        assert "mode policy: 0 expansion-fused / 15 deep-net" in out
 
 
 def test_entry_points_without_cuda_raise_unless_cpu_is_asked(monkeypatch):
