@@ -12,6 +12,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              version and (for paged attention) one PyTorch SDPA call as
              a yardstick; the bound is the larger of bytes / 3.35 TB/s
              and operations / the type's peak rate (H100 SXM data sheet).
+             Both paged lanes run again at a long-context shape (windows
+             up to 4096 tokens), the streamed lane also at the
+             long-context serve's shape (32 query rows per KV head), and
+             each carries, beside the call time, the device time of its
+             kernels alone (``torch.profiler``).
              The deep-net streaming kernel is driven through its entry
              point ``stream_linear`` at every qwen3-4b projection and
              held bitwise against the programmed read (``engine.linear``
@@ -25,8 +30,9 @@ Phases, each of which fails the run (exit code 1, no result line):
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
              with ``--backend crossbar --use-kernel --kv paged``, the same
              under ``--mode-policy auto`` (attention and head read as
-             expansion-fused pairs, 256 rows per ADC), then a shorter
-             serve through the streamed attention lane; every kernel of
+             expansion-fused pairs, 256 rows per ADC), then two 4-layer
+             serves through the streamed attention lane, the second with
+             1024-token prompts in a 2048-token window; every kernel of
              each path must have launched, and no plain version may have
              run.
 
@@ -94,6 +100,59 @@ def timed(torch, fn, reps: int, flush=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int, flush=None, names=None):
+    """Device milliseconds per call of ``fn``: the summed CUDA time of the
+    kernels whose names contain one of ``names`` (every kernel but the L2
+    flush when ``names`` is None) in a ``torch.profiler`` trace of
+    ``reps`` calls.  Before each call the flush buffer is READ, which
+    evicts the L2 without leaving dirty lines to write back during the
+    timed kernel.  Where the trace shows no device time, CUDA events
+    around ``reps`` back-to-back calls.  Returns (ms, source)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernel_times(prof):
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            yield evt.key, us
+
+    def cool():
+        if flush is not None:
+            flush.view(torch.int32).max()
+
+    fn()
+    skip = set()
+    if flush is not None:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cool()
+            torch.cuda.synchronize()
+        skip = {k for k, _ in kernel_times(prof)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cool()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(us for key, us in kernel_times(prof)
+                if (any(n in key for n in names) if names
+                    else key not in skip))
+    if total > 0:
+        return total / reps / 1e3, "torch.profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / reps,
+            f"cuda events over {reps} back-to-back calls")
 
 
 def rel_err(torch, got, want):
@@ -171,6 +230,19 @@ def phase_crossbar_mac(torch, dev, flush):
     return rows_out, max_abs
 
 
+#: kernel names of each paged lane, as the profiler reports them
+PAGED_KERNELS = {"scratch": ("paged_scratch_kernel",),
+                 "streamed": ("paged_split_kernel", "paged_combine_kernel")}
+#: the long-context shape: windows up to 4096 tokens, 8,336 attended
+LONG_CASE = dict(max_len=4096, kv_len=[4096, 3000, 1200, 40],
+                 block_pages=16)
+#: the long-context serve's attention shape (phase 4): chunk 16, so each
+#: KV head serves g * sq = 32 query rows, two 16-row groups of the split
+#: kernel; windows up to its 2048-token table
+SERVE_LONG_CASE = dict(sq=16, max_len=2048, kv_len=[2048, 1500, 1030, 17],
+                       block_pages=16)
+
+
 def _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv, hd, kv_len,
                 dtype):
     p_seq = max_len // ps
@@ -218,7 +290,65 @@ def _sdpa_yardstick(torch, args, causal=True):
                                                   attn_mask=mask)
 
 
+def _paged_run(kernel, ref, lane, args, bp):
+    if lane == "scratch":
+        return (lambda: kernel.paged_attention_scratch(*args),
+                lambda: ref.paged_attention_ref(*args))
+    return (lambda: kernel.paged_attention_streamed(*args, block_pages=bp),
+            lambda: ref.paged_attention_streamed_ref(*args, block_pages=bp))
+
+
+def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
+                   flush):
+    """Hold one lane against its plain version and time it: the call
+    (wrapper and launches, CUDA events), the kernels' device time alone,
+    the plain version and one SDPA call over the gathered view."""
+    run, plain = _paged_run(kernel, ref, lane, args, bp)
+    y = run()
+    y_ref = plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, y, y_ref)
+    # bf16 values: the weights (scratch) and outputs round to bf16,
+    # whose unit roundoff is 2^-8 = 3.9e-3
+    tol = 1e-2
+    check(bool(torch.isfinite(y.float()).all()),
+          f"paged_attention_{lane} max_len={max_len}: non-finite output")
+    check(rel <= tol, f"paged_attention_{lane} max_len={max_len}: max rel "
+          f"err {rel:.3e} > {tol:g}")
+    q = args[0]
+    b, sq, hq, hd = q.shape
+    kv = args[1].shape[2]
+    attended = sum(min(n, max_len) for n in kv_len)
+    nbytes = (2 * attended * kv * hd * 2 + 2 * y.numel() * 2
+              + args[3].numel() * 4 + 2 * b * 4)
+    ops = 4 * sq * hq * hd * attended
+    bnd, by = bound(nbytes, ops, "bf16")
+    dms, src = device_ms(torch, run, 20, flush, PAGED_KERNELS[lane])
+    sdpa = _sdpa_yardstick(torch, args)
+    lib_dms, _ = device_ms(torch, sdpa, 20, flush)
+    r = {"max_len": max_len, "kv_len": kv_len, "block_pages": bp,
+         "b": b, "sq": sq, "hq": hq, "kv": kv, "hd": hd,
+         "page_size": args[1].shape[1], "max_abs_err": err,
+         "max_rel_err": rel, "tol": tol, "ms": timed(torch, run, 20, flush),
+         "device_ms": dms, "device_ms_source": src,
+         "plain_ms": timed(torch, plain, 5, flush),
+         "library_ms": timed(torch, sdpa, 20, flush),
+         "library_device_ms": lib_dms,
+         "bound_ms": bnd, "bound_by": by}
+    log(f"  paged_attention_{lane:8s} max_len={max_len} kv_len={kv_len}: "
+        f"max|err| {err:.3e} (rel {rel:.2e} <= {tol:g}); call "
+        f"{r['ms']:.4f} ms, device {dms:.4f} ms ({src}), plain "
+        f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms (device "
+        f"{lib_dms:.4f}), bound {bnd:.5f} ms ({by})")
+    return r
+
+
 def phase_paged_attention(torch, dev, flush):
+    """Both lanes at their serving shapes (a 64-token table for the
+    scratch lane, 512 tokens in 4-page blocks for the streamed lane), then
+    both at the long-context shape (``LONG_CASE``), then the streamed lane
+    at the long-context serve's shape (``SERVE_LONG_CASE``), past the
+    scratch lane's capacity."""
     from repro_torch.kernels.paged_attention import kernel, ref
 
     gen = torch.Generator(device=dev)
@@ -230,51 +360,20 @@ def phase_paged_attention(torch, dev, flush):
             ("streamed", 512, [512, 300, 77, 9], 4)):
         args = _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv, hd,
                            kv_len, torch.bfloat16)
-        if lane == "scratch":
-            def run():
-                return kernel.paged_attention_scratch(*args)
-
-            def plain():
-                return ref.paged_attention_ref(*args)
-        else:
-            def run():
-                return kernel.paged_attention_streamed(*args,
-                                                       block_pages=bp)
-
-            def plain():
-                return ref.paged_attention_streamed_ref(*args,
-                                                        block_pages=bp)
-        y = run()
-        y_ref = plain()
-        torch.cuda.synchronize()
-        err, rel = rel_err(torch, y, y_ref)
-        # bf16 values: the weights (scratch) and outputs round to bf16,
-        # whose unit roundoff is 2^-8 = 3.9e-3
-        tol = 1e-2
-        check(bool(torch.isfinite(y.float()).all()),
-              f"paged_attention_{lane}: non-finite output")
-        check(rel <= tol, f"paged_attention_{lane}: max rel err {rel:.3e} "
-              f"> {tol:g}")
-        attended = sum(min(n, max_len) for n in kv_len)
-        nbytes = (2 * attended * kv * hd * 2 + 2 * y.numel() * 2
-                  + args[3].numel() * 4 + 2 * b * 4)
-        ops = 4 * sq * hq * hd * attended
-        bnd, by = bound(nbytes, ops, "bf16")
-        out[lane] = {
-            "max_len": max_len, "kv_len": kv_len, "block_pages": bp,
-            "b": b, "sq": sq, "hq": hq, "kv": kv, "hd": hd,
-            "page_size": ps, "max_abs_err": err, "max_rel_err": rel,
-            "tol": tol, "ms": timed(torch, run, 20, flush),
-            "plain_ms": timed(torch, plain, 5, flush),
-            "library_ms": timed(torch, _sdpa_yardstick(torch, args), 20,
-                                flush),
-            "bound_ms": bnd, "bound_by": by}
-        r = out[lane]
-        log(f"  paged_attention_{lane:8s} max_len={max_len} "
-            f"kv_len={kv_len}: max|err| {err:.3e} (rel {rel:.2e} <= "
-            f"{tol:g}); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
-            f"bound {bnd:.5f} ms ({by})")
+        out[lane] = _paged_measure(torch, kernel, ref, lane, args, bp,
+                                   max_len, kv_len, flush)
+    long_args = _paged_case(torch, dev, gen, b, sq, LONG_CASE["max_len"], ps,
+                            hq, kv, hd, LONG_CASE["kv_len"], torch.bfloat16)
+    for lane in ("scratch", "streamed"):
+        out[lane]["long"] = _paged_measure(
+            torch, kernel, ref, lane, long_args, LONG_CASE["block_pages"],
+            LONG_CASE["max_len"], LONG_CASE["kv_len"], flush)
+    c = SERVE_LONG_CASE
+    serve_args = _paged_case(torch, dev, gen, b, c["sq"], c["max_len"], ps,
+                             hq, kv, hd, c["kv_len"], torch.bfloat16)
+    out["streamed"]["serve_long"] = _paged_measure(
+        torch, kernel, ref, "streamed", serve_args, c["block_pages"],
+        c["max_len"], c["kv_len"], flush)
     return out
 
 
@@ -687,6 +786,18 @@ def main() -> int:
         report["serve_streamed"] = phase_serve(
             torch, dev, stream_argv,
             ["crossbar_mac", "paged_attention_streamed"])
+        log("  long context: --prompt-len 1024 --max-len 2048 --chunk 16, "
+            "streamed lane, 4 layers")
+        long_argv = ["--arch", ARCH, "--layers", "4", "--backend",
+                     "crossbar", "--use-kernel", "--kv", "paged",
+                     "--requests", "4", "--slots", "4", "--prompt-len",
+                     "1024", "--max-new", "8", "--max-len", "2048",
+                     "--chunk", "16", "--stream-pages", "64",
+                     "--block-pages", "16"]
+        report["serve_long"] = phase_serve(
+            torch, dev, long_argv,
+            ["crossbar_mac", "paged_attention_streamed",
+             "paged_attention_combine"])
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -698,6 +809,7 @@ def main() -> int:
                 and "ms" in r)
     serve_l = report["serve"]["launches"]
     stream_l = report["serve_streamed"]["launches"]
+    long_l = report["serve_long"]["launches"]
     kernels = [
         {"name": "crossbar_mac", "route": "cuda",
          "source": "src/repro_torch/csrc/crossbar_mac.cu",
@@ -713,15 +825,34 @@ def main() -> int:
             ("scratch", 124, serve_l["paged_attention_scratch"]),
             ("streamed", 258, stream_l["paged_attention_streamed"])):
         r = report["paged_attention"][lane]
+        lg = r["long"]
         kernels.append({
             "name": f"paged_attention_{lane}", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention/kernel.py:{line}",
-            "launches": launches, "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in
+                               (r, lg, r.get("serve_long", lg))),
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "shape": f"B={r['b']} sq={r['sq']} max_len={r['max_len']}"})
+            "shape": f"B={r['b']} sq={r['sq']} max_len={r['max_len']}",
+            "long_launches": long_l[f"paged_attention_{lane}"],
+            "long_ms": lg["ms"], "long_device_ms": lg["device_ms"],
+            "long_library_ms": lg["library_ms"],
+            "long_bound_ms": lg["bound_ms"],
+            "long_shape": f"B={lg['b']} sq={lg['sq']} "
+                          f"max_len={lg['max_len']}"})
+        if "serve_long" in r:     # the streamed lane at the long serve's
+            sl = r["serve_long"]  # shape: two 16-row groups
+            kernels[-1].update({
+                "serve_long_ms": sl["ms"],
+                "serve_long_device_ms": sl["device_ms"],
+                "serve_long_library_ms": sl["library_ms"],
+                "serve_long_bound_ms": sl["bound_ms"],
+                "serve_long_shape": f"B={sl['b']} sq={sl['sq']} "
+                                    f"max_len={sl['max_len']}"})
     ds_head = next(r for r in report["deepnet_stream"]["rows"]
                    if r["geometry"] == "head")
     kernels.append({

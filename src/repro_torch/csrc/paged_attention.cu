@@ -1,52 +1,94 @@
 // Paged ragged decode attention for NVIDIA Hopper (sm_90a), two lanes.
 //
 // Replaces the TPU kernels of src/repro/kernels/paged_attention/kernel.py:
-//   * `paged_attention_kernel` (body `_kernel`), the scratch lane:
-//     gather a row's pages through its page table, then grouped SDPA with
-//     an exact softmax;
-//   * `paged_attention_streamed` (body `_stream_body`), the streamed lane:
-//     online softmax over blocks of `block_pages` pages.
+//   * `paged_attention_kernel` (body `_kernel`), the scratch lane, by
+//     `paged_scratch_kernel`: gather a row's pages through its page table,
+//     then grouped SDPA with an exact softmax;
+//   * `paged_attention_streamed` (body `_stream_body`), the streamed lane,
+//     by `paged_split_kernel` + `paged_combine_kernel`: an online softmax
+//     over the row's pages, split along the KV axis (flash-decoding).
 //
 // Shapes: q (B, sq, hq, hd); k/v pages (P + 1, ps, kv, hd), page 0 the
 // null page; page_table (B, P_seq) int32; kv_len, q_offset (B,) int32;
-// out (B, sq, hq, hd) in q's type.  T is float or bf16.
+// out (B, sq, hq, hd) in q's type.  T is float or bf16.  The g = hq / kv
+// query heads of a KV head and the sq queries form g * sq "rows" r =
+// j * sq + s that share every K/V element.
 //
 // Numerics, as in the reference: logits in f32 (bf16 products are exact
 // in f32), times hd^-0.5; -1e30 for causal (q_offset + s < t) and length
-// (t >= kv_len) masking; the scratch lane takes max, exp, sum and divides,
-// rounds the weights to T and accumulates P.V in f32 before rounding to
-// T; the streamed lane keeps running max m, denominator l and an f32
-// accumulator and normalises at the end.
+// (t >= kv_len) masking.  The scratch lane takes max, exp, sum and
+// divides, rounds the weights to T and accumulates P.V in f32 over t in
+// order before rounding to T.  The streamed lane keeps a running max m,
+// denominator l and f32 accumulator per row and normalises at the end.
 //
-// What bounds it on the H100: the bytes of K/V pages a row attends over
-// (2 * kv_len * kv * hd * sizeof(T) per row) against 3.35 TB/s; the
-// arithmetic is 4 * sq * hq * hd flops per attended token.
+// What bounds both lanes on the H100: the bytes of K/V pages a row
+// attends over (2 * tokens * kv * hd * sizeof(T) per row) against 3.35
+// TB/s; the arithmetic is 4 * sq * hq * hd flops per attended token, far
+// below the tensor cores' rate.  Both lanes read only the tokens the
+// length mask keeps: once a row has a valid position (kv_len >= 1, and
+// position 0 is never causally masked) every token t >= kv_len has weight
+// exp(-1e30 - max) = 0 exactly, so skipping it changes nothing.  A row
+// with kv_len = 0 reads its whole table and comes out as the uniform
+// average, as in the reference.  The gather is read-only: aliased page
+// tables are in contract.
 //
-// What the design does about it:
-//   * one block per (row, KV head); it reads its own page-table entries
-//     and covers the g = hq / kv query heads of that group, so each K/V
-//     element is read from device memory once for all g heads and all sq
-//     queries of the window;
-//   * it stages per KV head only (a whole row at full width would not fit
-//     in shared memory), with 16-byte loads, and with the K rows padded by
-//     one word so the per-token dot products hit distinct banks;
-//   * it reads only the tokens the length mask keeps: once a row has a
-//     valid position (kv_len >= 1, and position 0 is never causally
-//     masked), every token t >= kv_len has weight exp(-1e30 - max) = 0
-//     exactly, so skipping it changes no bit of the result.  A row with
-//     kv_len = 0 reads its whole table, as the reference does.
-//   * the gather is read-only: aliased page tables are in contract.
+// What the streamed design does about the bound:
+//   * grid (B, kv, n_split * row groups): each block takes a contiguous
+//     run of whole page blocks of one (row, KV head) and 16 query rows (the
+//     mma M), so a long row is read by many SMs at once; the wrapper picks
+//     n_split from B * kv, the table width and the SM count.  A split that
+//     starts at or past the row's valid depth exits at once with the
+//     sentinel partial m = -1e30, l = 0, acc = 0; `paged_combine_kernel`
+//     rescales the f32 partials by exp(m - max m), sums and divides by l;
+//   * K/V tiles of 64 tokens travel by 16-byte cp.async.cg into a two-stage
+//     ring: the next tile's copies fly while the block computes on this
+//     one, and three blocks share an SM.  A block first copies its split's
+//     page-table entries into shared memory, so issuing a tile waits on no
+//     global load.  Shared rows are 16-byte chunks XOR-swizzled by row, so
+//     ldmatrix reads them without bank conflicts;
+//   * at bf16 Q.K^T and P.V run on the tensor cores
+//     (mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, operands by ldmatrix);
+//     each warp owns 16 tokens of a tile and keeps its own m, l and
+//     accumulator in registers, the four warps merged once per split.  P
+//     enters the second product as bf16 hi + lo (two mma), so the f32
+//     weights keep ~16 bits; Q.K^T is exact products summed in f32;
+//   * at float32 the math stays on the CUDA cores with 16-byte shared
+//     loads (TF32 would break the float32 contract of 1e-5).
+//
+// What the scratch design does: only Q and the f32 logits of the window
+// stay resident in shared memory; K, then V, stream through a two-stage
+// cp.async ring of token tiles, and each thread keeps its P.V sums in
+// registers across tiles.  Its arithmetic and its order are the lane's
+// from before the ring (the same fmaf chain over d, then over t), so it
+// holds windows up to (227 KB - Q - ring) / (4 * g * sq) tokens.  It takes
+// any head dim of whole 16-byte chunks; the streamed lane is compiled for
+// head dims 16, 32, 64, 80, 96, 128, 192 and 256.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: expf and the divides are exact).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr float kNegBig = -1e30f;
+constexpr int kGroupRows = 16;      // query rows per streamed block (mma M)
+constexpr int kWarpTokens = 16;     // tokens per warp per tile
+constexpr int kTileTokens = kWarps * kWarpTokens;
+constexpr int kScratchTileBytes = 16384;
+constexpr int kScratchAcc = 8;      // P.V sums a scratch thread keeps
+// streamed ring depth: two stages (68 KB at bf16, hd 128) let three blocks
+// share an SM; a three-stage ring measured slower, as fewer warps then hide
+// the copies' latency.  Where two stages would pass 192 KB (float32 at hd
+// 256) the ring has one, and copies no longer overlap the math.
+constexpr int kTwoStageMaxBytes = 192 * 1024;
+__host__ __device__ constexpr int ring_stages(int hd, int elem_bytes) {
+  return 2 * 2 * kTileTokens * hd * elem_bytes <= kTwoStageMaxBytes ? 2 : 1;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -65,6 +107,23 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// the 16 bytes of a shared chunk as f32 values, in order
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& v,
+                                       float (&f)[16 / sizeof(T)]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(w[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
@@ -76,9 +135,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// K row stride in elements: one extra 32-bit word per token row
-template <typename T> __host__ __device__ constexpr int k_stride(int hd) {
-  return hd + static_cast<int>(4 / sizeof(T));
+// Shared tiles hold one token (or query row) per row of hd elements, in
+// 16-byte chunks; chunk c of row t sits at c ^ (t & mask), where mask + 1
+// is the largest power of two <= 8 that divides the chunks per row.
+__host__ __device__ constexpr int swz_mask(int chunks) {
+  return ((chunks & -chunks) < 8 ? (chunks & -chunks) : 8) - 1;
+}
+template <typename T>
+__device__ __forceinline__ int swz(int row, int chunk, int hd, int mask) {
+  constexpr int kVec = 16 / sizeof(T);
+  return row * hd + ((chunk ^ (row & mask)) * kVec);
 }
 
 struct Geom {
@@ -86,74 +152,126 @@ struct Geom {
   float scale;
 };
 
-// stage tokens [t0, t0 + n) of row b, head h into Ks / Vs, 16 bytes per
-// load (a head row is a whole number of 16-byte chunks; the wrapper
-// checks it), unrolled so that a thread's loads are in flight together
+// tokens a row must read: the valid depth, or the whole table when the
+// row holds no valid position
+__device__ __forceinline__ int tokens_needed(int len, int depth) {
+  return len > 0 ? min(len, depth) : depth;
+}
+
+__device__ __forceinline__ float mask_logit(float v, int ta, int s, int qo,
+                                            int len, int causal) {
+  if (causal && qo + s < ta) v = kNegBig;
+  if (ta >= len) v = kNegBig;
+  return v;
+}
+
+// -- cp.async, ldmatrix, mma ------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; with full == false nothing is read and the
+// destination is zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Copy the page-table entries of tokens [t_base, t_end) (t_base a whole
+// page) into shared memory, so that issuing a tile waits on no global load.
+__device__ __forceinline__ void load_pages(const int32_t* __restrict__ pt_row,
+                                           int t_base, int t_end, int ps,
+                                           int* pages) {
+  const int p0 = t_base / ps;
+  const int np = (t_end - t_base + ps - 1) / ps;
+  for (int i = threadIdx.x; i < np; i += kThreads) pages[i] = pt_row[p0 + i];
+}
+
+// Issue the copies of tokens [t0, t0 + tt) of pool a (and of pool b, if
+// given: the same rows of V beside K), KV head h, into swizzled tiles;
+// tokens at or past t_end are zero-filled without a load.  pages[i] is
+// the physical page of tokens t_base + i * ps onwards.
 template <typename T>
-__device__ void stage_kv(const T* __restrict__ kp, const T* __restrict__ vp,
-                         const int32_t* __restrict__ pt_row, int h,
-                         const Geom& gm, int t0, int n, T* Ks, T* Vs) {
+__device__ __forceinline__ void issue_tile(
+    const T* __restrict__ pool_a, const T* __restrict__ pool_b,
+    const int* pages, int t_base, int h, int ps, int kv, int hd, int t0,
+    int tt, int t_end, T* dst_a, T* dst_b) {
   constexpr int kVec = 16 / sizeof(T);
-  const int kst = k_stride<T>(gm.hd);
-  const int chunks = gm.hd / kVec;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n * chunks; i += blockDim.x) {
-    const int t = i / chunks;
-    const int c = i - t * chunks;
+  const int cpr = hd / kVec;
+  const int mask = swz_mask(cpr);
+  for (int i = threadIdx.x; i < tt * cpr; i += kThreads) {
+    const int t = i / cpr;
+    const int c = i - t * cpr;
     const int ta = t0 + t;
-    const int page = pt_row[ta / gm.ps];
-    const size_t src =
-        ((static_cast<size_t>(page) * gm.ps + ta % gm.ps) * gm.kv + h) *
-            gm.hd + c * kVec;
-    const uint4 kq = *reinterpret_cast<const uint4*>(kp + src);
-    const uint4 vq = *reinterpret_cast<const uint4*>(vp + src);
-    // shared rows are only 4-byte aligned (K rows carry one pad word)
-    uint32_t* kd = reinterpret_cast<uint32_t*>(Ks + t * kst + c * kVec);
-    uint32_t* vd = reinterpret_cast<uint32_t*>(Vs + t * gm.hd + c * kVec);
-    kd[0] = kq.x; kd[1] = kq.y; kd[2] = kq.z; kd[3] = kq.w;
-    vd[0] = vq.x; vd[1] = vq.y; vd[2] = vq.z; vd[3] = vq.w;
+    const bool in = ta < t_end;
+    size_t off = 0;
+    if (in) {
+      const int page = pages[(ta - t_base) / ps];
+      off = ((static_cast<size_t>(page) * ps + ta % ps) * kv + h) * hd +
+            c * kVec;
+    }
+    const int d = swz<T>(t, c, hd, mask);
+    cp_async16(dst_a + d, pool_a + off, in);
+    if (pool_b != nullptr) cp_async16(dst_b + d, pool_b + off, in);
   }
 }
 
-// logits L[r][t] for rows r = j * sq + s of the group, tokens t0 + t
-template <typename T>
-__device__ void logits(const float* Qs, const T* Ks, const Geom& gm,
-                       int t0, int n, int q_off, int len, float* L) {
-  const int kst = k_stride<T>(gm.hd);
-  const int g = gm.hq / gm.kv;
-  for (int i = threadIdx.x; i < g * gm.sq * n; i += blockDim.x) {
-    const int r = i / n;
-    const int t = i - r * n;
-    const float* qr = Qs + r * gm.hd;
-    const T* kr = Ks + t * kst;
-    float dot = 0.0f;
-    for (int d = 0; d < gm.hd; ++d) dot = fmaf(qr[d], to_f(kr[d]), dot);
-    float v = __fmul_rn(dot, gm.scale);
-    const int s = r % gm.sq;
-    const int ta = t0 + t;
-    if (gm.causal && q_off + s < ta) v = kNegBig;
-    if (ta >= len) v = kNegBig;
-    L[r * n + t] = v;
-  }
-}
-
+// Q rows r = j * sq + s of the group, as f32, qst floats apart
 template <typename T>
 __device__ void load_q(const T* __restrict__ q, int b, int h, const Geom& gm,
-                       float* Qs) {
+                       int qst, float* Qs) {
   const int g = gm.hq / gm.kv;
   for (int i = threadIdx.x; i < g * gm.sq * gm.hd; i += blockDim.x) {
     const int r = i / gm.hd;
     const int d = i - r * gm.hd;
     const int j = r / gm.sq;
     const int s = r - j * gm.sq;
-    Qs[i] = to_f(q[((static_cast<size_t>(b) * gm.sq + s) * gm.hq + h * g +
-                    j) * gm.hd + d]);
+    Qs[r * qst + d] = to_f(q[((static_cast<size_t>(b) * gm.sq + s) * gm.hq +
+                              h * g + j) * gm.hd + d]);
   }
 }
 
 template <typename T>
-__device__ void store_out(T* __restrict__ out, int b, int h, const Geom& gm,
-                          int r, int d, float v) {
+__device__ __forceinline__ void store_out(T* __restrict__ out, int b, int h,
+                                          const Geom& gm, int r, int d,
+                                          float v) {
   const int g = gm.hq / gm.kv;
   const int j = r / gm.sq;
   const int s = r - j * gm.sq;
@@ -161,43 +279,128 @@ __device__ void store_out(T* __restrict__ out, int b, int h, const Geom& gm,
       d] = from_f<T>(v);
 }
 
-// tokens a row must read: the valid depth, or the whole table when the
-// row holds no valid position
-__device__ __forceinline__ int tokens_needed(int len, int depth) {
-  return len > 0 ? min(len, depth) : depth;
+// -- scratch lane -----------------------------------------------------------
+
+// tokens per scratch tile: a multiple of 4 (the P.V loop reads weights
+// four tokens at a time), at most 64
+__host__ __device__ inline int scratch_tile(int hd, int elem_bytes) {
+  const int t = (kScratchTileBytes / (hd * elem_bytes)) & ~3;
+  return t < 64 ? (t > 4 ? t : 4) : 64;
+}
+
+// Stream tokens [0, n) of one pool through a two-stage ring of tt-token
+// tiles whose tile 0 was already issued into slot s0; body(tile, t0,
+// count) runs on each tile once every thread's copies have landed.  The
+// last iteration issues tile 0 of `next` (if any) into the following
+// slot, so its copies fly while the caller works between two streams.
+template <typename T, typename F>
+__device__ void scratch_ring(const T* __restrict__ pool, const T* next,
+                             const int* pages, int h, const Geom& gm, int n,
+                             int tt, T* ring, int s0, F&& body) {
+  const int n_tiles = (n + tt - 1) / tt;
+  const int stage = tt * gm.hd;
+  for (int it = 0; it < n_tiles; ++it) {
+    T* following = ring + ((s0 + it + 1) & 1) * stage;
+    if (it + 1 < n_tiles)
+      issue_tile<T>(pool, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd,
+                    (it + 1) * tt, tt, n, following, nullptr);
+    else if (next != nullptr)
+      issue_tile<T>(next, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd, 0, tt,
+                    n, following, nullptr);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    body(ring + ((s0 + it) & 1) * stage, it * tt, min(tt, n - it * tt));
+    __syncthreads();  // the slot is refilled by the next iteration
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) scratch_kernel(
+__global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int32_t* __restrict__ pt,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
     T* __restrict__ out, Geom gm) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kVec = 16 / sizeof(T);
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int g = gm.hq / gm.kv;
   const int rows = g * gm.sq;
+  const int hd = gm.hd;
   const int depth = gm.p_seq * gm.ps;
   const int len = kv_len[b];
+  const int qo = q_off[b];
   const int n = tokens_needed(len, depth);
-  const int kst = k_stride<T>(gm.hd);
-  // layout: Qs | L | Ks | Vs  (f32 first keeps every region aligned)
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* L = Qs + rows * gm.hd;
-  T* Ks = reinterpret_cast<T*>(L + rows * n);
-  T* Vs = Ks + n * kst;
-  load_q(q, b, h, gm, Qs);
-  stage_kv(kp, vp, pt + static_cast<size_t>(b) * gm.p_seq, h, gm, 0, n, Ks,
-           Vs);
+  const int tt = scratch_tile(hd, sizeof(T));
+  const int mask = swz_mask(hd / kVec);
+  // layout: ring (2 tiles) | Qs (rows x (hd + 4): 16-byte rows, four
+  // banks apart) | L (rows x lst, lst = n rounded up to 4) | the row's
+  // page table
+  const int qst = hd + 4;
+  const int lst = (n + 3) & ~3;
+  T* ring = reinterpret_cast<T*>(smem);
+  float* Qs = reinterpret_cast<float*>(ring + 2 * tt * hd);
+  float* L = Qs + rows * qst;
+  int* pages = reinterpret_cast<int*>(L + rows * ((depth + 3) & ~3));
+  load_pages(pt + static_cast<size_t>(b) * gm.p_seq, 0, n, gm.ps, pages);
+  load_q(q, b, h, gm, qst, Qs);
   __syncthreads();
-  logits(Qs, Ks, gm, 0, n, q_off[b], len, L);
-  __syncthreads();
-  // exact softmax per row: max, exp, sum, divide (one warp per row)
+  issue_tile<T>(kp, nullptr, pages, 0, h, gm.ps, gm.kv, hd, 0, tt, n, ring,
+                nullptr);
+  cp_async_commit();
+  const int n_tiles = (n + tt - 1) / tt;
+  // logits L[r][t] of every row against each K tile.  A thread runs four
+  // dots at once (independent fmaf chains, each over d in order) from
+  // 16-byte loads; the rows of one token are neighbouring threads, so a
+  // warp reads few K rows.
+  scratch_ring(kp, vp, pages, h, gm, n, tt, ring, 0,
+               [&](const T* Ks, int t0, int cnt) {
+                 const int total = rows * cnt;
+                 for (int i0 = threadIdx.x; i0 < total; i0 += 4 * kThreads) {
+                   float dot[4];
+                   int tk[4], rk[4];
+#pragma unroll
+                   for (int u = 0; u < 4; ++u) {
+                     const int i = min(i0 + u * kThreads, total - 1);
+                     tk[u] = i / rows;
+                     rk[u] = i - tk[u] * rows;
+                     dot[u] = 0.0f;
+                   }
+                   for (int c = 0; c < hd / kVec; ++c) {
+#pragma unroll
+                     for (int u = 0; u < 4; ++u) {
+                       float kf[kVec];
+                       unpack<T>(*reinterpret_cast<const uint4*>(
+                                     Ks + swz<T>(tk[u], c, hd, mask)),
+                                 kf);
+                       const float* qr = Qs + rk[u] * qst + c * kVec;
+#pragma unroll
+                       for (int e4 = 0; e4 < kVec; e4 += 4) {
+                         const float4 qv =
+                             *reinterpret_cast<const float4*>(qr + e4);
+                         dot[u] = fmaf(qv.x, kf[e4], dot[u]);
+                         dot[u] = fmaf(qv.y, kf[e4 + 1], dot[u]);
+                         dot[u] = fmaf(qv.z, kf[e4 + 2], dot[u]);
+                         dot[u] = fmaf(qv.w, kf[e4 + 3], dot[u]);
+                       }
+                     }
+                   }
+#pragma unroll
+                   for (int u = 0; u < 4; ++u) {
+                     if (i0 + u * kThreads < total)
+                       L[rk[u] * lst + t0 + tk[u]] = mask_logit(
+                           __fmul_rn(dot[u], gm.scale), t0 + tk[u],
+                           rk[u] % gm.sq, qo, len, gm.causal);
+                   }
+                 }
+               });
+  // exact softmax per row: max, exp, sum, divide (one warp per row),
+  // while V's first tile is on its way
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float* lr = L + r * n;
+  for (int r = warp; r < rows; r += kWarps) {
+    float* lr = L + r * lst;
     float mx = kNegBig;
     for (int t = lane; t < n; t += 32) mx = fmaxf(mx, lr[t]);
     mx = warp_max(mx);
@@ -211,181 +414,636 @@ __global__ void __launch_bounds__(kThreads) scratch_kernel(
     for (int t = lane; t < n; t += 32) lr[t] = round_to<T>(lr[t] / sum);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * gm.hd; i += blockDim.x) {
-    const int r = i / gm.hd;
-    const int d = i - r * gm.hd;
-    const float* wr = L + r * n;
-    float acc = 0.0f;
-    for (int t = 0; t < n; ++t) acc = fmaf(wr[t], to_f(Vs[t * gm.hd + d]), acc);
-    store_out(out, b, h, gm, r, d, acc);
+  // P.V: each thread keeps the kScratchAcc outputs base + tid + k *
+  // kThreads in registers while V streams by (wider groups take more
+  // passes over V), each summed over t in order.  When hd divides the
+  // block a thread's outputs share column d, so one V load feeds all of
+  // them; the weights come four tokens to a 16-byte load.
+  const bool one_col = kThreads % hd == 0;
+  int s0 = n_tiles & 1;
+  for (int base = 0; base < rows * hd; base += kThreads * kScratchAcc) {
+    int rk[kScratchAcc], dk[kScratchAcc];
+    float acc[kScratchAcc];
+#pragma unroll
+    for (int k = 0; k < kScratchAcc; ++k) {
+      const int o = base + threadIdx.x + k * kThreads;
+      rk[k] = o / hd;
+      dk[k] = o - rk[k] * hd;
+      acc[k] = 0.0f;
+    }
+    const bool more = base + kThreads * kScratchAcc < rows * hd;
+    scratch_ring(vp, more ? vp : nullptr, pages, h, gm, n, tt, ring, s0,
+                 [&](const T* Vs, int t0, int cnt) {
+      // V[t][d] of this tile
+      auto vat = [&](int t, int d) {
+        return to_f(Vs[swz<T>(t, d / kVec, hd, mask) + d % kVec]);
+      };
+      int t = 0;
+      for (; t + 4 <= cnt; t += 4) {
+        float v[4];
+        if (one_col) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = vat(t + e, dk[0]);
+        }
+#pragma unroll
+        for (int k = 0; k < kScratchAcc; ++k) {
+          if (rk[k] < rows) {
+            if (!one_col) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) v[e] = vat(t + e, dk[k]);
+            }
+            const float4 w =
+                *reinterpret_cast<const float4*>(L + rk[k] * lst + t0 + t);
+            acc[k] = fmaf(w.x, v[0], acc[k]);
+            acc[k] = fmaf(w.y, v[1], acc[k]);
+            acc[k] = fmaf(w.z, v[2], acc[k]);
+            acc[k] = fmaf(w.w, v[3], acc[k]);
+          }
+        }
+      }
+      for (; t < cnt; ++t) {
+#pragma unroll
+        for (int k = 0; k < kScratchAcc; ++k) {
+          if (rk[k] < rows)
+            acc[k] = fmaf(L[rk[k] * lst + t0 + t], vat(t, dk[k]), acc[k]);
+        }
+      }
+    });
+    s0 = (s0 + n_tiles) & 1;
+#pragma unroll
+    for (int k = 0; k < kScratchAcc; ++k) {
+      if (rk[k] < rows) store_out(out, b, h, gm, rk[k], dk[k], acc[k]);
+    }
   }
+  cp_async_wait<0>();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) streamed_kernel(
+// -- streamed lane: per-warp math -------------------------------------------
+
+// where a streamed tile sits: the rows of this block and the token range
+// of this split
+struct TileCtx {
+  int r0, sq, qo, len, t_end, causal;
+  float scale;
+};
+
+// per-warp merge area, laid over the ring once the split's tiles are done
+struct WarpSums {
+  float* m;    // [kWarps][kGroupRows]
+  float* l;    // [kWarps][kGroupRows]
+  float* acc;  // [kWarps][kGroupRows][hd]
+};
+
+template <typename T, int HD> struct WarpMath;
+
+// bf16: tensor cores.  A thread holds the mma accumulator fragments of
+// rows gr = lane / 4 and gr + 8: acc[n][0..1] at columns 8n + 2 (lane % 4)
+// (+1) of row gr, acc[n][2..3] of row gr + 8.
+template <int HD> struct WarpMath<__nv_bfloat16, HD> {
+  using T = __nv_bfloat16;
+  static constexpr int kMask = swz_mask(HD / 8);
+  float acc[HD / 8][4];
+  float m[2], l[2];
+
+  __device__ void init() {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    m[0] = m[1] = kNegBig;
+    l[0] = l[1] = 0.0f;
+  }
+
+  // tokens [tw, tw + 16) of the tile (absolute position ta0 + 0..15)
+  __device__ void tile(const T* Qs, const T* Ks, const T* Vs, int tw,
+                       int ta0, const TileCtx& cx, float*, float*) {
+    const int lane = threadIdx.x & 31;
+    const int gr = lane >> 2;
+    const int t4 = lane & 3;
+    float s[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 16) {
+      uint32_t a[4], bk[4];
+      const int qrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldsm_x4(a, Qs + swz<T>(qrow, (kk >> 3) + (lane >> 4), HD, kMask));
+      const int mat = lane >> 3;
+      const int krow = tw + (lane & 7) + (mat >> 1) * 8;
+      ldsm_x4(bk, Ks + swz<T>(krow, (kk >> 3) + (mat & 1), HD, kMask));
+      mma_bf16(s[0], a, bk[0], bk[1]);
+      mma_bf16(s[1], a, bk[2], bk[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = gr + (e >> 1) * 8;
+        const int ta = ta0 + j * 8 + 2 * t4 + (e & 1);
+        const float v = mask_logit(__fmul_rn(s[j][e], cx.scale), ta,
+                                   (cx.r0 + row) % cx.sq, cx.qo, cx.len,
+                                   cx.causal);
+        s[j][e] = ta < cx.t_end ? v : -INFINITY;
+      }
+    // online softmax for rows gr (hr = 0) and gr + 8 (hr = 1); a row's 16
+    // logits sit in the four threads of a quad
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = fmaxf(fmaxf(s[0][2 * hr], s[0][2 * hr + 1]),
+                       fmaxf(s[1][2 * hr], s[1][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, 2));
+      const float m_new = fmaxf(m[hr], mx);
+      const float alpha = expf(m[hr] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          s[j][e] = expf(s[j][e] - m_new);
+          sum += s[j][e];
+        }
+      sum += __shfl_xor_sync(~0u, sum, 1);
+      sum += __shfl_xor_sync(~0u, sum, 2);
+      l[hr] = l[hr] * alpha + sum;
+      m[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][2 * hr] *= alpha;
+        acc[n][2 * hr + 1] *= alpha;
+      }
+    }
+    // P as the A operand (16 rows x 16 tokens): the two accumulator tiles
+    // are its two k halves; p = hi + lo, both bf16
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = i >> 1;
+      const int e = (i & 1) * 2;
+      const __nv_bfloat16 h0 = __float2bfloat16_rn(s[j][e]);
+      const __nv_bfloat16 h1 = __float2bfloat16_rn(s[j][e + 1]);
+      ph[i] = pack_bf16(h0, h1);
+      pl[i] = pack_bf16(__float2bfloat16_rn(s[j][e] - __bfloat162float(h0)),
+                        __float2bfloat16_rn(s[j][e + 1] -
+                                            __bfloat162float(h1)));
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < HD; n0 += 16) {
+      uint32_t bv[4];
+      const int mat = lane >> 3;
+      const int vrow = tw + (lane & 7) + (mat & 1) * 8;
+      ldsm_x4_t(bv, Vs + swz<T>(vrow, (n0 >> 3) + (mat >> 1), HD, kMask));
+      mma_bf16(acc[n0 / 8], ph, bv[0], bv[1]);
+      mma_bf16(acc[n0 / 8], pl, bv[0], bv[1]);
+      mma_bf16(acc[n0 / 8 + 1], ph, bv[2], bv[3]);
+      mma_bf16(acc[n0 / 8 + 1], pl, bv[2], bv[3]);
+    }
+  }
+
+  __device__ void save(const WarpSums& w, int warp) const {
+    const int lane = threadIdx.x & 31;
+    const int gr = lane >> 2;
+    const int t4 = lane & 3;
+    if (t4 == 0) {
+      w.m[warp * kGroupRows + gr] = m[0];
+      w.l[warp * kGroupRows + gr] = l[0];
+      w.m[warp * kGroupRows + gr + 8] = m[1];
+      w.l[warp * kGroupRows + gr + 8] = l[1];
+    }
+    float* a = w.acc + static_cast<size_t>(warp) * kGroupRows * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      a[gr * HD + col] = acc[n][0];
+      a[gr * HD + col + 1] = acc[n][1];
+      a[(gr + 8) * HD + col] = acc[n][2];
+      a[(gr + 8) * HD + col + 1] = acc[n][3];
+    }
+  }
+};
+
+// float32: CUDA cores.  Lane = (token tk = lane % 16, row half rh =
+// lane / 16); a lane scores rows rh + 2i (i < 8) against its token, then
+// owns output columns lane + 32c for every row in P.V.
+template <int HD> struct WarpMath<float, HD> {
+  using T = float;
+  static constexpr int kMask = swz_mask(HD / 4);
+  static constexpr int kCols = (HD + 31) / 32;
+  float acc[kGroupRows][kCols];
+  float m[8], l[8];
+
+  __device__ void init() {
+#pragma unroll
+    for (int r = 0; r < kGroupRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      m[i] = kNegBig;
+      l[i] = 0.0f;
+    }
+  }
+
+  // Pw: this warp's [16 rows][16 tokens] weights; Aw: its 16 rescales
+  __device__ void tile(const T* Qs, const T* Ks, const T* Vs, int tw,
+                       int ta0, const TileCtx& cx, float* Pw, float* Aw) {
+    const int lane = threadIdx.x & 31;
+    const int tk = lane & 15;
+    const int rh = lane >> 4;
+    const int ta = ta0 + tk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int rr = rh + 2 * i;
+      float dot = 0.0f;
+#pragma unroll 8
+      for (int c = 0; c < HD / 4; ++c) {
+        const float4 qv = *reinterpret_cast<const float4*>(
+            Qs + swz<T>(rr, c, HD, kMask));
+        const float4 kv = *reinterpret_cast<const float4*>(
+            Ks + swz<T>(tw + tk, c, HD, kMask));
+        dot = fmaf(qv.x, kv.x, dot);
+        dot = fmaf(qv.y, kv.y, dot);
+        dot = fmaf(qv.z, kv.z, dot);
+        dot = fmaf(qv.w, kv.w, dot);
+      }
+      float v = mask_logit(__fmul_rn(dot, cx.scale), ta,
+                           (cx.r0 + rr) % cx.sq, cx.qo, cx.len, cx.causal);
+      v = ta < cx.t_end ? v : -INFINITY;
+      float mx = v;
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      const float p = expf(v - m_new);
+      float sum = p;
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(~0u, sum, o);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+      Pw[rr * kWarpTokens + tk] = p;
+      if (tk == 0) Aw[rr] = alpha;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < HD) {
+#pragma unroll
+        for (int rr = 0; rr < kGroupRows; ++rr) {
+          float a = acc[rr][c] * Aw[rr];
+#pragma unroll
+          for (int t = 0; t < kWarpTokens; ++t)
+            a = fmaf(Pw[rr * kWarpTokens + t],
+                     Vs[swz<T>(tw + t, d / 4, HD, kMask) + d % 4], a);
+          acc[rr][c] = a;
+        }
+      }
+    }
+    __syncwarp();  // Pw / Aw are rewritten by the next tile
+  }
+
+  __device__ void save(const WarpSums& w, int warp) const {
+    const int lane = threadIdx.x & 31;
+    const int tk = lane & 15;
+    const int rh = lane >> 4;
+    if (tk == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        w.m[warp * kGroupRows + rh + 2 * i] = m[i];
+        w.l[warp * kGroupRows + rh + 2 * i] = l[i];
+      }
+    }
+    float* a = w.acc + static_cast<size_t>(warp) * kGroupRows * HD;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < HD) {
+#pragma unroll
+        for (int rr = 0; rr < kGroupRows; ++rr) a[rr * HD + d] = acc[rr][c];
+      }
+    }
+  }
+};
+
+// split_pages: the most page-table entries one split reads
+size_t streamed_smem(int hd, int elem_bytes, int split_pages) {
+  size_t s = static_cast<size_t>(ring_stages(hd, elem_bytes)) * 2 *
+                 kTileTokens * hd * elem_bytes +
+             static_cast<size_t>(kGroupRows) * hd * elem_bytes +
+             static_cast<size_t>(split_pages) * 4;
+  if (elem_bytes == 4) s += (kWarps * kGroupRows * (kWarpTokens + 1)) * 4;
+  return s;
+}
+
+// -- streamed lane: split and combine kernels -------------------------------
+
+// part_ml[(((b * kv + h) * n_split + split) * R + r) * 2 + {0, 1}] = m, l;
+// part_acc[... * hd + d] = the unnormalised f32 accumulator; R = g * sq.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(
     const T* __restrict__ q, const T* __restrict__ kp,
     const T* __restrict__ vp, const int32_t* __restrict__ pt,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    T* __restrict__ out, Geom gm, int block_pages) {
+    float* __restrict__ part_ml, float* __restrict__ part_acc, Geom gm,
+    int n_blocks, int block_tokens, int n_split) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStages = ring_stages(HD, sizeof(T));
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kCpr = HD / kVec;
+  constexpr int kMask = swz_mask(kCpr);
+  constexpr int kStage = 2 * kTileTokens * HD;  // K tile then V tile
   const int b = blockIdx.x;
   const int h = blockIdx.y;
+  const int split = blockIdx.z % n_split;
+  const int r0 = (blockIdx.z / n_split) * kGroupRows;
   const int g = gm.hq / gm.kv;
-  const int rows = g * gm.sq;
-  const int bt = block_pages * gm.ps;
-  const int n_blocks = gm.p_seq / block_pages;
+  const int R = g * gm.sq;
+  const int rows_here = min(kGroupRows, R - r0);
   const int len = kv_len[b];
-  const int qo = q_off[b];
-  // blocks past the valid depth leave m, l and acc unchanged exactly
-  // (alpha = 1, p = 0) once block 0 has set a finite running max
-  const int n_eff = len > 0 ? min(n_blocks, (len + bt - 1) / bt) : n_blocks;
-  const int kst = k_stride<T>(gm.hd);
-  // layout: Qs | Acc | P | m | l | alpha | Ks | Vs
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Acc = Qs + rows * gm.hd;
-  float* P = Acc + rows * gm.hd;
-  float* M = P + rows * bt;
-  float* Lsum = M + rows;
-  float* Alpha = Lsum + rows;
-  T* Ks = reinterpret_cast<T*>(Alpha + rows);
-  T* Vs = Ks + bt * kst;
-  const int32_t* pt_row = pt + static_cast<size_t>(b) * gm.p_seq;
-  load_q(q, b, h, gm, Qs);
-  for (int i = threadIdx.x; i < rows * gm.hd; i += blockDim.x) Acc[i] = 0.0f;
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    M[i] = kNegBig;
-    Lsum[i] = 0.0f;
+  const int n = tokens_needed(len, gm.p_seq * gm.ps);
+  const int t_begin = (split * n_blocks / n_split) * block_tokens;
+  const int t_end = min(((split + 1) * n_blocks / n_split) * block_tokens, n);
+  const size_t pbase =
+      (static_cast<size_t>(b * gm.kv + h) * n_split + split) * R + r0;
+  if (t_begin >= n) {  // wholly past the valid depth: the sentinel partial
+    for (int i = threadIdx.x; i < rows_here * HD; i += kThreads) {
+      part_acc[pbase * HD + i] = 0.0f;
+      if (i % HD == 0) {
+        part_ml[(pbase + i / HD) * 2] = kNegBig;
+        part_ml[(pbase + i / HD) * 2 + 1] = 0.0f;
+      }
+    }
+    return;
   }
+  // layout: ring (kStages x [K tile | V tile]) | Qs [16][HD] | Pw | Aw
+  // (float32) | the split's page-table entries
+  T* ring = reinterpret_cast<T*>(smem);
+  T* Qs = ring + kStages * kStage;
+  float* Pw = reinterpret_cast<float*>(Qs + kGroupRows * HD);
+  float* Aw = Pw + kWarps * kGroupRows * kWarpTokens;
+  int* pages = reinterpret_cast<int*>(
+      Pw + (sizeof(T) == 4 ? kWarps * kGroupRows * (kWarpTokens + 1) : 0));
+  load_pages(pt + static_cast<size_t>(b) * gm.p_seq, t_begin, t_end, gm.ps,
+             pages);
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int jb = 0; jb < n_eff; ++jb) {
-    __syncthreads();  // the previous block's Ks / Vs / P are consumed
-    stage_kv(kp, vp, pt_row, h, gm, jb * bt, bt, Ks, Vs);
-    __syncthreads();
-    logits(Qs, Ks, gm, jb * bt, bt, qo, len, P);
-    __syncthreads();
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      float* pr = P + r * bt;
-      float mx = kNegBig;
-      for (int t = lane; t < bt; t += 32) mx = fmaxf(mx, pr[t]);
-      mx = warp_max(mx);
-      const float m_old = M[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int t = lane; t < bt; t += 32) {
-        const float e = expf(pr[t] - m_new);
-        pr[t] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        Alpha[r] = alpha;
-        Lsum[r] = __fadd_rn(__fmul_rn(Lsum[r], alpha), sum);
-        M[r] = m_new;
-      }
+  // Q rows r0 .. r0 + 15 of the group (zero past R)
+  for (int i = threadIdx.x; i < kGroupRows * kCpr; i += kThreads) {
+    const int rr = i / kCpr;
+    const int c = i - rr * kCpr;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + rr < R) {
+      const int j = (r0 + rr) / gm.sq;
+      const int s = (r0 + rr) % gm.sq;
+      v = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(b) * gm.sq + s) * gm.hq + h * g + j) *
+                  HD + c * kVec);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows * gm.hd; i += blockDim.x) {
-      const int r = i / gm.hd;
-      const int d = i - r * gm.hd;
-      const float* pr = P + r * bt;
-      float pv = 0.0f;
-      for (int t = 0; t < bt; ++t) pv = fmaf(pr[t], to_f(Vs[t * gm.hd + d]), pv);
-      Acc[i] = __fadd_rn(__fmul_rn(Acc[i], Alpha[r]), pv);
-    }
+    *reinterpret_cast<uint4*>(Qs + swz<T>(rr, c, HD, kMask)) = v;
   }
+  __syncthreads();  // the page entries, before the first issue
+  const int n_tiles = (t_end - t_begin + kTileTokens - 1) / kTileTokens;
+  auto issue = [&](int it) {
+    if (it < n_tiles) {
+      T* st = ring + (it % kStages) * kStage;
+      const int t0 = t_begin + it * kTileTokens;
+      issue_tile(kp, vp, pages, t_begin, h, gm.ps, gm.kv, HD, t0,
+                 kTileTokens, t_end, st, st + kTileTokens * HD);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  const TileCtx cx{r0, gm.sq, q_off[b], len, t_end, gm.causal, gm.scale};
+  WarpMath<T, HD> wm;
+  wm.init();
+  for (int it = 0; it < n_tiles; ++it) {
+    issue(it + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const T* st = ring + (it % kStages) * kStage;
+    const int ta0 = t_begin + it * kTileTokens + warp * kWarpTokens;
+    // a warp whose tokens all lie past t_end would leave its sums as
+    // they are (p = 0, alpha = 1): skip it
+    if (ta0 < t_end)
+      wm.tile(Qs, st, st + kTileTokens * HD, warp * kWarpTokens, ta0, cx,
+              Pw + warp * kGroupRows * kWarpTokens, Aw + warp * kGroupRows);
+    __syncthreads();  // the slot is refilled kStages - 1 tiles later
+  }
+  cp_async_wait<0>();
+  // merge the four warps' (m, l, acc) over the drained ring
+  float* wbuf = reinterpret_cast<float*>(smem);
+  const WarpSums ws{wbuf, wbuf + kWarps * kGroupRows,
+                    wbuf + 2 * kWarps * kGroupRows};
+  wm.save(ws, warp);
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * gm.hd; i += blockDim.x) {
-    const int r = i / gm.hd;
-    store_out(out, b, h, gm, r, i - r * gm.hd, Acc[i] / Lsum[r]);
+  for (int i = threadIdx.x; i < rows_here * HD; i += kThreads) {
+    const int r = i / HD;
+    float mx = kNegBig;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ws.m[w * kGroupRows + r]);
+    float a = 0.0f, l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float sc = expf(ws.m[w * kGroupRows + r] - mx);
+      a += sc * ws.acc[(w * kGroupRows) * HD + i];
+      l += sc * ws.l[w * kGroupRows + r];
+    }
+    part_acc[pbase * HD + i] = a;
+    if (i % HD == 0) {
+      part_ml[(pbase + r) * 2] = mx;
+      part_ml[(pbase + r) * 2 + 1] = l;
+    }
   }
+}
+
+// out = sum_s exp(m_s - M) acc_s / sum_s exp(m_s - M) l_s, M = max_s m_s
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_combine_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    T* __restrict__ out, Geom gm, int n_split) {
+  const int bh = blockIdx.x;
+  const int b = bh / gm.kv;
+  const int h = bh - b * gm.kv;
+  const int R = (gm.hq / gm.kv) * gm.sq;
+  const int i = blockIdx.y * kThreads + threadIdx.x;
+  if (i >= R * gm.hd) return;
+  const int r = i / gm.hd;
+  const size_t base = static_cast<size_t>(bh) * n_split * R + r;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s)
+    mx = fmaxf(mx, part_ml[(base + static_cast<size_t>(s) * R) * 2]);
+  float a = 0.0f, l = 0.0f;
+  for (int s = 0; s < n_split; ++s) {
+    const size_t p = base + static_cast<size_t>(s) * R;
+    const float sc = expf(part_ml[p * 2] - mx);
+    l += sc * part_ml[p * 2 + 1];
+    a += sc * part_acc[p * gm.hd + (i - r * gm.hd)];
+  }
+  store_out(out, b, h, gm, r, i - r * gm.hd, a / l);
 }
 
 // dynamic shared memory above 48 KB must be opted into per kernel
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
   }
   return cudaSuccess;
+}
+
+struct SplitArgs {
+  const void *q, *kp, *vp, *pt, *kv_len, *q_off;
+  float *part_ml, *part_acc;
+  Geom gm;
+  int B, n_blocks, block_tokens, n_split, groups, split_pages;
+  cudaStream_t st;
+};
+
+template <typename T, int HD>
+cudaError_t launch_split(const SplitArgs& a) {
+  const size_t smem = streamed_smem(HD, sizeof(T), a.split_pages);
+  cudaError_t err = allow_smem(paged_split_kernel<T, HD>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B, a.gm.kv, a.n_split * a.groups);
+  paged_split_kernel<T, HD><<<grid, kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), static_cast<const int32_t*>(a.pt),
+      static_cast<const int32_t*>(a.kv_len),
+      static_cast<const int32_t*>(a.q_off), a.part_ml, a.part_acc, a.gm,
+      a.n_blocks, a.block_tokens, a.n_split);
+  return cudaGetLastError();
+}
+
+template <typename T> cudaError_t split_by_hd(const SplitArgs& a) {
+  switch (a.gm.hd) {
+    case 16: return launch_split<T, 16>(a);
+    case 32: return launch_split<T, 32>(a);
+    case 64: return launch_split<T, 64>(a);
+    case 80: return launch_split<T, 80>(a);
+    case 96: return launch_split<T, 96>(a);
+    case 128: return launch_split<T, 128>(a);
+    case 192: return launch_split<T, 192>(a);
+    case 256: return launch_split<T, 256>(a);
+    default: break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes each lane needs (the wrapper checks them against
-// the card's per-block limit before launching).
+// Shared-memory bytes each lane needs per block (the wrapper checks them
+// against the card's per-block limit before launching).  depth is the
+// table's token depth P_seq * ps.
 size_t paged_scratch_smem(int sq, int hq, int kv, int hd, int depth,
-                          int elem_bytes) {
+                          int ps, int elem_bytes) {
   const size_t rows = static_cast<size_t>(hq / kv) * sq;
-  const size_t kst = hd + 4 / elem_bytes;
-  return rows * hd * 4 + rows * depth * 4 +
-         static_cast<size_t>(depth) * (kst + hd) * elem_bytes;
+  return 2 * static_cast<size_t>(scratch_tile(hd, elem_bytes)) * hd *
+             elem_bytes +
+         rows * (hd + 4) * 4 + rows * ((depth + 3) & ~3) * 4 +
+         static_cast<size_t>((depth + ps - 1) / ps) * 4;
 }
 
-size_t paged_streamed_smem(int sq, int hq, int kv, int hd, int block_tokens,
-                           int elem_bytes) {
-  const size_t rows = static_cast<size_t>(hq / kv) * sq;
-  const size_t kst = hd + 4 / elem_bytes;
-  return 2 * rows * hd * 4 + rows * block_tokens * 4 + 3 * rows * 4 +
-         static_cast<size_t>(block_tokens) * (kst + hd) * elem_bytes;
+// split_pages: ceil(blocks / n_split) * block_pages
+size_t paged_streamed_smem(int hd, int elem_bytes, int split_pages) {
+  return streamed_smem(hd, elem_bytes, split_pages);
 }
 
 // scale is hd^-0.5 rounded to f32 by the caller; dtype: 0 = float32,
-// 1 = bfloat16.  block_pages <= 0 selects the scratch lane.  Returns a cudaError_t (0 = launched).
-int paged_attention_launch(const void* q, const void* kp, const void* vp,
-                           const void* pt, const void* kv_len,
-                           const void* q_off, void* out, int B, int sq,
-                           int hq, int kv, int hd, int ps, int p_seq,
-                           int causal, float scale, int dtype,
-                           int block_pages, void* stream) {
+// 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
+int paged_scratch_launch(const void* q, const void* kp, const void* vp,
+                         const void* pt, const void* kv_len,
+                         const void* q_off, void* out, int B, int sq, int hq,
+                         int kv, int hd, int ps, int p_seq, int causal,
+                         float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || kv <= 0 || hq % kv != 0 || (dtype != 0 && dtype != 1) ||
-      (hd * (dtype == 0 ? 4 : 2)) % 16 != 0 ||
-      (block_pages > 0 && p_seq % block_pages != 0)) {
+      hd <= 0 || (hd * (dtype == 0 ? 4 : 2)) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Geom gm{sq, hq, kv, hd, ps, p_seq, causal, scale};
+  const Geom gm{sq, hq, kv, hd, ps, p_seq, causal, scale};
   const dim3 grid(B, kv);
   const int eb = dtype == 0 ? 4 : 2;
+  const size_t smem = paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps,
+                                         eb);
   cudaError_t err;
-#define PA_LAUNCH(T)                                                        \
+#define PA_SCRATCH(T)                                                       \
   do {                                                                      \
-    const T* qq = static_cast<const T*>(q);                                 \
-    const T* kk = static_cast<const T*>(kp);                                \
-    const T* vv = static_cast<const T*>(vp);                                \
-    T* oo = static_cast<T*>(out);                                           \
-    const int32_t* tt = static_cast<const int32_t*>(pt);                    \
-    const int32_t* ll = static_cast<const int32_t*>(kv_len);                \
-    const int32_t* ff = static_cast<const int32_t*>(q_off);                 \
-    if (block_pages > 0) {                                                  \
-      const size_t smem = paged_streamed_smem(sq, hq, kv, hd,               \
-                                              block_pages * ps, eb);        \
-      err = allow_smem(streamed_kernel<T>, smem);                     \
-      if (err != cudaSuccess) return static_cast<int>(err);                 \
-      streamed_kernel<T><<<grid, kThreads, smem, st>>>(qq, kk, vv, tt, ll,  \
-                                                       ff, oo, gm,          \
-                                                       block_pages);        \
-    } else {                                                                \
-      const size_t smem = paged_scratch_smem(sq, hq, kv, hd, p_seq * ps,    \
-                                             eb);                           \
-      err = allow_smem(scratch_kernel<T>, smem);                      \
-      if (err != cudaSuccess) return static_cast<int>(err);                 \
-      scratch_kernel<T><<<grid, kThreads, smem, st>>>(qq, kk, vv, tt, ll,   \
-                                                      ff, oo, gm);          \
-    }                                                                       \
+    err = allow_smem(paged_scratch_kernel<T>, smem);                        \
+    if (err != cudaSuccess) return static_cast<int>(err);                   \
+    paged_scratch_kernel<T><<<grid, kThreads, smem, st>>>(                  \
+        static_cast<const T*>(q), static_cast<const T*>(kp),                \
+        static_cast<const T*>(vp), static_cast<const int32_t*>(pt),         \
+        static_cast<const int32_t*>(kv_len),                                \
+        static_cast<const int32_t*>(q_off), static_cast<T*>(out), gm);      \
   } while (0)
   if (dtype == 0) {
-    PA_LAUNCH(float);
+    PA_SCRATCH(float);
   } else {
-    PA_LAUNCH(__nv_bfloat16);
+    PA_SCRATCH(__nv_bfloat16);
   }
-#undef PA_LAUNCH
+#undef PA_SCRATCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split kernel: partials of n_split contiguous runs of whole blocks of
+// block_pages pages into part_ml (B, kv, n_split, g * sq, 2) and part_acc
+// (B, kv, n_split, g * sq, hd), float32.  hd is one of 16, 32, 64, 80,
+// 96, 128, 192, 256;
+// p_seq % block_pages == 0; 1 <= n_split <= the number of blocks.
+int paged_split_launch(const void* q, const void* kp, const void* vp,
+                       const void* pt, const void* kv_len, const void* q_off,
+                       void* part_ml, void* part_acc, int B, int sq, int hq,
+                       int kv, int hd, int ps, int p_seq, int causal,
+                       float scale, int dtype, int block_pages, int n_split,
+                       void* stream) {
+  if (B <= 0 || kv <= 0 || sq <= 0 || hq % kv != 0 || block_pages <= 0 ||
+      p_seq % block_pages != 0 || n_split < 1 ||
+      n_split > p_seq / block_pages || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = (hq / kv) * sq;
+  const int n_blocks = p_seq / block_pages;
+  const SplitArgs a{q, kp, vp, pt, kv_len, q_off,
+                    static_cast<float*>(part_ml),
+                    static_cast<float*>(part_acc),
+                    Geom{sq, hq, kv, hd, ps, p_seq, causal, scale}, B,
+                    n_blocks, block_pages * ps, n_split,
+                    (rows + kGroupRows - 1) / kGroupRows,
+                    (n_blocks + n_split - 1) / n_split * block_pages,
+                    static_cast<cudaStream_t>(stream)};
+  const cudaError_t err =
+      dtype == 0 ? split_by_hd<float>(a) : split_by_hd<__nv_bfloat16>(a);
+  return static_cast<int>(err);
+}
+
+// The combine kernel: out (B, sq, hq, hd) in q's type from the partials.
+int paged_combine_launch(const void* part_ml, const void* part_acc, void* out,
+                         int B, int sq, int hq, int kv, int hd, int dtype,
+                         int n_split, void* stream) {
+  if (B <= 0 || kv <= 0 || hq % kv != 0 || n_split < 1 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Geom gm{sq, hq, kv, hd, 0, 0, 0, 0.0f};
+  const int per_bh = (hq / kv) * sq * hd;
+  const dim3 grid(B * kv, (per_bh + kThreads - 1) / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ml = static_cast<const float*>(part_ml);
+  const float* acc = static_cast<const float*>(part_acc);
+  if (dtype == 0) {
+    paged_combine_kernel<float><<<grid, kThreads, 0, st>>>(
+        ml, acc, static_cast<float*>(out), gm, n_split);
+  } else {
+    paged_combine_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        ml, acc, static_cast<__nv_bfloat16*>(out), gm, n_split);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,12 +15,14 @@ from repro_torch.kernels.paged_attention.ops import (
 )
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref,
+    paged_attention_split_ref,
     paged_attention_streamed_ref,
     resolve_block_pages,
 )
 
 __all__ = [
     "paged_attention", "paged_attention_ref", "paged_attention_scratch",
+    "paged_attention_split_ref",
     "paged_attention_streamed", "paged_attention_streamed_ref",
     "paged_path_calls", "resolve_block_pages",
 ]

@@ -10,13 +10,18 @@ applied to the K/V view gathered through the page table.  Because
 ``paged_attention_streamed_ref`` is the **streamed-lane** oracle: the
 online-softmax block recursion, one page block at a time with f32 running
 max / denominator / accumulator updates.
+
+``paged_attention_split_ref`` is the CUDA streamed lane's algorithm in
+plain PyTorch (split-KV partials, then their combine), for the tests:
+the kernel itself is held to ``paged_attention_streamed_ref``.
 """
 from __future__ import annotations
 
 import torch
 
 #: calls of the plain versions (the serving path on the card makes none)
-CALLS = {"paged_attention_ref": 0, "paged_attention_streamed_ref": 0}
+CALLS = {"paged_attention_ref": 0, "paged_attention_streamed_ref": 0,
+         "paged_attention_split_ref": 0}
 
 
 def resolve_block_pages(pages_per_seq: int, block_pages: int) -> int:
@@ -113,4 +118,66 @@ def paged_attention_streamed_ref(q, k_pages, v_pages, page_table, kv_len,
             "bkgst,btkh->bkgsh", p, vv.to(f32))
         m = m_new
     out = acc / l[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def split_bounds(n_blocks: int, n_split: int, split: int) -> tuple:
+    """Page blocks [lo, hi) of ``split`` when ``n_blocks`` blocks are cut
+    into ``n_split`` contiguous runs that differ by at most one block."""
+    return split * n_blocks // n_split, (split + 1) * n_blocks // n_split
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, page_table, kv_len,
+                              q_offset, *, causal: bool = True,
+                              block_pages: int = 16, n_split: int = 1
+                              ) -> torch.Tensor:
+    """The streamed lane's split-KV algorithm: each of ``n_split`` runs of
+    whole page blocks yields f32 partials (m, l, acc) over the tokens a
+    row reads (its valid depth, or the whole table at kv_len 0); a run
+    at or past that depth gives m = -1e30, l = 0, acc = 0.  The combine
+    rescales by exp(m - max m) and divides.  ``n_split`` is clamped to
+    [1, number of blocks]."""
+    CALLS["paged_attention_split_ref"] += 1
+    b, sq, hq, hd = q.shape
+    dev = q.device
+    f32 = torch.float32
+    ps, kv = k_pages.shape[1], k_pages.shape[2]
+    p_seq = page_table.shape[1]
+    bp = resolve_block_pages(p_seq, block_pages)
+    n_blocks = p_seq // bp
+    n_split = max(1, min(n_split, n_blocks))
+    g = hq // kv
+    depth = p_seq * ps
+    qg = q.reshape(b, sq, kv, g, hd).to(f32)
+    kv_len = _as_rows(kv_len, b, dev)
+    q_offset = _as_rows(q_offset, b, dev)
+    n_read = torch.where(kv_len > 0, kv_len.clamp(max=depth), depth)
+    pt = page_table.long()
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        lo, hi = split_bounds(n_blocks, n_split, s)
+        t0, t1 = lo * bp * ps, hi * bp * ps
+        pages = pt[:, lo * bp:hi * bp].reshape(-1)
+        kk = k_pages[pages].reshape(b, t1 - t0, kv, hd).to(f32)
+        vv = v_pages[pages].reshape(b, t1 - t0, kv, hd).to(f32)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg, kk) * (hd ** -0.5)
+        tpos = t0 + torch.arange(t1 - t0, device=dev)
+        if causal:
+            qpos = q_offset[:, None] + torch.arange(sq, device=dev)[None]
+            mask = qpos[:, :, None] >= tpos[None, None, :]
+            logits = torch.where(mask[:, None, None], logits, -1e30)
+        valid = tpos[None, :] < kv_len[:, None]
+        logits = torch.where(valid[:, None, None, None], logits, -1e30)
+        read = (tpos[None, :] < n_read[:, None])[:, None, None, None]
+        logits = torch.where(read, logits, -torch.inf)
+        m = logits.amax(dim=-1).clamp(min=-1e30)
+        p = torch.exp(logits - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgst,btkh->bkgsh", p, vv))
+    m_all = torch.stack(ms)                      # (n_split, b, kv, g, sq)
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    l_tot = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    out = acc / l_tot[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)

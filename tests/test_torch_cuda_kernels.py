@@ -13,6 +13,7 @@ Contracts:
 * paged attention: 1e-5 x max|out| at float32 (exp and f32 sums in
   another order), 2e-2 at bfloat16 (the value type rounds the scratch
   lane's weights and both lanes' outputs; its unit roundoff is 3.9e-3);
+  the streamed lane at any split count against the one-pass oracle;
 * deep-net streaming: 1e-6 x max|y| against its plain version (as the
   MAC), and BITWISE equal to ``engine.program`` + the crossbar-MAC kernel
   (the same integer codes and the same final conversion);
@@ -159,6 +160,158 @@ def test_paged_attention_row_without_valid_positions(cuda):
                       (pa.paged_attention_streamed,
                        pa_ref.paged_attention_streamed_ref)):
         assert _rel_err(plain(*args), fn(*args)) <= 1e-5
+
+
+def _long_case(seed, dtype, kv_len, max_len=2048, b=4, sq=4, hq=8, kv=4,
+               hd=128, ps=8):
+    """Long windows: each row's valid pages in order from a shared pool,
+    the rest of its table random pages of the pool (read only at kv_len
+    0), row 1's first page aliased to row 0's, the window at the end of
+    the fill."""
+    rng = np.random.default_rng(seed)
+    p_seq = max_len // ps
+    n_pages = b * p_seq
+    q = rng.standard_normal((b, sq, hq, hd)).astype(np.float32)
+    kp = rng.standard_normal((n_pages + 1, ps, kv, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_pages + 1, ps, kv, hd)).astype(np.float32)
+    kp[0] = vp[0] = 0.0
+    pt = rng.integers(1, n_pages + 1, (b, p_seq)).astype(np.int32)
+    nxt = 1
+    for r, n in enumerate(kv_len):
+        pages = -(-n // ps)
+        pt[r, :pages] = np.arange(nxt, nxt + pages)
+        nxt += pages
+    pt[1, 0] = pt[0, 0]
+    lens = np.array(kv_len, np.int32)
+    q_off = np.maximum(lens - sq, 0).astype(np.int32)
+    args = [torch.from_numpy(a).cuda() for a in
+            (q, kp, vp, pt, lens, q_off)]
+    args[:3] = [t.to(dtype) for t in args[:3]]
+    return args
+
+
+def _force_n_split(monkeypatch, n_split):
+    """Make the streamed wrapper plan ``n_split`` splits (with an empty
+    plan cache, restored afterwards)."""
+    monkeypatch.setattr(pa, "_PLANS", {})
+    monkeypatch.setattr(pa, "choose_n_split", lambda *a: n_split)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n_split", [None, 3, 16])
+def test_streamed_lane_long_depth_split(cuda, monkeypatch, dtype, rtol,
+                                        n_split):
+    """Depth 2048 in blocks of 16 pages (16 blocks): the wrapper's own
+    split count, one that does not divide the blocks, one per block."""
+    if n_split is not None:
+        _force_n_split(monkeypatch, n_split)
+    args = _long_case(11, dtype, [2048, 1500, 300, 17])
+    before = dict(pa.LAUNCHES)
+    out = pa.paged_attention_streamed(*args, block_pages=16)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention_streamed"] == \
+        before["paged_attention_streamed"] + 1
+    assert pa.LAUNCHES["paged_attention_combine"] == \
+        before["paged_attention_combine"] + 1
+    ref = pa_ref.paged_attention_streamed_ref(*args, block_pages=16)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert _rel_err(ref.float(), out.float()) <= rtol
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n_split", [None, 3])
+def test_streamed_lane_several_row_groups(cuda, monkeypatch, dtype, rtol,
+                                          n_split):
+    """g * sq = 3 * 8 = 24 query rows per KV head: a full 16-row group
+    and a partial one, whose rows take their query position from
+    (16 + row) % sq."""
+    if n_split is not None:
+        _force_n_split(monkeypatch, n_split)
+    args = _long_case(15, dtype, [1024, 700, 33, 9], max_len=1024, sq=8,
+                      hq=6, kv=2)
+    out = pa.paged_attention_streamed(*args, block_pages=16)
+    ref = pa_ref.paged_attention_streamed_ref(*args, block_pages=16)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert _rel_err(ref.float(), out.float()) <= rtol
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [80, 96, 192, 256])
+def test_paged_lanes_wide_head_dims(cuda, dtype, rtol, hd):
+    """Head dims that do not divide the 128-thread block (the scratch
+    lane's P.V then loads V per output) and the streamed lane's wider
+    instantiations (float32 at 256 runs a one-stage ring)."""
+    args = _long_case(16 + hd, dtype, [512, 300, 40, 3], max_len=512,
+                      hd=hd)
+    for fn, plain, kw in (
+            (pa.paged_attention_scratch, pa_ref.paged_attention_ref, {}),
+            (pa.paged_attention_streamed,
+             pa_ref.paged_attention_streamed_ref, {"block_pages": 4})):
+        out = fn(*args, **kw)
+        ref = plain(*args, **kw)
+        assert _rel_err(ref.float(), out.float()) <= rtol, fn.__name__
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_lanes_are_deterministic(cuda, dtype):
+    """Repeated calls on the same inputs are bitwise equal, in both
+    lanes: no race in the rings, the merges or the combine."""
+    short = _long_case(17, dtype, [64, 37, 12, 5], max_len=64, hq=32,
+                       kv=16)
+    long = _long_case(18, dtype, [2048, 1500, 300, 0], hq=32, kv=16)
+    for fn, args in ((pa.paged_attention_scratch, short),
+                     (pa.paged_attention_scratch, long),
+                     (pa.paged_attention_streamed, short),
+                     (pa.paged_attention_streamed, long)):
+        first = fn(*args)
+        for _ in range(20):
+            assert torch.equal(fn(*args), first), fn.__name__
+
+
+def test_streamed_lane_picks_several_splits_at_depth(cuda):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.choose_n_split(4, 4, 16, 256, 16, 8, sms) > 1
+
+
+@pytest.mark.parametrize("lane", ["scratch", "streamed"])
+def test_long_depth_row_without_valid_positions(cuda, monkeypatch, lane):
+    """kv_len = 0 at depth 2048: the uniform average over the whole
+    table, every split of the streamed lane reading its tokens."""
+    args = _long_case(12, torch.float32, [2048, 0, 700, 5], sq=1)
+    if lane == "scratch":
+        out = pa.paged_attention_scratch(*args)
+        ref = pa_ref.paged_attention_ref(*args)
+    else:
+        _force_n_split(monkeypatch, 5)
+        out = pa.paged_attention_streamed(*args, block_pages=16)
+        ref = pa_ref.paged_attention_streamed_ref(*args, block_pages=16)
+    assert _rel_err(ref, out) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_scratch_lane_long_depth(cuda, dtype, rtol):
+    args = _long_case(13, dtype, [2048, 1999, 64, 1])
+    before = pa.LAUNCHES["paged_attention_scratch"]
+    out = pa.paged_attention_scratch(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention_scratch"] == before + 1
+    assert _rel_err(pa_ref.paged_attention_ref(*args).float(),
+                    out.float()) <= rtol
+
+
+def test_scratch_lane_raises_past_its_capacity(cuda):
+    cap = pa.scratch_capacity(4, 8, 4, 128, 8, 2)
+    assert 4096 < cap < 8192          # 8 rows at bf16: about 6,100 tokens
+    args = _long_case(14, torch.bfloat16, [8192, 100, 10, 1],
+                      max_len=8192)
+    before = pa.LAUNCHES["paged_attention_scratch"]
+    with pytest.raises(ValueError, match=f"at most {cap} tokens"):
+        pa.paged_attention_scratch(*args)
+    assert pa.LAUNCHES["paged_attention_scratch"] == before
 
 
 @pytest.mark.parametrize("b,k,n,w_bits,bpc,rows,dtype", [

@@ -3,7 +3,9 @@ reference's Pallas kernels (interpret mode).
 
 Contract: at float32 both port oracles agree with the reference kernels
 to 1e-5 x max|out| — the same masks and softmax, with exp and the f32
-sums evaluated by another library in another order.  The CUDA lanes are
+sums evaluated by another library in another order.  So does the plain
+version of the CUDA streamed lane's split-KV algorithm
+(``paged_attention_split_ref``) at every split count.  The CUDA lanes are
 held against these oracles on the card (test_torch_cuda_kernels.py).
 """
 import numpy as np
@@ -75,6 +77,71 @@ def test_streamed_oracle_matches_jax_kernel(block_pages):
     # and the two port lanes agree with each other (online vs one-shot)
     assert _close(tref.paged_attention_ref(*_t(*args)).numpy(),
                   out_t.numpy())
+
+
+def _edit(args, kv_len=None, q_off=None, pt=None):
+    q, kp, vp, pt0, kv_len0, q_off0 = (a.copy() for a in args)
+    for arr, upd in ((kv_len0, kv_len), (q_off0, q_off), (pt0, pt)):
+        for idx, val in (upd or {}).items():
+            arr[idx] = val
+    return q, kp, vp, pt0, kv_len0, q_off0
+
+
+# (n_split, block_pages, causal, edits): the table is 4 pages of 4 tokens;
+# row 1 (kv_len 6, queries at 2 and 3) has splits wholly past its depth at
+# n_split 4, and its tokens 4-5 are causally masked for both queries
+SPLIT_CASES = {
+    "one_split": (1, 1, True, {}),
+    "two_splits": (2, 1, True, {}),
+    "three_splits_of_four_blocks": (3, 1, True, {}),
+    "splits_past_kv_len": (4, 1, True, {}),
+    "row_with_kv_len_0": (2, 1, True, {"kv_len": {1: 0}}),
+    # row 2's queries at 3 and 4: tokens 4-7 are all masked for the first
+    "split_masked_for_some_queries": (4, 1, True, {"q_off": {2: 3}}),
+    "not_causal": (3, 1, False, {}),
+    "aliased_table": (2, 2, True, {"pt": {(2, 0): 1, (2, 2): 2}}),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_ref_matches_jax_streamed_kernel(case):
+    """The CUDA streamed lane's split/combine algorithm, in plain PyTorch,
+    against the reference's streamed kernel and the port's oracle."""
+    n_split, bp, causal, edits = SPLIT_CASES[case]
+    args = _edit(_case(20, sq=2), **edits)
+    out_j = jkernel.paged_attention_streamed(*_j(*args), causal=causal,
+                                             interpret=True, block_pages=bp)
+    out_s = tref.paged_attention_split_ref(*_t(*args), causal=causal,
+                                           block_pages=bp, n_split=n_split)
+    out_t = tref.paged_attention_streamed_ref(*_t(*args), causal=causal,
+                                              block_pages=bp)
+    assert out_s.shape == tuple(out_j.shape)
+    assert np.isfinite(out_s.numpy()).all()
+    assert _close(out_j, out_s.numpy())
+    assert _close(out_t.numpy(), out_s.numpy())
+
+
+def test_split_bounds_cover_the_blocks_in_order():
+    for n_blocks in (1, 4, 7, 32):
+        for n_split in range(1, n_blocks + 1):
+            runs = [tref.split_bounds(n_blocks, n_split, s)
+                    for s in range(n_split)]
+            assert runs[0][0] == 0 and runs[-1][1] == n_blocks
+            assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+            assert {hi - lo for lo, hi in runs} <= {
+                n_blocks // n_split, -(-n_blocks // n_split)}
+
+
+def test_choose_n_split():
+    # the long-context shape of chip_smoke: B 4, kv 16, 8 rows, 512
+    # pages of 8 tokens in 16-page blocks, 132 SMs
+    assert tkernel.choose_n_split(4, 16, 8, 512, 16, 8, 132) == 8
+    # chip_smoke's streamed serving shape: at most one split per 128
+    # tokens of table
+    assert tkernel.choose_n_split(4, 16, 8, 64, 4, 8, 132) == 4
+    # a tiny table or a wide grid keeps one split
+    assert tkernel.choose_n_split(3, 2, 4, 4, 2, 4, 132) == 1
+    assert tkernel.choose_n_split(64, 16, 32, 512, 16, 8, 132) == 1
 
 
 def test_resolve_block_pages_clamps_to_a_divisor():
