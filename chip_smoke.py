@@ -12,6 +12,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              version and (for paged attention) one PyTorch SDPA call as
              a yardstick; the bound is the larger of bytes / 3.35 TB/s
              and operations / the type's peak rate (H100 SXM data sheet).
+             The crossbar MAC runs at every qwen3-4b projection, at 128
+             and 256 rows per ADC, leak 0 and 0.37, B 16 and 64, and must
+             equal the exact int64 code sums (``crossbar_mac_codes_ref``)
+             times the LSB bit for bit; each timed row carries call and
+             device ms.  The streamed lane also runs at head dim 40.
              Both paged lanes run again at a long-context shape (windows
              up to 4096 tokens), the streamed lane also at the
              long-context serve's shape (32 query rows per KV head), and
@@ -28,13 +33,16 @@ Phases, each of which fails the run (exit code 1, no result line):
              must be identical, with every weight in deep-net layout and
              under ``--mode-policy auto``;
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
-             with ``--backend crossbar --use-kernel --kv paged``, the same
+             with ``--backend crossbar --use-kernel --kv paged`` (its step
+             time), the same
              under ``--mode-policy auto`` (attention and head read as
              expansion-fused pairs, 256 rows per ADC), then two 4-layer
              serves through the streamed attention lane, the second with
-             1024-token prompts in a 2048-token window; every kernel of
-             each path must have launched, and no plain version may have
-             run.
+             1024-token prompts in a 2048-token window, and last the
+             36-layer serve again in a ``torch.profiler`` trace (the
+             MAC's device ms per step and the device's idle share); every
+             kernel of each path must have launched, and no plain version
+             may have run.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` reports them; the line before that the kernels' JSON; the
@@ -173,18 +181,30 @@ LAYER_PATH = ["wq", "wk/wv", "wk/wv", "attn wo", "wi/wg", "wi/wg", "mlp wo",
 
 
 def phase_crossbar_mac(torch, dev, flush):
+    """The MAC at every qwen3-4b projection (B 16, 128 rows per ADC, leak
+    0 and 0.37), at the auto policy's 256-row reads, and at B 64 (the
+    long-context serve's batch): BITWISE equal to the exact int64 code
+    sums of ``crossbar_mac_codes_ref`` times the LSB, and within 1e-5 of
+    the f32 plain version.  Runs at leak 0 are timed: call ms (CUDA
+    events, the wrapper included) and device ms (the zeroing, MAC and
+    conversion kernels in a ``torch.profiler`` trace)."""
     from repro_torch.kernels.crossbar_mac import kernel, ref
 
     geoms = GEOMS
-    b, s, in_bits, adc_bits = 16, 4, 8, 8
+    s, in_bits, adc_bits = 4, 8, 8
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows_out, max_abs = [], 0.0
-    runs = [(g, "deepnet", 128, leak) for g in geoms for leak in (0.0, 0.37)]
+    runs = [(g, "deepnet", 128, leak, 16) for g in geoms
+            for leak in (0.0, 0.37)]
     # the expansion-fused reads of the auto policy: 256 rows per ADC
-    runs += [(geoms[0], "expansion", 256, 0.0),
-             (geoms[-1], "expansion", 256, 0.0)]
-    for (name, k, n), mode, rows, leak in runs:
+    runs += [(geoms[0], "expansion", 256, 0.0, 16),
+             (geoms[-1], "expansion", 256, 0.0, 16),
+             (geoms[-1], "expansion", 256, 0.37, 16)]
+    # the long-context serve's 64 rows (4 slots x chunk 16)
+    runs += [(geoms[-1], "deepnet", 128, 0.0, 64),
+             (geoms[2], "deepnet", 128, 0.37, 64)]
+    for (name, k, n), mode, rows, leak, b in runs:
         x = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
                           dtype=torch.int32)
         pos = torch.randint(0, 2, (s, k, n), generator=gen, device=dev,
@@ -195,23 +215,31 @@ def phase_crossbar_mac(torch, dev, flush):
         kw = dict(in_bits=in_bits, adc_bits=adc_bits, bits_per_cell=1,
                   rows_per_adc=rows)
         y = kernel.crossbar_mac(x, pos, neg, lk, **kw)
+        codes = ref.crossbar_mac_codes_ref(x, pos, neg, leak_codes=lk, **kw)
+        want = ref.codes_to_float(codes, adc_bits, float(rows))
         y_ref = ref.crossbar_mac_ref(x, pos, neg, leak_codes=lk, **kw)
         torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"crossbar_mac {name}: "
+              f"non-finite output")
+        check(torch.equal(y, want), f"crossbar_mac {name} {mode} B={b} "
+              f"leak={leak}: not bitwise equal to the exact code sums x lsb "
+              f"(max|diff| {(y - want).abs().max().item():.3e})")
         err, rel = rel_err(torch, y, y_ref)
         # the kernel sums integer codes exactly (int64); the plain version
         # shift-adds in f32, in another order
         tol = 1e-5
-        check(bool(torch.isfinite(y).all()), f"crossbar_mac {name}: "
-              f"non-finite output")
         check(rel <= tol, f"crossbar_mac {name} {mode} leak={leak}: "
               f"max rel err {rel:.3e} > {tol:g}")
         max_abs = max(max_abs, err)
         row = {"geometry": name, "k": k, "n": n, "b": b, "mode": mode,
-               "leak": leak, "max_abs_err": err, "max_rel_err": rel,
-               "tol": tol}
+               "rows": rows, "leak": leak, "bitwise_codes": True,
+               "max_abs_err": err, "max_rel_err": rel, "tol": tol}
         if leak == 0.0:
-            row["ms"] = timed(torch, lambda: kernel.crossbar_mac(
-                x, pos, neg, lk, **kw), 10, flush)
+            def run():
+                return kernel.crossbar_mac(x, pos, neg, lk, **kw)
+            row["ms"] = timed(torch, run, 10, flush)
+            row["device_ms"], row["device_ms_source"] = device_ms(
+                torch, run, 10, flush)
             row["plain_ms"] = timed(torch, lambda: ref.crossbar_mac_ref(
                 x, pos, neg, leak_codes=lk, **kw), 2, flush)
             nbytes = x.numel() * 4 + 2 * pos.numel() + b * n * 4 + 4
@@ -219,19 +247,32 @@ def phase_crossbar_mac(torch, dev, flush):
             row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "int8")
             row["library_ms"] = None
         rows_out.append(row)
-        log(f"  crossbar_mac {name:8s} K={k:5d} N={n:6d} {mode:9s} "
-            f"leak={leak:4.2f}: max|err| {err:.3e} (rel {rel:.2e} <= "
-            f"{tol:g})" + (f"; kernel {row['ms']:.3f} ms, plain "
-                          f"{row['plain_ms']:.3f} ms, bound "
-                          f"{row['bound_ms']:.3f} ms ({row['bound_by']})"
-                          if "ms" in row else ""))
-        del x, pos, neg, y, y_ref
+        log(f"  crossbar_mac {name:8s} K={k:5d} N={n:6d} B={b:2d} {mode:9s} "
+            f"leak={leak:4.2f}: bitwise = code sums x lsb; vs plain max|err| "
+            f"{err:.3e} (rel {rel:.2e} <= {tol:g})" + (
+                f"; call {row['ms']:.4f} ms, device {row['device_ms']:.4f} "
+                f"ms, plain {row['plain_ms']:.3f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+                if "ms" in row else ""))
+        del x, pos, neg, y, y_ref, codes, want
         torch.cuda.empty_cache()
     return rows_out, max_abs
 
 
+def mac_step_ms(mac_rows):
+    """An estimate, for the log beside the serve trace's measurement:
+    device ms of the MAC launches of one 36-layer decode step at B 16,
+    128 rows per ADC, as 36 x the layer's seven projections plus the head,
+    each at its geometry's device time from phase 2."""
+    per = {r["geometry"]: r["device_ms"] for r in mac_rows
+           if r["b"] == 16 and r["rows"] == 128 and "device_ms" in r}
+    layer = sum(per[g] for g in LAYER_PATH[:-1])
+    return 36 * layer + per["head"], 36 * (len(LAYER_PATH) - 1) + 1
+
+
 #: kernel names of each paged lane, as the profiler reports them
-PAGED_KERNELS = {"scratch": ("paged_scratch_kernel",),
+PAGED_KERNELS = {"scratch": ("paged_scratch_kernel",
+                             "paged_scratch_mma_kernel"),
                  "streamed": ("paged_split_kernel", "paged_combine_kernel")}
 #: the long-context shape: windows up to 4096 tokens, 8,336 attended
 LONG_CASE = dict(max_len=4096, kv_len=[4096, 3000, 1200, 40],
@@ -374,6 +415,23 @@ def phase_paged_attention(torch, dev, flush):
     out["streamed"]["serve_long"] = _paged_measure(
         torch, kernel, ref, "streamed", serve_args, c["block_pages"],
         c["max_len"], c["kv_len"], flush)
+    # a head dim off the streamed lane's compiled widths: 40 runs on
+    # kernel.streamed_width(40) = 64, its extra columns zero
+    kv_len = [512, 300, 77, 9]
+    args = _paged_case(torch, dev, gen, b, sq, 512, ps, hq, kv, 40, kv_len,
+                       torch.bfloat16)
+    y = kernel.paged_attention_streamed(*args, block_pages=4)
+    y_ref = ref.paged_attention_streamed_ref(*args, block_pages=4)
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, y, y_ref)
+    check(bool(torch.isfinite(y.float()).all()) and rel <= 1e-2,
+          f"paged_attention_streamed at head dim 40: max rel err {rel:.3e}")
+    out["streamed"]["hd40"] = {"hd": 40, "width": kernel.streamed_width(40),
+                               "kv_len": kv_len, "max_abs_err": err,
+                               "max_rel_err": rel, "tol": 1e-2}
+    log(f"  paged_attention_streamed head dim 40 (on width "
+        f"{kernel.streamed_width(40)}), max_len=512: max|err| {err:.3e} "
+        f"(rel {rel:.2e} <= 0.01)")
     return out
 
 
@@ -677,6 +735,70 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=()):
             "plain_calls": plain, "mode_report": rep.get("mode_report")}
 
 
+def phase_serve_traced(torch, dev, argv, must_launch, out_dir):
+    """The serve of ``argv`` again, in a ``torch.profiler`` trace of the
+    card alone.  Measured from the trace, between the start of the serve's
+    first MAC kernel and the end of its last MAC launch (its steps, the
+    programming before them excluded): the MAC's device ms per step (its
+    kernel, the memset that zeroes its code buffer just before it, and
+    its conversion kernel), every device event's ms per step, and the
+    device's idle share (the window less the union of those events).  The
+    trace costs host time, so this serve's step time is not the serve's
+    metric: phase_serve's untraced run is."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sv = phase_serve(torch, dev, argv, must_launch)
+    path = out_dir / "serve_trace.json"
+    prof.export_chrome_trace(str(path))
+    evs = sorted((e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and str(e.get("cat", "")).lower()
+                  in ("kernel", "gpu_memset", "gpu_memcpy")),
+                 key=lambda e: float(e["ts"]))
+    path.unlink()
+    mac_us, mac_n, spans = 0.0, 0, []
+    for i, e in enumerate(evs):
+        t0, dur = float(e["ts"]), float(e["dur"])
+        if "crossbar_mac_tc_kernel" in e["name"]:
+            mac_n += 1
+            mac_us += dur
+            spans.append(t0)
+            prev = evs[i - 1] if i else None
+            if prev is not None and "memset" in str(prev["cat"]).lower():
+                mac_us += float(prev["dur"])
+        elif "codes_to_float_kernel" in e["name"]:
+            mac_us += dur
+            spans.append(t0 + dur)
+    check(mac_n == sv["launches"]["crossbar_mac"],
+          f"serve trace holds {mac_n} MAC kernels, the wrapper counted "
+          f"{sv['launches']['crossbar_mac']}")
+    lo, hi = min(spans), max(spans)
+    busy, end, n_dev = 0.0, lo, 0
+    for e in evs:
+        a = max(float(e["ts"]), end)
+        b = min(float(e["ts"]) + float(e["dur"]), hi)
+        if float(e["ts"]) + float(e["dur"]) > lo and float(e["ts"]) < hi:
+            n_dev += 1
+        if b > a:
+            busy += b - a
+            end = b
+    steps = sv["steps"]
+    out = {"steps": steps, "traced_step_ms": sv["seconds"] / steps * 1e3,
+           "mac_device_ms_per_step": mac_us / steps / 1e3,
+           "device_busy_ms_per_step": busy / steps / 1e3,
+           "window_ms_per_step": (hi - lo) / steps / 1e3,
+           "device_idle_share": 1.0 - busy / (hi - lo),
+           "device_events_per_step": n_dev / steps,
+           "mac_launches": mac_n}
+    log(f"  traced: MAC {out['mac_device_ms_per_step']:.3f} ms of device "
+        f"time per step; all device work {out['device_busy_ms_per_step']:.3f}"
+        f" ms per step over a {out['window_ms_per_step']:.3f} ms window "
+        f"(device idle {100 * out['device_idle_share']:.1f}%), "
+        f"{out['device_events_per_step']:.0f} device events per step; step "
+        f"under the trace {out['traced_step_ms']:.2f} ms")
+    return out
+
+
 def check_mode_report(rep):
     """The auto policy's report: attention and head fused, the MLP in
     deep-net layout, and the IR-drop reduction scored on the card equal
@@ -770,6 +892,15 @@ def main() -> int:
         report["serve"] = phase_serve(
             torch, dev, main_argv,
             ["crossbar_mac", "paged_attention_scratch"], rows_per_adc=[128])
+        sv = report["serve"]
+        mac_est, mac_per_step = mac_step_ms(mac_rows)
+        sv["step_ms"] = sv["seconds"] / sv["steps"] * 1e3
+        sv["mac_launches_per_step"] = sv["launches"]["crossbar_mac"] / \
+            sv["steps"]
+        log(f"  step {sv['step_ms']:.2f} ms; the MAC's {mac_per_step} "
+            f"launches per step (counted {sv['mac_launches_per_step']:.1f}) "
+            f"would take {mac_est:.2f} ms of device time at phase 2's "
+            f"per-geometry times (an estimate; the trace below measures it)")
         log("  --mode-policy auto (attention and head expansion-fused)")
         report["serve_auto"] = phase_serve(
             torch, dev, main_argv + ["--mode-policy", "auto"],
@@ -798,15 +929,26 @@ def main() -> int:
             torch, dev, long_argv,
             ["crossbar_mac", "paged_attention_streamed",
              "paged_attention_combine"])
+        # last: the serves after a trace ran slower (the profiler's state
+        # outlives it), so none of the timed serves follows it
+        log("  the main serve again, in a torch.profiler trace of the card")
+        sv["trace"] = phase_serve_traced(
+            torch, dev, main_argv,
+            ["crossbar_mac", "paged_attention_scratch"], out_dir)
+        log(f"  the MAC's measured device time is "
+            f"{100 * sv['trace']['mac_device_ms_per_step'] / sv['step_ms']:.1f}"
+            f"% of the untraced step; all device work "
+            f"{100 * sv['trace']['device_busy_ms_per_step'] / sv['step_ms']:.1f}"
+            f"%")
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
         return 1
 
     report["seconds"] = time.perf_counter() - t_start
-    head = next(r for r in report["crossbar_mac"]
-                if r["geometry"] == "head" and r["mode"] == "deepnet"
-                and "ms" in r)
+    head, head64 = (next(r for r in report["crossbar_mac"]
+                         if r["geometry"] == "head" and r["mode"] == "deepnet"
+                         and r["b"] == b and "ms" in r) for b in (16, 64))
     serve_l = report["serve"]["launches"]
     stream_l = report["serve_streamed"]["launches"]
     long_l = report["serve_long"]["launches"]
@@ -817,9 +959,16 @@ def main() -> int:
          "launches": serve_l["crossbar_mac"],
          "max_abs_err": max(r["max_abs_err"]
                             for r in report["crossbar_mac"]),
-         "ms": head["ms"], "plain_ms": head["plain_ms"],
+         "ms": head["ms"], "device_ms": head["device_ms"],
+         "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-         "library_ms": None, "shape": f"B=16 K={head['k']} N={head['n']}"},
+         "library_ms": None, "shape": f"B=16 K={head['k']} N={head['n']}",
+         "b64_ms": head64["ms"], "b64_device_ms": head64["device_ms"],
+         "b64_bound_ms": head64["bound_ms"],
+         "step_device_ms":
+             report["serve"]["trace"]["mac_device_ms_per_step"],
+         "step_idle_share": report["serve"]["trace"]["device_idle_share"],
+         "step_ms": report["serve"]["step_ms"]},
     ]
     for lane, line, launches in (
             ("scratch", 124, serve_l["paged_attention_scratch"]),
@@ -832,7 +981,8 @@ def main() -> int:
             "replaces": f"src/repro/kernels/paged_attention/kernel.py:{line}",
             "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in
-                               (r, lg, r.get("serve_long", lg))),
+                               (r, lg, r.get("serve_long", lg),
+                                r.get("hd40", lg))),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

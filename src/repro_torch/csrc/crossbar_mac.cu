@@ -1,4 +1,5 @@
-// Bit-sliced differential crossbar MAC for NVIDIA Hopper (sm_90a).
+// Bit-sliced differential crossbar MAC for NVIDIA Hopper (sm_90a), with
+// the pre-ADC sums on the int8 tensor cores.
 //
 // Replaces the TPU kernel `crossbar_mac` of
 // src/repro/kernels/crossbar_mac/kernel.py (body `_kernel`).
@@ -17,38 +18,47 @@
 //
 // What bounds it on the H100: at decode (B = 16 tokens) the kernel reads
 // every cell plane once, 2 * S * K * N bytes (3.1 GB for the 2560 x 152064
-// LM head at S = 4), against 3.35 TB/s of device memory.  The arithmetic
-// is bit-level: a pre-ADC sum is a popcount of (input bit plane AND cell
-// bit plane), which is exact integer arithmetic.
+// LM head at S = 4), against 3.35 TB/s of device memory.
 //
 // What the design does about it:
-//   * one thread owns one output column of a 128-column tile and up to 16
-//     batch rows; it reads each of its column's cell codes from device
-//     memory exactly once per row group and slice (neighbouring threads
-//     read neighbouring bytes, so a warp's load is one 32-byte sector),
-//     packs them into 32-row bit masks held in registers, and then loops
-//     over all in_bits input bit planes against those registers -- the
-//     planes are never re-read per bit;
-//   * the input bit planes of a row group are packed once per block into
-//     shared memory and read as broadcasts;
-//   * the ADC is the reference's, exactly: the host passes
-//     lsb = (float)((double)full_scale / levels), and the code of a
-//     pre-ADC sum a is clip(rintf(__fdiv_rn(a + leak, lsb)), 0, levels)
-//     (correctly rounded divide, round half to even).  A pre-ADC sum is
-//     an integer in [0, rows * (2^bpc - 1)], so each block evaluates that
-//     formula once per possible sum into a shared-memory table and every
-//     conversion is one table read — the divide, not the bytes, bounded
-//     the first version of this kernel;
-//   * the signed shift-add accumulates integer codes (int32 per slice,
-//     int64 across slices and groups), which is exact and independent of
-//     order, so the row-group axis may be split across blocks (integer
-//     atomics into a zeroed int64 buffer) to fill the card when N is
-//     small; a second small kernel multiplies by lsb.
+//   * a pre-ADC sum is the dot of a 0/1 input bit plane with cell codes in
+//     0 .. 2^bpc - 1 over one row group: an exact int8 x int8 -> int32
+//     product in any order.  It runs as mma.sync.m16n8k32.s8 with
+//     M = batch rows x input bits, K = the row group, N = columns; only the
+//     ADC is nonlinear, and it acts on the int32 accumulators;
+//   * a block owns 32 columns per warp (four warps; eight at 256 rows per
+//     ADC) and 16 batch rows, and walks a range of row groups.  Plane
+//     tiles of one group x the block's columns, one per (slice, side),
+//     travel by 16-byte cp.async through a two-stage ring in shared
+//     memory, so each plane byte is read from device memory once per block
+//     while the previous tile computes.  The math, not the copies, sets
+//     the time (measured: PERF.md), so the ring is kept small enough for
+//     three blocks to share an SM;
+//   * the A operand: per group the block writes x's bit planes into shared
+//     memory as int8 0/1, K-contiguous, read by ldmatrix.  M-tile t of a
+//     batch half holds batch rows 0-7 at bit 2t and at bit 2t + 1, so a
+//     thread's accumulators (rows lane/4 and lane/4 + 8) hold both bits of
+//     one batch row and the signed shift-add runs in registers;
+//   * the B operand: the planes are N-contiguous and the int8 mma wants
+//     K-contiguous quads, so a thread reads four 4-byte words of four rows
+//     (one per k) and transposes them with __byte_perm into the k-quads of
+//     four columns; each of the warp's four n8 tiles takes one of them.
+//     Staged rows are XOR-swizzled in 16-byte chunks so those reads are
+//     free of bank conflicts.  A warp keeps a whole group's B fragments in
+//     registers and runs every M-tile against them;
+//   * the ADC is the reference's, exactly: lsb = (float)((double)full_scale
+//     / levels) from the host, code = clip(rintf(__fdiv_rn(a + leak, lsb)),
+//     0, levels) (xbar::adc_code), evaluated once per possible sum into a
+//     shared table with one copy per lane, so a warp's 32 lookups never
+//     share a bank;
+//   * the codes are shift-added as integers, int32 per slice and int64
+//     across slices and groups, the same integers as the popcount MAC of
+//     xbar_mac.cuh (kept there for deepnet_stream.cu), so the outputs are
+//     bitwise equal to it.  Integer sums are order-free, so row groups may
+//     be split across blocks (int64 atomics into a zeroed buffer) when the
+//     column tiles do not fill the card; a last kernel multiplies by lsb;
 //   * `leak` (the write plane's common-mode pre-ADC offset) is read from a
 //     device tensor, so one build serves leak = 0 and leak != 0.
-//
-// The MAC and ADC live in xbar_mac.cuh, shared with deepnet_stream.cu;
-// this file supplies the cell codes from the int8 planes.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: the ADC rounding must be exact).
@@ -59,59 +69,325 @@
 
 namespace {
 
-// One column's cell codes come straight from the int8 planes in device
-// memory: each code is read once per row group and slice.
-template <int BPC, int WORDS>
-struct PlaneCells {
-  const int8_t* __restrict__ pos;
-  const int8_t* __restrict__ neg;
-  size_t kn;
-  int N;
-  int col;
+constexpr int kBT = 16;                  // batch rows per block
+constexpr int kStages = 2;               // ring depth (see the launch)
+constexpr int kSmemLimit = 232448;       // dynamic shared memory per block
+constexpr int kTableThreads = 128;
+static_assert(kBT == xbar::kBT, "grid_for tiles the batch by xbar::kBT");
 
-  __device__ __forceinline__ void begin_group(int, int) {}
-
-  __device__ __forceinline__ void masks(int s, int k0, int kvalid,
-                                        uint32_t* mp, uint32_t* mn) const {
-    const size_t off = s * kn + static_cast<size_t>(k0) * N + col;
-    const int8_t* ps = pos + off;
-    const int8_t* ns = neg + off;
-    const int n = N;
-    xbar::build_masks<BPC, WORDS>(
-        [ps, ns, n](int row, uint32_t& pv, uint32_t& nv) {
-          pv = static_cast<uint8_t>(ps[static_cast<size_t>(row) * n]);
-          nv = static_cast<uint8_t>(ns[static_cast<size_t>(row) * n]);
-        },
-        kvalid, mp, mn);
-  }
-};
-
-template <int BPC, int WORDS>
-__global__ void __launch_bounds__(xbar::kNT) crossbar_mac_kernel(
-    const int32_t* __restrict__ x, const int8_t* __restrict__ pos,
-    const int8_t* __restrict__ neg, const float* __restrict__ leak_ptr,
-    unsigned long long* __restrict__ acc_out, int B, int K, int N, int S,
-    int in_bits, int rows, int groups_per_split, float lsb, float levels) {
-  __shared__ xbar::Shared<WORDS> sm;
-  const int n_groups = K / rows;
-  const int g_begin = blockIdx.y * groups_per_split;
-  const int g_end = min(n_groups, g_begin + groups_per_split);
-  PlaneCells<BPC, WORDS> cells{pos, neg, static_cast<size_t>(K) * N, N,
-                               static_cast<int>(blockIdx.x) * xbar::kNT +
-                                   static_cast<int>(threadIdx.x)};
-  xbar::mac_groups<BPC, WORDS>(cells, sm, x, *leak_ptr, acc_out, B, K, N,
-                               S, in_bits, rows, g_begin, g_end, lsb,
-                               levels);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; with full == false nothing is read and the
+// destination is zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c += a (16 x 32, row) . b (32 x 8, col), int8 in, int32 accumulate
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int BPC, int WORDS>
-cudaError_t launch_variant(dim3 grid, cudaStream_t st, const int32_t* x,
-                           const int8_t* pos, const int8_t* neg,
-                           const float* leak, unsigned long long* acc,
-                           int B, int K, int N, int S, int in_bits,
-                           int rows, int gps, float lsb, float levels) {
-  crossbar_mac_kernel<BPC, WORDS><<<grid, xbar::kNT, 0, st>>>(
-      x, pos, neg, leak, acc, B, K, N, S, in_bits, rows, gps, lsb, levels);
+// w[i] holds bytes (row i, columns 0..3); v[j] gets bytes (rows 0..3,
+// column j): a 4 x 4 byte transpose
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
+                                           uint32_t (&v)[4]) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  v[0] = __byte_perm(t0, t1, 0x5410);
+  v[1] = __byte_perm(t0, t1, 0x7632);
+  v[2] = __byte_perm(t2, t3, 0x5410);
+  v[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// chunk c (16 bytes) of staged plane row r sits at chunk c ^ swizzle: rows
+// 4 t4 + i of a warp's fragment reads then fall on distinct banks
+__device__ __forceinline__ int plane_chunk(int r, int c) {
+  return c ^ (((r >> 2) & 3) << 1);
+}
+
+// the signed weight of input bit p: MSB -2^(b-1), none past in_bits
+__device__ __forceinline__ int bit_weight(int p, int in_bits) {
+  return p < in_bits - 1 ? (1 << p) : (p == in_bits - 1 ? -(1 << p) : 0);
+}
+
+// The ADC code of every possible pre-ADC sum 0 .. maxsum, 32 copies side
+// by side: lut[s * 32 + lane] is the code lane `lane` reads for sum s, so
+// a warp's 32 lookups fall on 32 banks whatever the sums
+__device__ __forceinline__ void fill_lut(int* lut, int maxsum, float leak,
+                                         float lsb, float levels) {
+  for (int s = threadIdx.x; s <= maxsum; s += blockDim.x) {
+    const int c = xbar::adc_code(s, leak, lsb, levels);
+    int4* dst = reinterpret_cast<int4*>(lut + s * 32);
+#pragma unroll
+    for (int l = 0; l < 8; ++l) dst[l] = make_int4(c, c, c, c);
+  }
+}
+
+// The MAC's ADC table as a block builds it, copied out (for the tests)
+__global__ void adc_table_kernel(const float* __restrict__ leak,
+                                 int* __restrict__ out, int maxsum, float lsb,
+                                 float levels) {
+  extern __shared__ __align__(16) int table[];
+  fill_lut(table, maxsum, *leak, lsb, levels);
+  __syncthreads();
+  for (int i = threadIdx.x; i < (maxsum + 1) * 32; i += blockDim.x)
+    out[i] = table[i];
+}
+
+struct MacArgs {
+  const int32_t* x;
+  const int8_t* pos;
+  const int8_t* neg;
+  const float* leak;
+  unsigned long long* acc;
+  int B, K, N, S, in_bits, bpc, rows, gps, aligned;
+  float lsb, levels;
+};
+
+// shared memory: ADC table | A bit planes | ring
+__host__ __device__ inline int lut_bytes(int rows, int bpc) {
+  return (rows * ((1 << bpc) - 1) + 1) * 32 * 4;
+}
+__host__ __device__ inline int a_rows(int nb, int in_bits) {
+  return (nb > 8 ? 2 : 1) * ((in_bits + 1) / 2) * 16;
+}
+
+// KS: k32 steps per staged group (rows rounded up to 32 * KS; the extra
+// rows carry zero input bits).  WARPS: warps per block, 32 columns each.
+template <int KS, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS) crossbar_mac_tc_kernel(
+    MacArgs a) {
+  constexpr int STAGES = kStages;
+  constexpr int kThreads = 32 * WARPS;
+  constexpr int kCols = 32 * WARPS;      // columns per block
+  constexpr int kChunks = kCols / 16;    // 16-byte chunks per staged row
+  constexpr int RP = 32 * KS;
+  constexpr int kStage = RP * kCols;
+  constexpr int kAMask = (2 * KS < 8 ? 2 * KS : 8) - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;
+  const int t4 = lane & 3;
+  const int b0 = blockIdx.x * kBT;
+  const int nb = min(kBT, a.B - b0);
+  const int nch = nb > 8 ? 2 : 1;
+  const int nbp = (a.in_bits + 1) / 2;
+  const int g_begin = blockIdx.y * a.gps;
+  const int g_end = min(a.K / a.rows, g_begin + a.gps);
+  const int col0 = blockIdx.z * kCols;
+  const int maxsum = a.rows * ((1 << a.bpc) - 1);
+  int* lut = reinterpret_cast<int*>(smem);
+  int8_t* A = reinterpret_cast<int8_t*>(smem + lut_bytes(a.rows, a.bpc));
+  int8_t* ring = A + a_rows(nb, a.in_bits) * RP;
+
+  fill_lut(lut, maxsum, *a.leak, a.lsb, a.levels);
+
+  const int n_stage = (g_end - g_begin) * a.S * 2;
+  // stage it: group g_begin + (it / 2) / S, slice (it / 2) % S, side it % 2
+  auto issue = [&](int it) {
+    if (it < n_stage) {
+      const int s = (it >> 1) % a.S;
+      const int g = g_begin + (it >> 1) / a.S;
+      const int8_t* plane =
+          ((it & 1) ? a.neg : a.pos) +
+          (static_cast<size_t>(s) * a.K + static_cast<size_t>(g) * a.rows) *
+              a.N + col0;
+      int8_t* dst = ring + (it % STAGES) * kStage;
+      for (int i = threadIdx.x; i < a.rows * kChunks; i += kThreads) {
+        const int r = i / kChunks;
+        const int c = i % kChunks;
+        int8_t* d = dst + r * kCols + (plane_chunk(r, c) << 4);
+        const int8_t* src = plane + static_cast<size_t>(r) * a.N + c * 16;
+        const int left = a.N - col0 - c * 16;  // columns of the chunk in N
+        if (a.aligned) {
+          cp_async16(d, left > 0 ? src : plane, left > 0);
+        } else {  // ragged N: byte loads, zero past N
+          uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (e < left)
+              w[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(src[e]))
+                           << (8 * (e & 3));
+          *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // x's bit planes of group g as int8 0/1: row m = (half * nbp + p / 2) *
+  // 16 + (p % 2) * 8 + b % 8 for batch row b of half b / 8, K-contiguous,
+  // 16-byte chunks swizzled by row for ldmatrix
+  auto build_a = [&](int g) {
+    const int32_t* xg = a.x + static_cast<size_t>(b0) * a.K +
+                        static_cast<size_t>(g) * a.rows;
+    const uint32_t umask = (1u << a.in_bits) - 1u;
+    constexpr int kQuads = RP / 4;
+    for (int i = threadIdx.x; i < nch * 8 * kQuads; i += kThreads) {
+      const int b = i / kQuads;
+      const int k = (i - b * kQuads) * 4;
+      uint32_t u[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        u[e] = (b < nb && k + e < a.rows)
+                   ? static_cast<uint32_t>(
+                         xg[static_cast<size_t>(b) * a.K + k + e]) & umask
+                   : 0u;
+      const int half = b >> 3;
+      for (int p = 0; p < 2 * nbp; ++p) {
+        uint32_t w = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w |= ((u[e] >> p) & 1u) << (8 * e);
+        const int m = (half * nbp + (p >> 1)) * 16 + (p & 1) * 8 + (b & 7);
+        *reinterpret_cast<uint32_t*>(
+            A + m * RP + (((k >> 4) ^ (m & kAMask)) << 4) + (k & 15)) = w;
+      }
+    }
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+  long long out[2][8];
+  int part[2][8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) out[h][q] = 0, part[h][q] = 0;
+
+  for (int it = 0; it < n_stage; ++it) {
+    const int side = it & 1;
+    const int slice = (it >> 1) % a.S;
+    // a new group: every warp is past the last stage's reads of A
+    if (side == 0 && slice == 0) build_a(g_begin + (it >> 1) / a.S);
+    issue(it + STAGES - 1);
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const int8_t* st = ring + (it % STAGES) * kStage;
+    // this warp's B fragments for the whole group: bf[kk][j][h] is the
+    // k-quad (kk * 32 + 16 h + 4 t4 + 0..3) of column 32 warp + 4 gr + j,
+    // which n8 tile j holds as its column gr
+    uint32_t bf[KS][4][2];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t w[4], v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = kk * 32 + h * 16 + 4 * t4 + i;
+          w[i] = *reinterpret_cast<const uint32_t*>(
+              st + r * kCols + (plane_chunk(r, 2 * warp + (gr >> 2)) << 4) +
+              (gr & 3) * 4);
+        }
+        transpose4(w, v);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bf[kk][j][h] = v[j];
+      }
+    const int sign = side ? -1 : 1;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (half >= nch) break;
+#pragma unroll 2
+      for (int tb = 0; tb < nbp; ++tb) {
+        const int mt = half * nbp + tb;
+        int acc[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+        const int arow = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t af[4];
+          const int chunk = 2 * kk + (lane >> 4);
+          ldsm_x4(af, A + arow * RP + ((chunk ^ (arow & kAMask)) << 4));
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_s8(acc[j], af, bf[kk][j][0], bf[kk][j][1]);
+        }
+        // rows gr (bit 2 tb) and gr + 8 (bit 2 tb + 1) of batch row
+        // 8 half + gr; c[e] is column 8 t4 + 4 (e & 1) + j of the warp's 32
+        const int wlo = sign * bit_weight(2 * tb, a.in_bits);
+        const int whi = sign * bit_weight(2 * tb + 1, a.in_bits);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            part[half][4 * (e & 1) + j] +=
+                (e < 2 ? wlo : whi) * lut[acc[j][e] * 32 + lane];
+      }
+    }
+    if (side == 1) {  // the slice's codes, both sides: shift-add in int64
+      const long long slcw = 1ll << (a.bpc * slice);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          out[h][q] += static_cast<long long>(part[h][q]) * slcw;
+          part[h][q] = 0;
+        }
+    }
+    __syncthreads();  // the slot and A are rewritten after this
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = h * 8 + gr;
+    if (h < nch && b < nb) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int col = col0 + 32 * warp + 8 * t4 + q;
+        if (col < a.N)
+          atomicAdd(a.acc + static_cast<size_t>(b0 + b) * a.N + col,
+                    static_cast<unsigned long long>(out[h][q]));
+      }
+    }
+  }
+}
+
+// g: xbar::grid_for's grid at this launch's kCols columns per block
+template <int KS, int WARPS>
+cudaError_t launch_tc(const MacArgs& a, dim3 g, cudaStream_t st) {
+  constexpr int kCols = 32 * WARPS;
+  const size_t smem =
+      static_cast<size_t>(lut_bytes(a.rows, a.bpc)) +
+      static_cast<size_t>(a_rows(a.B < kBT ? a.B : kBT, a.in_bits)) * 32 * KS +
+      static_cast<size_t>(kStages) * 32 * KS * kCols;
+  if (smem > static_cast<size_t>(kSmemLimit) ||
+      g.x != static_cast<unsigned>((a.N + kCols - 1) / kCols))
+    return cudaErrorInvalidValue;
+  auto kernel = crossbar_mac_tc_kernel<KS, WARPS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // batch tiles fastest: they read the same plane tiles
+  const dim3 grid(g.z, g.y, g.x);
+  kernel<<<grid, 32 * WARPS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -124,6 +400,25 @@ int crossbar_mac_max_rows(int bits_per_cell) {
   return xbar::max_rows(bits_per_cell);
 }
 
+// The ADC table the MAC kernel reads at this geometry: out ((rows *
+// (2^bpc - 1) + 1) x 32) int32, row s holding 32 copies of the code of sum
+// s.  Returns a cudaError_t (0 = launched).
+int crossbar_mac_adc_table(const void* leak, void* out, int rows,
+                           int bits_per_cell, float lsb, float levels,
+                           void* stream) {
+  if (rows <= 0 || rows > crossbar_mac_max_rows(bits_per_cell))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int maxsum = rows * ((1 << bits_per_cell) - 1);
+  const int smem = lut_bytes(rows, bits_per_cell);
+  cudaError_t err = cudaFuncSetAttribute(
+      adc_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  adc_table_kernel<<<1, kTableThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(leak), static_cast<int*>(out), maxsum, lsb,
+      levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // x (B, K) int32; pos/neg (S, K, N) int8; leak (1,) f32; acc scratch
 // (B, N) int64; out (B, N) f32.  All device pointers, contiguous.
 // Returns a cudaError_t (0 = launched).
@@ -132,7 +427,7 @@ int crossbar_mac_launch(const void* x, const void* pos, const void* neg,
                         int N, int S, int in_bits, int bits_per_cell,
                         int rows, float lsb, float levels, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || N <= 0 || K <= 0 || rows <= 0 || K % rows != 0 ||
+  if (B <= 0 || N <= 0 || K <= 0 || S <= 0 || rows <= 0 || K % rows != 0 ||
       in_bits < 1 || in_bits > xbar::kMaxInBits ||
       levels > (1 << xbar::kMaxAdcBits) ||
       rows > crossbar_mac_max_rows(bits_per_cell)) {
@@ -140,28 +435,28 @@ int crossbar_mac_launch(const void* x, const void* pos, const void* neg,
   }
   cudaError_t err = xbar::zero_codes(acc, B, N, st);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // 4 warps (128 columns) per block up to 128 rows, 8 (256) beyond
+  const int cols = rows <= 128 ? 128 : 256;
   int gps = 0;
-  const dim3 grid = xbar::grid_for(B, N, K / rows, &gps);
-  const int words = (rows + 31) / 32;
-  const int32_t* xp = static_cast<const int32_t*>(x);
-  const int8_t* pp = static_cast<const int8_t*>(pos);
-  const int8_t* np_ = static_cast<const int8_t*>(neg);
-  const float* lp = static_cast<const float*>(leak);
-  unsigned long long* ap = static_cast<unsigned long long*>(acc);
-#define XB_LAUNCH(BPC, W)                                                  \
-  err = launch_variant<BPC, W>(grid, st, xp, pp, np_, lp, ap, B, K, N, S,  \
-                               in_bits, rows, gps, lsb, levels)
-  if (bits_per_cell == 1) {
-    if (words <= 1) XB_LAUNCH(1, 1);
-    else if (words <= 2) XB_LAUNCH(1, 2);
-    else if (words <= 4) XB_LAUNCH(1, 4);
-    else XB_LAUNCH(1, 8);
-  } else {
-    if (words <= 1) XB_LAUNCH(2, 1);
-    else if (words <= 2) XB_LAUNCH(2, 2);
-    else XB_LAUNCH(2, 4);
-  }
-#undef XB_LAUNCH
+  const dim3 g = xbar::grid_for(B, N, K / rows, &gps, cols);
+  const bool aligned = N % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(pos) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(neg) % 16 == 0;
+  const MacArgs a{static_cast<const int32_t*>(x),
+                  static_cast<const int8_t*>(pos),
+                  static_cast<const int8_t*>(neg),
+                  static_cast<const float*>(leak),
+                  static_cast<unsigned long long*>(acc),
+                  B, K, N, S, in_bits, bits_per_cell, rows, gps,
+                  aligned ? 1 : 0, lsb, levels};
+  // Measured on the H100 (head, B 16): a two-stage ring beats four, as
+  // the smaller block lets three blocks share an SM (the math, not the
+  // copies, sets the time); at 256 rows a block of eight warps shares one
+  // ADC table and bit-plane tile over 256 columns.
+  if (rows <= 32) err = launch_tc<1, 4>(a, g, st);
+  else if (rows <= 64) err = launch_tc<2, 4>(a, g, st);
+  else if (rows <= 128) err = launch_tc<4, 4>(a, g, st);
+  else err = launch_tc<8, 8>(a, g, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(xbar::codes_to_float(acc, out, B, N, lsb, st));
 }

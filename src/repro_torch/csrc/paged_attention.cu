@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/paged_attention/kernel.py:
 //   * `paged_attention_kernel` (body `_kernel`), the scratch lane, by
-//     `paged_scratch_kernel`: gather a row's pages through its page table,
-//     then grouped SDPA with an exact softmax;
+//     `paged_scratch_mma_kernel` (bf16) and `paged_scratch_kernel`
+//     (float32): gather a row's pages through its page table, then
+//     grouped SDPA with an exact softmax;
 //   * `paged_attention_streamed` (body `_stream_body`), the streamed lane,
 //     by `paged_split_kernel` + `paged_combine_kernel`: an online softmax
 //     over the row's pages, split along the KV axis (flash-decoding).
@@ -17,8 +18,9 @@
 // Numerics, as in the reference: logits in f32 (bf16 products are exact
 // in f32), times hd^-0.5; -1e30 for causal (q_offset + s < t) and length
 // (t >= kv_len) masking.  The scratch lane takes max, exp, sum and
-// divides, rounds the weights to T and accumulates P.V in f32 over t in
-// order before rounding to T.  The streamed lane keeps a running max m,
+// divides, rounds the weights to T and accumulates P.V in f32 (over t in
+// order at float32, in the tensor cores' order at bf16) before rounding
+// to T.  The streamed lane keeps a running max m,
 // denominator l and f32 accumulator per row and normalises at the end.
 //
 // What bounds both lanes on the H100: the bytes of K/V pages a row
@@ -56,16 +58,24 @@
 //     loads (TF32 would break the float32 contract of 1e-5).
 //
 // What the scratch design does: only Q and the f32 logits of the window
-// stay resident in shared memory; K, then V, stream through a two-stage
-// cp.async ring of token tiles, and each thread keeps its P.V sums in
-// registers across tiles.  Its arithmetic and its order are the lane's
-// from before the ring (the same fmaf chain over d, then over t), so it
-// holds windows up to (227 KB - Q - ring) / (4 * g * sq) tokens.  It takes
-// any head dim of whole 16-byte chunks; the streamed lane is compiled for
-// head dims 16, 32, 64, 80, 96, 128, 192 and 256.
+// stay resident in shared memory; K, then V, stream through a cp.async
+// ring of token tiles, so it holds windows up to about (227 KB - Q - ring)
+// / (4 * g * sq) tokens.  At bf16 (`paged_scratch_mma_kernel`) both
+// products run on the tensor cores (mma.sync m16n8k16, P from the rounded
+// logits, V by ldmatrix.trans, the P.V sums in registers across tiles),
+// the ring has two to four stages, and a window of 512 tokens or more is
+// split over a cluster of 2 to 8 CTAs whose row max and sum meet in
+// distributed shared memory, so the softmax stays exact over the window.
+// At float32 (`paged_scratch_kernel`) the arithmetic and its order are
+// the lane's from before the ring: an fmaf chain over d, then over t
+// (TF32 would break the float32 contract).  Both take any head dim of
+// whole 16-byte chunks; the streamed lane is compiled for widths 16, 32,
+// 64, 80, 96, 128, 192 and 256 and runs any head dim up to 256 on the next
+// width up, the extra columns zero in shared memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: expf and the divides are exact).
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -107,21 +117,12 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// the 16 bytes of a shared chunk as f32 values, in order
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& v,
-                                       float (&f)[16 / sizeof(T)]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(w[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
+// the 16 bytes of a shared chunk as four f32 values, in order
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -172,12 +173,13 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 // 16 bytes global -> shared; with full == false nothing is read and the
 // destination is zero-filled
+// (no memory clobber: the destination is read only after
+// cp_async_wait and a barrier, so nothing around the issue needs ordering)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
+               "l"(src), "r"(full ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -214,42 +216,67 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// Copy the page-table entries of tokens [t_base, t_end) (t_base a whole
-// page) into shared memory, so that issuing a tile waits on no global load.
+// Copy the page-table entries of tokens [t_base, t_end) into shared
+// memory (pages[i] = the entry of page t_base / ps + i), so that issuing a
+// tile waits on no global load.
 __device__ __forceinline__ void load_pages(const int32_t* __restrict__ pt_row,
                                            int t_base, int t_end, int ps,
                                            int* pages) {
   const int p0 = t_base / ps;
-  const int np = (t_end - t_base + ps - 1) / ps;
-  for (int i = threadIdx.x; i < np; i += kThreads) pages[i] = pt_row[p0 + i];
+  const int np = t_end > t_base ? (t_end - 1) / ps - p0 + 1 : 0;
+  for (int i = threadIdx.x; i < np; i += blockDim.x) pages[i] = pt_row[p0 + i];
 }
 
 // Issue the copies of tokens [t0, t0 + tt) of pool a (and of pool b, if
-// given: the same rows of V beside K), KV head h, into swizzled tiles;
-// tokens at or past t_end are zero-filled without a load.  pages[i] is
-// the physical page of tokens t_base + i * ps onwards.
+// given: the same rows of V beside K), KV head h, into swizzled tiles of
+// width hd; tokens at or past t_end, and the columns past the pools' own
+// head dim src_hd (<= hd), are zero-filled without a load.  pages[i] is
+// the physical page of page index t_base / ps + i.  A thread's copies
+// are kThreads apart; their (token, chunk, page, offset) advance by
+// additions, not divides.
 template <typename T>
 __device__ __forceinline__ void issue_tile(
     const T* __restrict__ pool_a, const T* __restrict__ pool_b,
     const int* pages, int t_base, int h, int ps, int kv, int hd, int t0,
-    int tt, int t_end, T* dst_a, T* dst_b) {
+    int tt, int t_end, T* dst_a, T* dst_b, int src_hd = 0) {
   constexpr int kVec = 16 / sizeof(T);
   const int cpr = hd / kVec;
   const int mask = swz_mask(cpr);
-  for (int i = threadIdx.x; i < tt * cpr; i += kThreads) {
-    const int t = i / cpr;
-    const int c = i - t * cpr;
-    const int ta = t0 + t;
-    const bool in = ta < t_end;
+  if (src_hd == 0) src_hd = hd;
+  const int src_cpr = src_hd / kVec;
+  const int total = tt * cpr;
+  int i = threadIdx.x;
+  if (i >= total) return;
+  int t = i / cpr;
+  int c = i - t * cpr;
+  const int dt = kThreads / cpr;
+  const int dc = kThreads - dt * cpr;
+  int ta = t0 + t;
+  int pg = ta / ps - t_base / ps;  // index into pages[]
+  int po = ta % ps;
+  for (; i < total; i += kThreads) {
+    const bool in = ta < t_end && c < src_cpr;
     size_t off = 0;
     if (in) {
-      const int page = pages[(ta - t_base) / ps];
-      off = ((static_cast<size_t>(page) * ps + ta % ps) * kv + h) * hd +
+      off = ((static_cast<size_t>(pages[pg]) * ps + po) * kv + h) * src_hd +
             c * kVec;
     }
     const int d = swz<T>(t, c, hd, mask);
     cp_async16(dst_a + d, pool_a + off, in);
     if (pool_b != nullptr) cp_async16(dst_b + d, pool_b + off, in);
+    int adv = dt;
+    c += dc;
+    if (c >= cpr) {
+      c -= cpr;
+      ++adv;
+    }
+    t += adv;
+    ta += adv;
+    po += adv;
+    while (po >= ps) {
+      po -= ps;
+      ++pg;
+    }
   }
 }
 
@@ -315,12 +342,13 @@ __device__ void scratch_ring(const T* __restrict__ pool, const T* next,
   }
 }
 
-template <typename T>
+// The float32 scratch lane (bf16 runs paged_scratch_mma_kernel).
 __global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int32_t* __restrict__ pt,
+    const float* __restrict__ q, const float* __restrict__ kp,
+    const float* __restrict__ vp, const int32_t* __restrict__ pt,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    T* __restrict__ out, Geom gm) {
+    float* __restrict__ out, Geom gm) {
+  using T = float;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kVec = 16 / sizeof(T);
   const int b = blockIdx.x;
@@ -371,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
 #pragma unroll
                      for (int u = 0; u < 4; ++u) {
                        float kf[kVec];
-                       unpack<T>(*reinterpret_cast<const uint4*>(
+                       unpack(*reinterpret_cast<const uint4*>(
                                      Ks + swz<T>(tk[u], c, hd, mask)),
                                  kf);
                        const float* qr = Qs + rk[u] * qst + c * kVec;
@@ -476,6 +504,364 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
     }
   }
   cp_async_wait<0>();
+}
+
+// -- scratch lane, bf16: tensor cores, the window split over a cluster -------
+
+constexpr int kMmaMaxStages = 4;
+constexpr int kPvItems = 8;          // 16 x 16 output tiles a warp keeps
+constexpr int kSmemLimit = 232448;   // dynamic shared memory per block
+
+// head dim rounded up to the mma's 16 (the extra columns are zero)
+__host__ __device__ inline int scratch_hdp(int hd) { return (hd + 15) & ~15; }
+// rows of Q kept: 8 (the upper half of the m16 tile reads them again) or
+// whole m16 tiles
+__host__ __device__ inline int scratch_qrows(int rows) {
+  return rows <= 8 ? 8 : (rows + 15) & ~15;
+}
+// logit row stride for n tokens: at least n rounded up to 16 (P.V reads
+// whole k16 steps, zero past n), and 8 mod 16, so that the 8-byte P
+// fragment loads of a half-warp (rows gr = 0..3) fall on distinct banks
+__host__ __device__ inline int scratch_lst(int n) {
+  return ((n + 15) & ~15) + 8;
+}
+// tokens of a row's n that each CTA of a cs-CTA cluster takes: whole
+// 64-token tiles, the last CTAs possibly fewer or none
+__host__ __device__ inline int scratch_share(int n, int cs) {
+  return cs == 1 ? n : ((n + cs - 1) / cs + kTileTokens - 1) / kTileTokens *
+                           kTileTokens;
+}
+// CTAs per (row, KV head): windows of 4096 tokens and more are split
+// eight ways, of 2048 four ways, of 512 two ways, so that the long rows'
+// blocks do not serialise (measured on the H100 at B 4 x kv 16: PERF.md);
+// halved while the grid of `blocks` (B x kv) clusters would pass four
+// CTAs per SM, where the batch already fills the card
+inline int scratch_cluster(int depth, int blocks, int sms) {
+  int cs = depth >= 4096 ? 8 : depth >= 2048 ? 4 : depth >= 512 ? 2 : 1;
+  while (cs > 1 && static_cast<long long>(blocks) * cs > 4LL * sms) cs /= 2;
+  return cs;
+}
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// layout: ring | Qs | L | row max and sum (cs > 1) | P.V partials (cs > 1)
+// | the CTA's page-table entries
+struct ScratchLayout {
+  size_t ring, qs, l, red, part, pages, total;
+};
+__host__ __device__ inline ScratchLayout scratch_layout(int rows, int hd,
+                                                        int depth, int ps,
+                                                        int stages, int cs) {
+  const size_t hdp = scratch_hdp(hd);
+  const int share = scratch_share(depth, cs);
+  ScratchLayout o;
+  o.ring = 0;
+  o.qs = o.ring + static_cast<size_t>(stages) * kTileTokens * hdp * 2;
+  o.l = o.qs + static_cast<size_t>(scratch_qrows(rows)) * hdp * 2;
+  o.red = o.l + static_cast<size_t>(rows) * scratch_lst(share) * 4;
+  o.part = o.red + (cs > 1 ? static_cast<size_t>(2 * rows) * 4 : 0);
+  o.pages = o.part + (cs > 1 ? static_cast<size_t>(rows) * hdp * 4 : 0);
+  o.total = o.pages + static_cast<size_t>((share + ps - 1) / ps + 1) * 4;
+  return o;
+}
+
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3) cp_async_wait<3>();
+  else if (n == 2) cp_async_wait<2>();
+  else if (n == 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+__device__ __forceinline__ uint32_t bf16x2_of(float2 v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The bf16 scratch lane.  The same function as paged_scratch_kernel: the
+// f32 logits of the whole window resident in shared memory, an exact
+// softmax per row (max, exp, sum, divide), the weights rounded to bf16,
+// then P.V.  Both products run on the tensor cores
+// (mma.sync.m16n8k16 bf16 -> f32): bf16 products are exact in f32, so
+// only the order of the f32 sums differs from the CUDA-core lane.
+//   * Q.K^T: Q (rows padded to the m16 tile) and K tiles by ldmatrix from
+//     swizzled shared memory; each warp scores 16 tokens of a 64-token
+//     tile; the logits are scaled (__fmul_rn), masked and stored in L;
+//   * P.V: P from L (already rounded to bf16, so one mma), V by
+//     ldmatrix.trans; a warp keeps up to kPvItems 16 x 16 output tiles in
+//     registers while V streams by once (more items take more passes);
+//   * K tiles, then V tiles, flow through one cp.async ring of `stages`
+//     64-token tiles (up to 4 for one CTA, 3 in a cluster, fewer where the
+//     logits leave no room), so V's first tiles land while the softmax
+//     runs;
+//   * a long window is split over a cluster of cs CTAs (gridDim.z), each
+//     scoring a share of the tokens into its own L.  The softmax stays
+//     exact over the whole window: each row's max, then its sum of exp,
+//     are combined across the cluster through distributed shared memory
+//     (the sums in rank order), and the CTAs' P.V partials are summed in
+//     rank order before the one rounding to bf16.
+__global__ void __launch_bounds__(kThreads) paged_scratch_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int32_t* __restrict__ pt,
+    const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
+    __nv_bfloat16* __restrict__ out, Geom gm, int stages) {
+  using T = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int cs = gridDim.z;           // the cluster spans blockIdx.z
+  const int rank = blockIdx.z;
+  const int g = gm.hq / gm.kv;
+  const int rows = g * gm.sq;
+  const int hd = gm.hd;
+  const int hdp = scratch_hdp(hd);
+  const int cpr = hdp / 8;
+  const int mask = swz_mask(cpr);
+  const int depth = gm.p_seq * gm.ps;
+  const int len = kv_len[b];
+  const int qo = q_off[b];
+  const int n = tokens_needed(len, depth);
+  const int share = scratch_share(n, cs);
+  const int tb0 = min(n, rank * share);       // this CTA's tokens [tb0, te0)
+  const int te0 = min(n, tb0 + share);
+  const int m = te0 - tb0;
+  const int lst = scratch_lst(m);
+  const int qrows = scratch_qrows(rows);
+  const int n_mt = (rows + 15) / 16;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane >> 2;
+  const int t4 = lane & 3;
+  const int mat = lane >> 3;
+  const ScratchLayout lay = scratch_layout(rows, hd, depth, gm.ps, stages,
+                                           cs);
+  const int stage = kTileTokens * hdp;
+  T* ring = reinterpret_cast<T*>(smem + lay.ring);
+  T* Qs = reinterpret_cast<T*>(smem + lay.qs);
+  float* L = reinterpret_cast<float*>(smem + lay.l);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* part = reinterpret_cast<float*>(smem + lay.part);
+  int* pages = reinterpret_cast<int*>(smem + lay.pages);
+  load_pages(pt + static_cast<size_t>(b) * gm.p_seq, tb0, te0, gm.ps, pages);
+  for (int i = threadIdx.x; i < qrows * cpr; i += kThreads) {
+    const int r = i / cpr;
+    const int c = i - r * cpr;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r < rows && c * 8 < hd) {
+      const int j = r / gm.sq;
+      const int s = r - j * gm.sq;
+      v = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(b) * gm.sq + s) * gm.hq + h * g + j) * hd +
+          c * 8);
+    }
+    *reinterpret_cast<uint4*>(Qs + swz<T>(r, c, hdp, mask)) = v;
+  }
+  if (cs > 1)  // a CTA with no tokens adds zero partials
+    for (int i = threadIdx.x; i < rows * hdp; i += kThreads) part[i] = 0.0f;
+  __syncthreads();  // the page entries, before the first issue
+
+  const int n_tiles = (m + kTileTokens - 1) / kTileTokens;
+  const int n16 = hdp / 16;
+  const int items = n_mt * n16;
+  const int per_pass = kWarps * kPvItems;
+  const int passes = (items + per_pass - 1) / per_pass;
+  const int total = n_tiles * (1 + passes);
+  auto issue = [&](int it) {
+    if (it < total) {
+      const T* pool = it < n_tiles ? kp : vp;
+      const int tile = it < n_tiles ? it : (it - n_tiles) % n_tiles;
+      issue_tile<T>(pool, nullptr, pages, tb0, h, gm.ps, gm.kv, hdp,
+                    tb0 + tile * kTileTokens, kTileTokens, te0,
+                    ring + (it % stages) * stage, nullptr, hd);
+    }
+    cp_async_commit();
+  };
+  // every logit is in L: exact softmax per row (one warp per row), the max
+  // and the sum over the whole window, weights rounded to bf16, zeros past
+  // the CTA's tokens for P.V's last k16 step.  Every CTA of the cluster
+  // runs it once.
+  auto softmax = [&]() {
+    if (cs == 1) {
+      for (int r = warp; r < rows; r += kWarps) {
+        float* lr = L + r * lst;
+        float mx = kNegBig;
+        for (int t = lane; t < m; t += 32) mx = fmaxf(mx, lr[t]);
+        mx = warp_max(mx);
+        float sum = 0.0f;
+        for (int t = lane; t < m; t += 32) {
+          const float e = expf(lr[t] - mx);
+          lr[t] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int t = lane; t < lst; t += 32)
+          lr[t] = t < m ? round_to<T>(lr[t] / sum) : 0.0f;
+      }
+      return;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int r = warp; r < rows; r += kWarps) {  // this CTA's row max
+      const float* lr = L + r * lst;
+      float mx = -INFINITY;
+      for (int t = lane; t < m; t += 32) mx = fmaxf(mx, lr[t]);
+      mx = warp_max(mx);
+      if (lane == 0) red[r] = mx;
+    }
+    cluster.sync();
+    for (int r = warp; r < rows; r += kWarps) {  // exp, this CTA's sum
+      float* lr = L + r * lst;
+      float mx = -INFINITY;
+      for (int k = 0; k < cs; ++k)
+        mx = fmaxf(mx, *cluster.map_shared_rank(red + r, k));
+      float sum = 0.0f;
+      for (int t = lane; t < m; t += 32) {
+        const float e = expf(lr[t] - mx);
+        lr[t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) red[rows + r] = sum;
+    }
+    cluster.sync();
+    for (int r = warp; r < rows; r += kWarps) {  // the window's sum, divide
+      float* lr = L + r * lst;
+      float sum = 0.0f;
+      for (int k = 0; k < cs; ++k)  // rank order
+        sum += *cluster.map_shared_rank(red + rows + r, k);
+      for (int t = lane; t < lst; t += 32)
+        lr[t] = t < m ? round_to<T>(lr[t] / sum) : 0.0f;
+    }
+  };
+  for (int s = 0; s < stages - 1; ++s) issue(s);
+
+  float acc[kPvItems][2][4];
+  for (int it = 0; it < total; ++it) {
+    issue(it + stages - 1);
+    if (it == n_tiles) softmax();
+    cp_async_wait_upto(stages - 1);
+    __syncthreads();
+    const T* st = ring + (it % stages) * stage;
+    if (it < n_tiles) {
+      // logits of this warp's 16 tokens against every row
+      const int t0 = it * kTileTokens;      // within the CTA's share
+      const int tw = warp * kWarpTokens;
+      if (t0 + tw < m) {
+        for (int mt = 0; mt < n_mt; ++mt) {
+          float s[2][4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+          int qrow = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+          if (qrow >= qrows) qrow -= 8;
+          const int krow = tw + (lane & 7) + (mat >> 1) * 8;
+          for (int kc = 0; kc < cpr; kc += 2) {
+            uint32_t a[4], bk[4];
+            ldsm_x4(a, Qs + swz<T>(qrow, kc + (lane >> 4), hdp, mask));
+            ldsm_x4(bk, st + swz<T>(krow, kc + (mat & 1), hdp, mask));
+            mma_bf16(s[0], a, bk[0], bk[1]);
+            mma_bf16(s[1], a, bk[2], bk[3]);
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = mt * 16 + gr + (e >> 1) * 8;
+              const int t = t0 + tw + j * 8 + 2 * t4 + (e & 1);
+              if (row < rows && t < m)
+                L[row * lst + t] = mask_logit(__fmul_rn(s[j][e], gm.scale),
+                                              tb0 + t, row % gm.sq, qo, len,
+                                              gm.causal);
+            }
+        }
+      }
+    } else {
+      const int vt = (it - n_tiles) % n_tiles;
+      const int base = ((it - n_tiles) / n_tiles) * per_pass;
+      if (vt == 0) {
+#pragma unroll
+        for (int i = 0; i < kPvItems; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+      }
+      const int t0 = vt * kTileTokens;
+      const int cnt = min(kTileTokens, m - t0);
+      for (int tok = 0; tok < cnt; tok += 16) {
+        const int vrow = tok + (lane & 7) + (mat & 1) * 8;
+#pragma unroll
+        for (int i = 0; i < kPvItems; ++i) {
+          const int idx = base + warp + kWarps * i;
+          if (idx < items) {
+            const int mt = idx / n16;
+            const int nt = idx - mt * n16;
+            const int r_lo = min(mt * 16 + gr, rows - 1);
+            const int r_hi = min(mt * 16 + gr + 8, rows - 1);
+            const float* p_lo = L + r_lo * lst + t0 + tok + 2 * t4;
+            const float* p_hi = L + r_hi * lst + t0 + tok + 2 * t4;
+            uint32_t a[4];
+            a[0] = bf16x2_of(*reinterpret_cast<const float2*>(p_lo));
+            a[1] = bf16x2_of(*reinterpret_cast<const float2*>(p_hi));
+            a[2] = bf16x2_of(*reinterpret_cast<const float2*>(p_lo + 8));
+            a[3] = bf16x2_of(*reinterpret_cast<const float2*>(p_hi + 8));
+            uint32_t bv[4];
+            ldsm_x4_t(bv, st + swz<T>(vrow, 2 * nt + (mat >> 1), hdp, mask));
+            mma_bf16(acc[i][0], a, bv[0], bv[1]);
+            mma_bf16(acc[i][1], a, bv[2], bv[3]);
+          }
+        }
+      }
+      if (vt == n_tiles - 1) {  // the pass's outputs (or partials)
+#pragma unroll
+        for (int i = 0; i < kPvItems; ++i) {
+          const int idx = base + warp + kWarps * i;
+          if (idx < items) {
+            const int mt = idx / n16;
+            const int nt = idx - mt * n16;
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = mt * 16 + gr + (e >> 1) * 8;
+                const int col = nt * 16 + j * 8 + 2 * t4 + (e & 1);
+                if (row < rows && col < hd) {
+                  if (cs > 1) part[row * hdp + col] = acc[i][j][e];
+                  else store_out(out, b, h, gm, row, col, acc[i][j][e]);
+                }
+              }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the slot is refilled stages - 1 tiles later
+  }
+  if (n_tiles == 0) softmax();  // a CTA past the row's tokens
+  cp_async_wait<0>();
+  if (cs > 1) {
+    // out = the CTAs' partials summed in rank order; CTA `rank` stores
+    // every cs-th output
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int i = rank + cs * threadIdx.x; i < rows * hd; i += cs * kThreads) {
+      const int row = i / hd;
+      const int col = i - row * hd;
+      float v = 0.0f;
+      for (int k = 0; k < cs; ++k)
+        v += *cluster.map_shared_rank(part + row * hdp + col, k);
+      store_out(out, b, h, gm, row, col, v);
+    }
+    cluster.sync();  // the partials stay until every CTA has read them
+  }
 }
 
 // -- streamed lane: per-warp math -------------------------------------------
@@ -769,11 +1155,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   const size_t pbase =
       (static_cast<size_t>(b * gm.kv + h) * n_split + split) * R + r0;
   if (t_begin >= n) {  // wholly past the valid depth: the sentinel partial
-    for (int i = threadIdx.x; i < rows_here * HD; i += kThreads) {
-      part_acc[pbase * HD + i] = 0.0f;
-      if (i % HD == 0) {
-        part_ml[(pbase + i / HD) * 2] = kNegBig;
-        part_ml[(pbase + i / HD) * 2 + 1] = 0.0f;
+    for (int i = threadIdx.x; i < rows_here * gm.hd; i += kThreads) {
+      part_acc[pbase * gm.hd + i] = 0.0f;
+      if (i % gm.hd == 0) {
+        part_ml[(pbase + i / gm.hd) * 2] = kNegBig;
+        part_ml[(pbase + i / gm.hd) * 2 + 1] = 0.0f;
       }
     }
     return;
@@ -789,17 +1175,18 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   load_pages(pt + static_cast<size_t>(b) * gm.p_seq, t_begin, t_end, gm.ps,
              pages);
   const int warp = threadIdx.x / 32;
+  const int hd = gm.hd;  // the pools' head dim, <= HD; columns past it are 0
   // Q rows r0 .. r0 + 15 of the group (zero past R)
   for (int i = threadIdx.x; i < kGroupRows * kCpr; i += kThreads) {
     const int rr = i / kCpr;
     const int c = i - rr * kCpr;
     uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + rr < R) {
+    if (r0 + rr < R && c * kVec < hd) {
       const int j = (r0 + rr) / gm.sq;
       const int s = (r0 + rr) % gm.sq;
       v = *reinterpret_cast<const uint4*>(
           q + ((static_cast<size_t>(b) * gm.sq + s) * gm.hq + h * g + j) *
-                  HD + c * kVec);
+                  hd + c * kVec);
     }
     *reinterpret_cast<uint4*>(Qs + swz<T>(rr, c, HD, kMask)) = v;
   }
@@ -810,7 +1197,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
       T* st = ring + (it % kStages) * kStage;
       const int t0 = t_begin + it * kTileTokens;
       issue_tile(kp, vp, pages, t_begin, h, gm.ps, gm.kv, HD, t0,
-                 kTileTokens, t_end, st, st + kTileTokens * HD);
+                 kTileTokens, t_end, st, st + kTileTokens * HD, hd);
     }
     cp_async_commit();
   };
@@ -839,8 +1226,9 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
                     wbuf + 2 * kWarps * kGroupRows};
   wm.save(ws, warp);
   __syncthreads();
-  for (int i = threadIdx.x; i < rows_here * HD; i += kThreads) {
-    const int r = i / HD;
+  for (int i = threadIdx.x; i < rows_here * hd; i += kThreads) {
+    const int r = i / hd;
+    const int d = i - r * hd;
     float mx = kNegBig;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ws.m[w * kGroupRows + r]);
@@ -848,11 +1236,11 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float sc = expf(ws.m[w * kGroupRows + r] - mx);
-      a += sc * ws.acc[(w * kGroupRows) * HD + i];
+      a += sc * ws.acc[(w * kGroupRows + r) * HD + d];
       l += sc * ws.l[w * kGroupRows + r];
     }
-    part_acc[pbase * HD + i] = a;
-    if (i % HD == 0) {
+    part_acc[pbase * hd + i] = a;
+    if (d == 0) {
       part_ml[(pbase + r) * 2] = mx;
       part_ml[(pbase + r) * 2 + 1] = l;
     }
@@ -919,8 +1307,19 @@ cudaError_t launch_split(const SplitArgs& a) {
   return cudaGetLastError();
 }
 
+// the compiled widths of the split kernel; a head dim runs on the next
+// width up, its extra columns zero in shared memory
+inline int streamed_width(int hd) {
+  static const int widths[] = {16, 32, 64, 80, 96, 128, 192, 256};
+  for (int w : widths)
+    if (hd <= w) return w;
+  return 0;
+}
+
 template <typename T> cudaError_t split_by_hd(const SplitArgs& a) {
-  switch (a.gm.hd) {
+  if (a.gm.hd <= 0 || (a.gm.hd * static_cast<int>(sizeof(T))) % 16 != 0)
+    return cudaErrorInvalidValue;
+  switch (streamed_width(a.gm.hd)) {
     case 16: return launch_split<T, 16>(a);
     case 32: return launch_split<T, 32>(a);
     case 64: return launch_split<T, 64>(a);
@@ -940,19 +1339,24 @@ extern "C" {
 
 // Shared-memory bytes each lane needs per block (the wrapper checks them
 // against the card's per-block limit before launching).  depth is the
-// table's token depth P_seq * ps.
+// table's token depth P_seq * ps.  At bf16 this is the least the lane
+// takes (a two-stage ring); the launch deepens the ring where room is left.
 size_t paged_scratch_smem(int sq, int hq, int kv, int hd, int depth,
                           int ps, int elem_bytes) {
   const size_t rows = static_cast<size_t>(hq / kv) * sq;
+  if (elem_bytes == 2)  // one CTA, a two-stage ring: what the lane holds
+    return scratch_layout(static_cast<int>(rows), hd, depth, ps, 2, 1).total;
   return 2 * static_cast<size_t>(scratch_tile(hd, elem_bytes)) * hd *
              elem_bytes +
          rows * (hd + 4) * 4 + rows * ((depth + 3) & ~3) * 4 +
          static_cast<size_t>((depth + ps - 1) / ps) * 4;
 }
 
-// split_pages: ceil(blocks / n_split) * block_pages
+// split_pages: ceil(blocks / n_split) * block_pages; hd is the pools'
+// head dim (0 when no compiled width holds it)
 size_t paged_streamed_smem(int hd, int elem_bytes, int split_pages) {
-  return streamed_smem(hd, elem_bytes, split_pages);
+  const int w = streamed_width(hd);
+  return w == 0 ? 0 : streamed_smem(w, elem_bytes, split_pages);
 }
 
 // scale is hd^-0.5 rounded to f32 by the caller; dtype: 0 = float32,
@@ -969,34 +1373,58 @@ int paged_scratch_launch(const void* q, const void* kp, const void* vp,
   }
   const Geom gm{sq, hq, kv, hd, ps, p_seq, causal, scale};
   const dim3 grid(B, kv);
-  const int eb = dtype == 0 ? 4 : 2;
-  const size_t smem = paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps,
-                                         eb);
   cudaError_t err;
-#define PA_SCRATCH(T)                                                       \
-  do {                                                                      \
-    err = allow_smem(paged_scratch_kernel<T>, smem);                        \
-    if (err != cudaSuccess) return static_cast<int>(err);                   \
-    paged_scratch_kernel<T><<<grid, kThreads, smem, st>>>(                  \
-        static_cast<const T*>(q), static_cast<const T*>(kp),                \
-        static_cast<const T*>(vp), static_cast<const int32_t*>(pt),         \
-        static_cast<const int32_t*>(kv_len),                                \
-        static_cast<const int32_t*>(q_off), static_cast<T*>(out), gm);      \
-  } while (0)
-  if (dtype == 0) {
-    PA_SCRATCH(float);
-  } else {
-    PA_SCRATCH(__nv_bfloat16);
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    const int rows = hq / kv * sq;
+    const int depth = p_seq * ps;
+    const int cs = scratch_cluster(depth, B * kv, sm_count());
+    // a split window has parallelism enough: a three-stage ring keeps more
+    // of the cluster's CTAs resident at once
+    int stages = cs > 1 ? 3 : kMmaMaxStages;
+    while (stages > 2 && scratch_layout(rows, hd, depth, ps, stages, cs).total >
+                             static_cast<size_t>(kSmemLimit))
+      --stages;
+    const size_t smem = scratch_layout(rows, hd, depth, ps, stages, cs).total;
+    err = allow_smem(paged_scratch_mma_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B, kv, cs);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = cs;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &cfg, paged_scratch_mma_kernel, static_cast<const T*>(q),
+        static_cast<const T*>(kp), static_cast<const T*>(vp),
+        static_cast<const int32_t*>(pt), static_cast<const int32_t*>(kv_len),
+        static_cast<const int32_t*>(q_off), static_cast<T*>(out), gm, stages);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
   }
-#undef PA_SCRATCH
+  const size_t smem = paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps, 4);
+  err = allow_smem(paged_scratch_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  paged_scratch_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kp),
+      static_cast<const float*>(vp), static_cast<const int32_t*>(pt),
+      static_cast<const int32_t*>(kv_len),
+      static_cast<const int32_t*>(q_off), static_cast<float*>(out), gm);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The split kernel: partials of n_split contiguous runs of whole blocks of
 // block_pages pages into part_ml (B, kv, n_split, g * sq, 2) and part_acc
-// (B, kv, n_split, g * sq, hd), float32.  hd is one of 16, 32, 64, 80,
-// 96, 128, 192, 256;
-// p_seq % block_pages == 0; 1 <= n_split <= the number of blocks.
+// (B, kv, n_split, g * sq, hd), float32.  hd is a whole number of 16-byte
+// chunks, at most 256; it runs on the next compiled width up (16, 32, 64,
+// 80, 96, 128, 192, 256); p_seq % block_pages == 0; 1 <= n_split <= the
+// number of blocks.
 int paged_split_launch(const void* q, const void* kp, const void* vp,
                        const void* pt, const void* kv_len, const void* q_off,
                        void* part_ml, void* part_acc, int B, int sq, int hq,

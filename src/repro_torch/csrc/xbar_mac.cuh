@@ -1,6 +1,9 @@
-// The bit-serial crossbar MAC and its ADC, shared by the crossbar_mac
-// kernel (cell planes read from device memory) and the deepnet_stream
-// kernel (cell codes quantized from float weights inside the kernel).
+// The bit-serial crossbar MAC and its ADC.  The deepnet_stream kernel
+// (cell codes quantized from float weights inside the kernel) runs the
+// popcount MAC below; the crossbar_mac kernel (cell planes read from
+// device memory, pre-ADC sums on the int8 tensor cores) shares its ADC
+// (`adc_code`), launch grid (`grid_for`) and int64 code buffer
+// (`zero_codes`, `codes_to_float`), and produces the same integer codes.
 //
 // One block owns a tile of kNT output columns and kBT batch rows and walks
 // a range of row groups of `rows` rows (one ADC conversion each).  One
@@ -192,11 +195,12 @@ inline int sm_count() {
   return n;
 }
 
-// The launch grid (column tiles, row-group splits, batch tiles) and the
-// groups per split: the row groups are split across blocks until the grid
-// covers the card about four times over.
-inline dim3 grid_for(int B, int N, int n_groups, int* groups_per_split) {
-  const int gx = (N + kNT - 1) / kNT;
+// The launch grid (column tiles of `cols` columns, row-group splits,
+// batch tiles) and the groups per split: the row groups are split across
+// blocks until the grid covers the card about four times over.
+inline dim3 grid_for(int B, int N, int n_groups, int* groups_per_split,
+                     int cols = kNT) {
+  const int gx = (N + cols - 1) / cols;
   const int gz = (B + kBT - 1) / kBT;
   const int target = 4 * sm_count();
   int splits = (target + gx * gz - 1) / (gx * gz);

@@ -1,9 +1,11 @@
-"""Binding of the CUDA crossbar MAC (``csrc/crossbar_mac.cu``).
+"""Binding of the CUDA crossbar MAC (``csrc/crossbar_mac.cu``: the
+pre-ADC sums on the int8 tensor cores, the ADC by a per-block table).
 
 ``crossbar_mac`` launches the kernel for CUDA tensors and runs the plain
 version (``ref.crossbar_mac_ref``) for CPU tensors; a CUDA call the
-kernel cannot take raises.  ``LAUNCHES["crossbar_mac"]`` counts kernel
-launches and nothing else.
+kernel cannot take raises.  On the card its output is bitwise
+``ref.codes_to_float(ref.crossbar_mac_codes_ref(...))``.
+``LAUNCHES["crossbar_mac"]`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -35,7 +37,37 @@ def _lib() -> ctypes.CDLL:
     if lib.crossbar_mac_launch.argtypes is None:
         lib.crossbar_mac_launch.argtypes = _ARGTYPES
         lib.crossbar_mac_launch.restype = _I
+        lib.crossbar_mac_adc_table.argtypes = [_P, _P, _I, _I, _F, _F, _P]
+        lib.crossbar_mac_adc_table.restype = _I
     return lib
+
+
+def adc_table(leak: torch.Tensor, *, adc_bits: int, bits_per_cell: int,
+              rows_per_adc: int, full_scale_rows: Optional[int] = None
+              ) -> torch.Tensor:
+    """The ADC table the CUDA MAC builds in each block, copied out:
+    (rows * (2^bpc - 1) + 1, 32) int32, row s holding the 32 per-lane
+    copies of the code of pre-ADC sum s (``leak``, a 1-element f32 CUDA
+    tensor, included).  Card only: there is no plain version of a table
+    the kernel keeps in shared memory."""
+    if leak.device.type != "cuda" or leak.dtype != torch.float32 \
+            or leak.numel() != 1:
+        raise TypeError("leak must be one f32 value on a CUDA device")
+    if full_scale_rows is None:
+        full_scale_rows = rows_per_adc
+    levels = 2.0 ** adc_bits - 1.0
+    lsb = float(full_scale_rows * (2 ** bits_per_cell - 1)) / levels
+    maxsum = rows_per_adc * (2 ** bits_per_cell - 1)
+    out = torch.empty((maxsum + 1, 32), dtype=torch.int32,
+                      device=leak.device)
+    leak = leak.reshape(1).contiguous()
+    with torch.cuda.device(leak.device):
+        stream = torch.cuda.current_stream(leak.device).cuda_stream
+        err = _lib().crossbar_mac_adc_table(
+            leak.data_ptr(), out.data_ptr(), rows_per_adc, bits_per_cell,
+            lsb, levels, stream)
+    build.check(err, "crossbar_mac_adc_table")
+    return out
 
 
 def max_rows(bits_per_cell: int) -> int:

@@ -28,8 +28,8 @@ _F = ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
-#: head dims the streamed lane is compiled for; the scratch lane takes
-#: any head dim of whole 16-byte chunks
+#: widths the streamed lane's split kernel is compiled for: a head dim
+#: runs on the next width up, its extra columns zero in shared memory
 STREAMED_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 192, 256)
 #: query rows (g * sq) one streamed block serves: the mma's M
 GROUP_ROWS = 16
@@ -77,6 +77,11 @@ def choose_n_split(b: int, kv: int, rows: int, p_seq: int, block_pages: int,
     while n_blocks % n_split:   # equal splits: the longest sets the time
         n_split -= 1
     return n_split
+
+
+def streamed_width(hd: int) -> int:
+    """The compiled width the streamed lane runs head dim ``hd`` on."""
+    return next(w for w in STREAMED_HEAD_DIMS if w >= hd)
 
 
 def _check(q, k_pages, v_pages, page_table, kv_len, q_offset):
@@ -183,9 +188,9 @@ def _streamed(q, k_pages, v_pages, page_table, kv_len, q_offset, causal,
               block_pages: int):
     b, sq, hq, kv, hd, ps, p_seq = _check(q, k_pages, v_pages, page_table,
                                           kv_len, q_offset)
-    if hd not in STREAMED_HEAD_DIMS:
-        raise ValueError(f"no streamed-lane kernel for head_dim {hd} "
-                         f"(compiled for {STREAMED_HEAD_DIMS})")
+    if hd > STREAMED_HEAD_DIMS[-1]:
+        raise ValueError(f"the streamed lane takes head dims up to "
+                         f"{STREAMED_HEAD_DIMS[-1]}, got {hd}")
     lib = _lib()
     rows = hq // kv * sq
     n_split = _split_plan(lib, q.device, b, kv, rows, p_seq, block_pages,

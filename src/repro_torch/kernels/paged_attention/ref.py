@@ -129,14 +129,16 @@ def split_bounds(n_blocks: int, n_split: int, split: int) -> tuple:
 
 def paged_attention_split_ref(q, k_pages, v_pages, page_table, kv_len,
                               q_offset, *, causal: bool = True,
-                              block_pages: int = 16, n_split: int = 1
-                              ) -> torch.Tensor:
+                              block_pages: int = 16, n_split: int = 1,
+                              scale=None) -> torch.Tensor:
     """The streamed lane's split-KV algorithm: each of ``n_split`` runs of
     whole page blocks yields f32 partials (m, l, acc) over the tokens a
     row reads (its valid depth, or the whole table at kv_len 0); a run
     at or past that depth gives m = -1e30, l = 0, acc = 0.  The combine
     rescales by exp(m - max m) and divides.  ``n_split`` is clamped to
-    [1, number of blocks]."""
+    [1, number of blocks].  ``scale`` defaults to hd^-0.5 (the CUDA lane
+    keeps the true head dim's scale when it pads Q, K and V with zero
+    columns to a compiled width)."""
     CALLS["paged_attention_split_ref"] += 1
     b, sq, hq, hd = q.shape
     dev = q.device
@@ -160,7 +162,8 @@ def paged_attention_split_ref(q, k_pages, v_pages, page_table, kv_len,
         pages = pt[:, lo * bp:hi * bp].reshape(-1)
         kk = k_pages[pages].reshape(b, t1 - t0, kv, hd).to(f32)
         vv = v_pages[pages].reshape(b, t1 - t0, kv, hd).to(f32)
-        logits = torch.einsum("bskgh,btkh->bkgst", qg, kk) * (hd ** -0.5)
+        logits = torch.einsum("bskgh,btkh->bkgst", qg, kk) * (
+            hd ** -0.5 if scale is None else scale)
         tpos = t0 + torch.arange(t1 - t0, device=dev)
         if causal:
             qpos = q_offset[:, None] + torch.arange(sq, device=dev)[None]

@@ -68,6 +68,36 @@ def test_plain_mac_matches_jax_kernel_and_ref(mode, leak, bpc, s):
     assert _close(y_jk, y_t.numpy()) and _close(y_jr, y_t.numpy())
 
 
+@pytest.mark.parametrize("rows,bpc,leak,in_bits,k,n", [
+    (128, 1, 0.0, 8, 256, 96), (128, 1, 0.37, 4, 256, 64),
+    (256, 1, 0.0, 4, 512, 32), (256, 1, 0.37, 8, 256, 48),
+    (128, 2, 0.0, 8, 128, 40), (128, 2, 0.37, 4, 256, 96)])
+def test_code_sums_ref_matches_jax_kernel(rows, bpc, leak, in_bits, k, n):
+    """``crossbar_mac_codes_ref`` gives the exact int64 code sums the CUDA
+    kernel accumulates: equal to the JAX kernel's output / lsb (rounded),
+    and times lsb within 1e-6 of the plain f32 version."""
+    s = 2
+    x, pos, neg = _operands(rows + k + n, 4, k, n, s, bpc, in_bits)
+    kw = dict(in_bits=in_bits, adc_bits=8, bits_per_cell=bpc,
+              rows_per_adc=rows, full_scale_rows=rows)
+    codes = tkernel.ref.crossbar_mac_codes_ref(
+        torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(neg),
+        leak_codes=leak, **kw)
+    assert codes.dtype == torch.int64 and tuple(codes.shape) == (4, n)
+    y_jk = np.asarray(jkernel.crossbar_mac(
+        jnp.asarray(x), jnp.asarray(pos), jnp.asarray(neg), leak,
+        block_b=4, block_n=n, interpret=True, **kw), np.float64)
+    full_scale = float(rows * (2 ** bpc - 1))
+    lsb = tkernel.ref.adc_lsb(8, full_scale)
+    assert np.array_equal(np.rint(y_jk / lsb).astype(np.int64),
+                          codes.numpy())
+    y_t = tkernel.ref.crossbar_mac_ref(
+        torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(neg),
+        leak_codes=leak, **kw)
+    y_c = tkernel.ref.codes_to_float(codes, 8, full_scale)
+    assert _close(y_t.numpy(), y_c.numpy())
+
+
 @pytest.mark.parametrize("mode,bpc,adc_bits", [
     ("deepnet", 1, 8), ("expansion", 1, 8), ("deepnet", 2, 6),
     ("expansion", 2, 10)])

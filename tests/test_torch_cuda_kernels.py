@@ -8,8 +8,10 @@ This file imports neither JAX nor the reference package, so it runs where
 only the port is installed.
 
 Contracts:
-* crossbar MAC: 1e-6 x max|y| — the kernel accumulates the integer ADC
-  codes exactly (int64), the plain version shift-adds them in f32;
+* crossbar MAC: BITWISE equal to the exact int64 code sums
+  (``crossbar_mac_codes_ref``) times the LSB; 1e-6 x max|y| against the
+  plain version, which shift-adds the codes in f32; its ADC table equals
+  the plain ADC's code of every pre-ADC sum;
 * paged attention: 1e-5 x max|out| at float32 (exp and f32 sums in
   another order), 2e-2 at bfloat16 (the value type rounds the scratch
   lane's weights and both lanes' outputs; its unit roundoff is 3.9e-3);
@@ -79,6 +81,53 @@ def test_crossbar_mac_matches_plain(cuda, b, k, n, s, bpc, rows, leak):
     assert mac.LAUNCHES["crossbar_mac"] == before + 1
     y_ref = mac.ref.crossbar_mac_ref(x, pos, neg, leak_codes=leak, **kw)
     assert _rel_err(y_ref, y) <= 1e-6
+
+
+@pytest.mark.parametrize("b,k,n,s,bpc,rows,in_bits,adc_bits,leak", [
+    (1, 256, 384, 4, 1, 128, 8, 8, 0.0),
+    (5, 512, 200, 4, 1, 256, 8, 7, 0.37),        # ragged N, 256 rows
+    (16, 2560, 4096, 4, 1, 128, 8, 8, 0.0),
+    (16, 2560, 2048, 4, 1, 256, 8, 8, 0.37),
+    (64, 1024, 1000, 4, 1, 128, 8, 8, 0.37),     # B 64, ragged N
+    (17, 384, 130, 2, 2, 128, 8, 12, 1.1),       # 2 bits per cell
+    (3, 256, 256, 3, 1, 64, 16, 15, 0.37),       # in_bits 16
+    (64, 512, 512, 4, 1, 256, 7, 10, 0.0),       # odd in_bits
+    (2, 160, 64, 3, 2, 80, 5, 6, 1.1)])          # rows not a multiple of 32
+def test_crossbar_mac_bitwise_equals_code_sums(cuda, b, k, n, s, bpc, rows,
+                                               in_bits, adc_bits, leak):
+    """The kernel's output is the exact int64 code sums times the LSB,
+    bit for bit, and within 1e-6 of the f32 plain version."""
+    x, pos, neg = (torch.from_numpy(a).to(cuda) for a in
+                   _operands(b * k + n, b, k, n, s, bpc, in_bits))
+    kw = dict(in_bits=in_bits, adc_bits=adc_bits, bits_per_cell=bpc,
+              rows_per_adc=rows)
+    y = mac.crossbar_mac(x, pos, neg, leak, **kw)
+    codes = mac.ref.crossbar_mac_codes_ref(x, pos, neg, leak_codes=leak,
+                                           **kw)
+    full_scale = float(rows * (2 ** bpc - 1))
+    want = mac.ref.codes_to_float(codes, adc_bits, full_scale)
+    assert torch.equal(y, want)
+    y_ref = mac.ref.crossbar_mac_ref(x, pos, neg, leak_codes=leak, **kw)
+    assert _rel_err(y_ref, y) <= 1e-6
+
+
+@pytest.mark.parametrize("rows,bpc,adc_bits", [
+    (128, 1, 8), (256, 1, 8), (128, 2, 12), (80, 2, 6), (256, 1, 15)])
+def test_crossbar_mac_adc_table_equals_plain_adc(cuda, rows, bpc, adc_bits):
+    """Every per-lane copy of the kernel's ADC table equals the plain
+    ADC's code of every pre-ADC sum, at leaks on and off half-LSB
+    points."""
+    full_scale = float(rows * (2 ** bpc - 1))
+    lsb = mac.ref.adc_lsb(adc_bits, full_scale)
+    sums = torch.arange(0, rows * (2 ** bpc - 1) + 1, device=cuda,
+                        dtype=torch.float32)
+    for leak in (0.0, 0.37, lsb / 2, 1.5 * lsb, 3.0):
+        lk = torch.full((1,), leak, dtype=torch.float32, device=cuda)
+        table = mac.adc_table(lk, adc_bits=adc_bits, bits_per_cell=bpc,
+                              rows_per_adc=rows)
+        want = mac.ref.adc_codes(sums + lk, adc_bits, full_scale)
+        assert table.shape == (sums.numel(), 32)
+        assert torch.equal(table.long(), want[:, None].expand(-1, 32))
 
 
 def test_crossbar_mac_refuses_what_it_cannot_take(cuda):
@@ -262,13 +311,61 @@ def test_paged_lanes_are_deterministic(cuda, dtype):
     short = _long_case(17, dtype, [64, 37, 12, 5], max_len=64, hq=32,
                        kv=16)
     long = _long_case(18, dtype, [2048, 1500, 300, 0], hq=32, kv=16)
+    padded = _long_case(19, dtype, [512, 300, 0, 9], max_len=512, hd=40)
     for fn, args in ((pa.paged_attention_scratch, short),
                      (pa.paged_attention_scratch, long),
+                     (pa.paged_attention_scratch, padded),
                      (pa.paged_attention_streamed, short),
-                     (pa.paged_attention_streamed, long)):
+                     (pa.paged_attention_streamed, long),
+                     (pa.paged_attention_streamed, padded)):
         first = fn(*args)
         for _ in range(20):
             assert torch.equal(fn(*args), first), fn.__name__
+
+
+@pytest.mark.parametrize("max_len,kv_len,causal,sq,hq,kv", [
+    (64, [64, 37, 0, 5], True, 4, 32, 16),
+    (2048, [2048, 1500, 0, 17], True, 4, 32, 16),
+    (2048, [2048, 1500, 0, 17], False, 4, 32, 16),
+    (4096, [4096, 3000, 0, 40], True, 4, 32, 16),
+    (1024, [1024, 700, 0, 9], True, 8, 6, 2),       # 24 rows: two m16 tiles
+    # batches that fill the card take smaller clusters: B 16 x kv 16 two
+    # CTAs per window, B 40 x kv 16 one
+    (4096, [4096, 3000, 0, 40] * 4, True, 4, 32, 16),
+    (4096, [4096, 3000, 0, 40] * 10, True, 4, 32, 16)])
+def test_bf16_scratch_lane_on_tensor_cores(cuda, max_len, kv_len, causal,
+                                           sq, hq, kv):
+    """The bf16 scratch lane (mma.sync) against the plain version, with a
+    kv_len 0 row and an aliased page, causal and not, at every cluster
+    size (8, 4, 2 and 1 CTAs per window)."""
+    args = _long_case(20 + max_len, torch.bfloat16, kv_len, max_len=max_len,
+                      b=len(kv_len), sq=sq, hq=hq, kv=kv)
+    before = pa.LAUNCHES["paged_attention_scratch"]
+    out = pa.paged_attention_scratch(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention_scratch"] == before + 1
+    ref = pa_ref.paged_attention_ref(*args, causal=causal)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert _rel_err(ref.float(), out.float()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [40, 112])
+def test_paged_lanes_padded_head_dims(cuda, dtype, rtol, hd):
+    """Head dims off the streamed lane's compiled widths run on the next
+    width up (40 on 64, 112 on 128); the scratch lane pads bf16 to 16."""
+    assert pa.streamed_width(hd) > hd
+    args = _long_case(30 + hd, dtype, [512, 300, 40, 3], max_len=512,
+                      hd=hd)
+    for fn, plain, kw in (
+            (pa.paged_attention_streamed,
+             pa_ref.paged_attention_streamed_ref, {"block_pages": 4}),
+            (pa.paged_attention_scratch, pa_ref.paged_attention_ref, {})):
+        out = fn(*args, **kw)
+        ref = plain(*args, **kw)
+        assert out.shape == ref.shape
+        assert _rel_err(ref.float(), out.float()) <= rtol, fn.__name__
 
 
 def test_streamed_lane_picks_several_splits_at_depth(cuda):

@@ -121,6 +121,31 @@ def test_split_ref_matches_jax_streamed_kernel(case):
     assert _close(out_t.numpy(), out_s.numpy())
 
 
+@pytest.mark.parametrize("hd,wide", [(40, 48), (40, None), (112, None)])
+def test_split_ref_padding_to_a_compiled_width(hd, wide):
+    """The streamed lane runs head dim hd on the next compiled width up
+    (None: ``streamed_width``, 64 for 40 and 128 for 112), its extra
+    Q/K/V columns zero and the scale hd^-0.5: the zero columns add exact
+    zeros to Q.K^T and the padded output columns are dropped, so the
+    padded split-KV algorithm is the unpadded one at any width."""
+    wide = wide or tkernel.streamed_width(hd)
+    assert wide > hd
+    args = _case(40 + hd, sq=2, hd=hd)
+    pad = [np.pad(a, [(0, 0)] * 3 + [(0, wide - hd)]) for a in args[:3]]
+    out = tref.paged_attention_split_ref(*_t(*args), block_pages=1,
+                                         n_split=3)
+    out_p = tref.paged_attention_split_ref(*_t(*pad, *args[3:]),
+                                           block_pages=1, n_split=3,
+                                           scale=hd ** -0.5)
+    assert tuple(out_p.shape) == out.shape[:3] + (wide,)
+    assert not out_p[..., hd:].any()
+    assert _close(out.numpy(), out_p[..., :hd].numpy(), rtol=1e-6)
+    if hd == 40 and wide == 48:
+        out_j = jkernel.paged_attention_streamed(*_j(*args), interpret=True,
+                                                 block_pages=1)
+        assert _close(out_j, out_p[..., :hd].numpy())
+
+
 def test_split_bounds_cover_the_blocks_in_order():
     for n_blocks in (1, 4, 7, 32):
         for n_split in range(1, n_blocks + 1):
