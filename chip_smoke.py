@@ -25,9 +25,12 @@ Phases, each of which fails the run (exit code 1, no result line):
              The deep-net streaming kernel is driven through its entry
              point ``stream_linear`` at every qwen3-4b projection and
              held bitwise against the programmed read (``engine.linear``
-             on the crossbar-MAC kernel); the Jacobi kernel is driven
-             through ``ir_solve.solve`` and held against the dense nodal
-             solve;
+             on the crossbar-MAC kernel) and against the popcount kernel
+             (its independent integer witness), float32 and bfloat16
+             weights, both kernels timed (call and device ms); the
+             Jacobi kernel is driven through ``ir_solve.solve`` and held
+             against the dense nodal solve, and timed (call and device
+             ms);
 3. parity  — full-width qwen3-4b, 2 layers, float32, crossbar backend,
              paged KV: greedy streams with and without the CUDA kernels
              must be identical, with every weight in deep-net layout and
@@ -437,11 +440,17 @@ def phase_paged_attention(torch, dev, flush):
 
 def phase_deepnet_stream(torch, dev, flush):
     """``stream_linear`` (the entry point) at every qwen3-4b projection,
-    B 16, float32 weights: its launches are counted over that run alone.
+    B 16, float32 weights: its launches are counted over that run alone,
+    and it must reach neither the popcount kernel nor the plain version.
     Then each output is held BITWISE against ``engine.linear`` on the
     crossbar-MAC kernel (program, then read: the same integer codes and
-    the same final conversion), and the kernel against its plain version
-    (1e-5 x max|y|: the plain version shift-adds in f32)."""
+    the same final conversion), for float32 and bfloat16 weights; the
+    tensor-core kernel BITWISE against the popcount kernel (an independent
+    integer MAC) on the same operands, for both weight types; and against
+    its plain version (1e-5 x max|y|: the plain version shift-adds in
+    f32).  Both kernels are timed at every projection, call ms (CUDA
+    events) and device ms (``torch.profiler``: the zeroing, the kernel and
+    the conversion), for both weight types."""
     import dataclasses
 
     from repro_torch.core import engine
@@ -461,6 +470,8 @@ def phase_deepnet_stream(torch, dev, flush):
 
     # the entry point's own path: counts from this loop alone
     kernel.LAUNCHES["deepnet_stream"] = 0
+    kernel.LAUNCHES["deepnet_stream_popcount"] = 0
+    ref.CALLS["deepnet_stream_ref"] = 0
     outs = {name: ops.stream_linear(xs[name], ws[name], cfg)
             for name in LAYER_PATH}
     torch.cuda.synchronize()
@@ -468,58 +479,91 @@ def phase_deepnet_stream(torch, dev, flush):
     check(launches == len(LAYER_PATH),
           f"stream_linear launched deepnet_stream {launches} times for "
           f"{len(LAYER_PATH)} calls")
+    check(kernel.LAUNCHES["deepnet_stream_popcount"] == 0
+          and ref.CALLS["deepnet_stream_ref"] == 0,
+          "stream_linear reached the popcount kernel or the plain version")
 
     rows, max_abs = [], 0.0
     kcfg = dataclasses.replace(cfg, use_kernel=True)
     kw = dict(w_bits=q.w_bits, in_bits=q.in_bits, adc_bits=q.adc_bits,
               bits_per_cell=q.bits_per_cell, rows_per_adc=cfg.rows_per_adc)
+    ops_n = 2 * 2 * b * q.in_bits * q.n_slices   # x K x N: AND-accumulate
     for name, (k, n) in geoms.items():
         x, w = xs[name], ws[name]
+        wb = w.to(torch.bfloat16)
         prog = engine.linear(x, w, kcfg)
+        prog_b = engine.linear(x, wb.float(), kcfg)
         y = outs[name]
+        y_b = ops.stream_linear(x, wb, cfg)
+        torch.cuda.synchronize()
         check(bool(torch.isfinite(y).all()) and y.shape == (b, n),
               f"stream_linear {name}: bad output")
-        prog_err = (y - prog).abs().max().item()
+        prog_err = max((y - prog).abs().max().item(),
+                       (y_b - prog_b).abs().max().item())
         check(prog_err == 0.0, f"stream_linear {name} differs from the "
               f"programmed read by {prog_err:.3e}")
+        del prog, prog_b, y_b
         x_int = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
                               dtype=torch.int32)
-        scale = ops.weight_scales(w, q)
-        yk = kernel.deepnet_stream(x_int, w, scale, **kw)
-        yr = ref.deepnet_stream_ref(x_int, w, scale, **kw)
-        torch.cuda.synchronize()
-        err, rel = rel_err(torch, yk, yr)
-        tol = 1e-5
-        check(rel <= tol, f"deepnet_stream {name}: max rel err {rel:.3e} "
-              f"> {tol:g}")
-        max_abs = max(max_abs, err)
         row = {"geometry": name, "k": k, "n": n, "b": b,
-               "prog_max_abs_err": prog_err, "max_abs_err": err,
-               "max_rel_err": rel, "tol": tol}
+               "prog_max_abs_err": prog_err, "popcount_bitwise": True}
+        for tag, wt in (("", w), ("_bf16", wb)):
+            scale = ops.weight_scales(wt, q)
+            yk = kernel.deepnet_stream(x_int, wt, scale, **kw)
+            yp = kernel.deepnet_stream_popcount(x_int, wt, scale, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(yk, yp), f"deepnet_stream {name}{tag}: not "
+                  f"bitwise equal to the popcount kernel (max|diff| "
+                  f"{(yk - yp).abs().max().item():.3e})")
+            if not tag:
+                yr = ref.deepnet_stream_ref(x_int, wt, scale, **kw)
+                torch.cuda.synchronize()
+                err, rel = rel_err(torch, yk, yr)
+                tol = 1e-5
+                check(rel <= tol, f"deepnet_stream {name}: max rel err "
+                      f"{rel:.3e} > {tol:g}")
+                max_abs = max(max_abs, err)
+                row.update(max_abs_err=err, max_rel_err=rel, tol=tol)
+                del yr
+            del yk, yp
+
+            def run(wt=wt, scale=scale):
+                return kernel.deepnet_stream(x_int, wt, scale, **kw)
+
+            def pop(wt=wt, scale=scale):
+                return kernel.deepnet_stream_popcount(x_int, wt, scale, **kw)
+
+            row["ms" + tag] = timed(torch, run, 10, flush)
+            row["device_ms" + tag], _ = device_ms(torch, run, 10, flush)
+            row["popcount_ms" + tag] = timed(torch, pop, 10, flush)
+            row["popcount_device_ms" + tag], _ = device_ms(torch, pop, 10,
+                                                           flush)
+            small = x_int.numel() * 4 + scale.numel() * 4 + b * n * 4
+            row["bound_ms" + tag], row["bound_by" + tag] = bound(
+                small + wt.numel() * wt.element_size(), ops_n * k * n,
+                "int8")
         if name == "head":
-            wb = w.to(torch.bfloat16)
-            row["ms"] = timed(torch, lambda: kernel.deepnet_stream(
-                x_int, w, scale, **kw), 10, flush)
-            row["ms_bf16"] = timed(torch, lambda: kernel.deepnet_stream(
-                x_int, wb, scale, **kw), 10, flush)
+            scale = ops.weight_scales(w, q)
             row["plain_ms"] = timed(torch, lambda: ref.deepnet_stream_ref(
                 x_int, w, scale, **kw), 2, flush)
-            ops_n = 2 * 2 * b * q.in_bits * q.n_slices * k * n
-            small = x_int.numel() * 4 + scale.numel() * 4 + b * n * 4
-            row["bound_ms"], row["bound_by"] = bound(
-                small + w.numel() * 4, ops_n, "int8")
-            row["bound_ms_bf16"], _ = bound(small + w.numel() * 2, ops_n,
-                                            "int8")
             row["library_ms"] = None
         rows.append(row)
         log(f"  deepnet_stream {name:8s} K={k:5d} N={n:6d}: programmed "
-            f"read max|diff| {prog_err:.1e}; vs plain max|err| {err:.3e} "
-            f"(rel {rel:.2e} <= {tol:g})" + (
-                f"; kernel {row['ms']:.3f} ms (bf16 weights "
-                f"{row['ms_bf16']:.3f}), plain {row['plain_ms']:.3f} ms, "
-                f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; bf16 "
-                f"{row['bound_ms_bf16']:.3f})" if "ms" in row else ""))
-        del x_int, yk, yr, prog
+            f"read max|diff| {prog_err:.1e}; bitwise = popcount kernel; vs "
+            f"plain max|err| {row['max_abs_err']:.3e} (rel "
+            f"{row['max_rel_err']:.2e} <= {row['tol']:g}); f32 call "
+            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms "
+            f"(popcount {row['popcount_ms']:.4f}, "
+            f"{row['popcount_device_ms']:.4f}); bf16 call "
+            f"{row['ms_bf16']:.4f}, device {row['device_ms_bf16']:.4f} "
+            f"(popcount {row['popcount_ms_bf16']:.4f}, "
+            f"{row['popcount_device_ms_bf16']:.4f}); bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}; bf16 "
+            f"{row['bound_ms_bf16']:.4f})" + (
+                f"; plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
+                else ""))
+        del x_int, w, wb
+        ws[name] = None
         torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "max_abs_err": max_abs}
 
@@ -569,14 +613,15 @@ def phase_ir_solve(torch, dev, flush):
         nbytes = (3 * nodes + n) * 4 + 2 * nodes * 4
         flops = (18 * sweeps + 4) * nodes
         bnd, by = bound(nbytes, flops, "fp32")
+        dms, _ = device_ms(torch, run, 20, flush)
         row = {"n": n, "m": n, "sweeps": sweeps, "max_abs_err": err,
                "bitwise": err == 0.0, "ms": timed(torch, run, 20, flush),
-               "plain_ms": timed(torch, plain, 5, flush),
+               "device_ms": dms, "plain_ms": timed(torch, plain, 5, flush),
                "bound_ms": bnd, "bound_by": by, "library_ms": None}
         rows.append(row)
         log(f"  jacobi_sweeps {n:3d}x{n:<3d} {sweeps} sweeps: max|err| "
-            f"{err:.3e}; kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
+            f"{err:.3e}; kernel {row['ms']:.4f} ms, device {dms:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
 
     g = torch.full((12, 8), PAPER.g_set, device=dev)
     v = torch.full((12,), PAPER.v_write, device=dev)
@@ -1011,10 +1056,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/deepnet_stream/kernel.py:102",
         "launches": report["deepnet_stream"]["launches"],
         "max_abs_err": report["deepnet_stream"]["max_abs_err"],
-        "ms": ds_head["ms"], "plain_ms": ds_head["plain_ms"],
+        "ms": ds_head["ms"], "device_ms": ds_head["device_ms"],
+        "plain_ms": ds_head["plain_ms"],
         "bound_ms": ds_head["bound_ms"], "bound_by": ds_head["bound_by"],
         "library_ms": None, "shape": f"B=16 K={ds_head['k']} "
-        f"N={ds_head['n']} f32 weights"})
+        f"N={ds_head['n']} f32 weights",
+        "bf16_ms": ds_head["ms_bf16"],
+        "bf16_device_ms": ds_head["device_ms_bf16"],
+        "bf16_bound_ms": ds_head["bound_ms_bf16"],
+        "popcount_ms": ds_head["popcount_ms"],
+        "popcount_device_ms": ds_head["popcount_device_ms"],
+        "popcount_bf16_ms": ds_head["popcount_ms_bf16"],
+        "popcount_bf16_device_ms": ds_head["popcount_device_ms_bf16"]})
     tile = next(r for r in report["ir_solve"]["rows"] if r["n"] == 128)
     kernels.append({
         "name": "jacobi_sweeps", "route": "cuda",
@@ -1023,7 +1076,8 @@ def main() -> int:
         "launches": report["ir_solve"]["launches"],
         "max_abs_err": max(r["max_abs_err"]
                            for r in report["ir_solve"]["rows"]),
-        "ms": tile["ms"], "plain_ms": tile["plain_ms"],
+        "ms": tile["ms"], "device_ms": tile["device_ms"],
+        "plain_ms": tile["plain_ms"],
         "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
         "library_ms": None, "shape": "128x128, 16 sweeps"})
     report["kernels"] = kernels

@@ -53,21 +53,25 @@
 //     share a bank;
 //   * the codes are shift-added as integers, int32 per slice and int64
 //     across slices and groups, the same integers as the popcount MAC of
-//     xbar_mac.cuh (kept there for deepnet_stream.cu), so the outputs are
+//     xbar_mac.cuh (kept as deepnet_stream.cu's witness), so the outputs are
 //     bitwise equal to it.  Integer sums are order-free, so row groups may
 //     be split across blocks (int64 atomics into a zeroed buffer) when the
 //     column tiles do not fill the card; a last kernel multiplies by lsb;
 //   * `leak` (the write plane's common-mode pre-ADC offset) is read from a
 //     device tensor, so one build serves leak = 0 and leak != 0.
+// The A operand, the mma.sync stream, the ADC table and the shift-add are
+// xbar_tc.cuh's, shared with deepnet_stream.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: the ADC rounding must be exact).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "xbar_mac.cuh"
+#include "xbar_tc.cuh"
 
 namespace {
+
+using xbar::smem_addr;
 
 constexpr int kBT = 16;                  // batch rows per block
 constexpr int kStages = 2;               // ring depth (see the launch)
@@ -75,9 +79,6 @@ constexpr int kSmemLimit = 232448;       // dynamic shared memory per block
 constexpr int kTableThreads = 128;
 static_assert(kBT == xbar::kBT, "grid_for tiles the batch by xbar::kBT");
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 // 16 bytes global -> shared; with full == false nothing is read and the
 // destination is zero-filled
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -93,22 +94,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-// c += a (16 x 32, row) . b (32 x 8, col), int8 in, int32 accumulate
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // w[i] holds bytes (row i, columns 0..3); v[j] gets bytes (rows 0..3,
 // column j): a 4 x 4 byte transpose
 __device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
@@ -129,30 +114,12 @@ __device__ __forceinline__ int plane_chunk(int r, int c) {
   return c ^ (((r >> 2) & 3) << 1);
 }
 
-// the signed weight of input bit p: MSB -2^(b-1), none past in_bits
-__device__ __forceinline__ int bit_weight(int p, int in_bits) {
-  return p < in_bits - 1 ? (1 << p) : (p == in_bits - 1 ? -(1 << p) : 0);
-}
-
-// The ADC code of every possible pre-ADC sum 0 .. maxsum, 32 copies side
-// by side: lut[s * 32 + lane] is the code lane `lane` reads for sum s, so
-// a warp's 32 lookups fall on 32 banks whatever the sums
-__device__ __forceinline__ void fill_lut(int* lut, int maxsum, float leak,
-                                         float lsb, float levels) {
-  for (int s = threadIdx.x; s <= maxsum; s += blockDim.x) {
-    const int c = xbar::adc_code(s, leak, lsb, levels);
-    int4* dst = reinterpret_cast<int4*>(lut + s * 32);
-#pragma unroll
-    for (int l = 0; l < 8; ++l) dst[l] = make_int4(c, c, c, c);
-  }
-}
-
 // The MAC's ADC table as a block builds it, copied out (for the tests)
 __global__ void adc_table_kernel(const float* __restrict__ leak,
                                  int* __restrict__ out, int maxsum, float lsb,
                                  float levels) {
   extern __shared__ __align__(16) int table[];
-  fill_lut(table, maxsum, *leak, lsb, levels);
+  xbar::fill_lut(table, maxsum, *leak, lsb, levels);
   __syncthreads();
   for (int i = threadIdx.x; i < (maxsum + 1) * 32; i += blockDim.x)
     out[i] = table[i];
@@ -168,14 +135,6 @@ struct MacArgs {
   float lsb, levels;
 };
 
-// shared memory: ADC table | A bit planes | ring
-__host__ __device__ inline int lut_bytes(int rows, int bpc) {
-  return (rows * ((1 << bpc) - 1) + 1) * 32 * 4;
-}
-__host__ __device__ inline int a_rows(int nb, int in_bits) {
-  return (nb > 8 ? 2 : 1) * ((in_bits + 1) / 2) * 16;
-}
-
 // KS: k32 steps per staged group (rows rounded up to 32 * KS; the extra
 // rows carry zero input bits).  WARPS: warps per block, 32 columns each.
 template <int KS, int WARPS>
@@ -187,7 +146,6 @@ __global__ void __launch_bounds__(32 * WARPS) crossbar_mac_tc_kernel(
   constexpr int kChunks = kCols / 16;    // 16-byte chunks per staged row
   constexpr int RP = 32 * KS;
   constexpr int kStage = RP * kCols;
-  constexpr int kAMask = (2 * KS < 8 ? 2 * KS : 8) - 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -196,16 +154,16 @@ __global__ void __launch_bounds__(32 * WARPS) crossbar_mac_tc_kernel(
   const int b0 = blockIdx.x * kBT;
   const int nb = min(kBT, a.B - b0);
   const int nch = nb > 8 ? 2 : 1;
-  const int nbp = (a.in_bits + 1) / 2;
   const int g_begin = blockIdx.y * a.gps;
   const int g_end = min(a.K / a.rows, g_begin + a.gps);
   const int col0 = blockIdx.z * kCols;
   const int maxsum = a.rows * ((1 << a.bpc) - 1);
   int* lut = reinterpret_cast<int*>(smem);
-  int8_t* A = reinterpret_cast<int8_t*>(smem + lut_bytes(a.rows, a.bpc));
-  int8_t* ring = A + a_rows(nb, a.in_bits) * RP;
+  int8_t* A =
+      reinterpret_cast<int8_t*>(smem + xbar::lut_bytes(a.rows, a.bpc));
+  int8_t* ring = A + xbar::a_rows(nb, a.in_bits) * RP;
 
-  fill_lut(lut, maxsum, *a.leak, a.lsb, a.levels);
+  xbar::fill_lut(lut, maxsum, *a.leak, a.lsb, a.levels);
 
   const int n_stage = (g_end - g_begin) * a.S * 2;
   // stage it: group g_begin + (it / 2) / S, slice (it / 2) % S, side it % 2
@@ -240,36 +198,6 @@ __global__ void __launch_bounds__(32 * WARPS) crossbar_mac_tc_kernel(
     cp_async_commit();
   };
 
-  // x's bit planes of group g as int8 0/1: row m = (half * nbp + p / 2) *
-  // 16 + (p % 2) * 8 + b % 8 for batch row b of half b / 8, K-contiguous,
-  // 16-byte chunks swizzled by row for ldmatrix
-  auto build_a = [&](int g) {
-    const int32_t* xg = a.x + static_cast<size_t>(b0) * a.K +
-                        static_cast<size_t>(g) * a.rows;
-    const uint32_t umask = (1u << a.in_bits) - 1u;
-    constexpr int kQuads = RP / 4;
-    for (int i = threadIdx.x; i < nch * 8 * kQuads; i += kThreads) {
-      const int b = i / kQuads;
-      const int k = (i - b * kQuads) * 4;
-      uint32_t u[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        u[e] = (b < nb && k + e < a.rows)
-                   ? static_cast<uint32_t>(
-                         xg[static_cast<size_t>(b) * a.K + k + e]) & umask
-                   : 0u;
-      const int half = b >> 3;
-      for (int p = 0; p < 2 * nbp; ++p) {
-        uint32_t w = 0u;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) w |= ((u[e] >> p) & 1u) << (8 * e);
-        const int m = (half * nbp + (p >> 1)) * 16 + (p & 1) * 8 + (b & 7);
-        *reinterpret_cast<uint32_t*>(
-            A + m * RP + (((k >> 4) ^ (m & kAMask)) << 4) + (k & 15)) = w;
-      }
-    }
-  };
-
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
   long long out[2][8];
   int part[2][8];
@@ -282,7 +210,10 @@ __global__ void __launch_bounds__(32 * WARPS) crossbar_mac_tc_kernel(
     const int side = it & 1;
     const int slice = (it >> 1) % a.S;
     // a new group: every warp is past the last stage's reads of A
-    if (side == 0 && slice == 0) build_a(g_begin + (it >> 1) / a.S);
+    if (side == 0 && slice == 0)
+      xbar::build_a<KS, kThreads>(A, a.x, a.K, b0, nb,
+                                  (g_begin + (it >> 1) / a.S) * a.rows,
+                                  a.rows, a.in_bits);
     issue(it + STAGES - 1);
     cp_async_wait<STAGES - 1>();
     __syncthreads();
@@ -307,66 +238,12 @@ __global__ void __launch_bounds__(32 * WARPS) crossbar_mac_tc_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) bf[kk][j][h] = v[j];
       }
-    const int sign = side ? -1 : 1;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (half >= nch) break;
-#pragma unroll 2
-      for (int tb = 0; tb < nbp; ++tb) {
-        const int mt = half * nbp + tb;
-        int acc[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-        const int arow = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t af[4];
-          const int chunk = 2 * kk + (lane >> 4);
-          ldsm_x4(af, A + arow * RP + ((chunk ^ (arow & kAMask)) << 4));
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_s8(acc[j], af, bf[kk][j][0], bf[kk][j][1]);
-        }
-        // rows gr (bit 2 tb) and gr + 8 (bit 2 tb + 1) of batch row
-        // 8 half + gr; c[e] is column 8 t4 + 4 (e & 1) + j of the warp's 32
-        const int wlo = sign * bit_weight(2 * tb, a.in_bits);
-        const int whi = sign * bit_weight(2 * tb + 1, a.in_bits);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            part[half][4 * (e & 1) + j] +=
-                (e < 2 ? wlo : whi) * lut[acc[j][e] * 32 + lane];
-      }
-    }
-    if (side == 1) {  // the slice's codes, both sides: shift-add in int64
-      const long long slcw = 1ll << (a.bpc * slice);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          out[h][q] += static_cast<long long>(part[h][q]) * slcw;
-          part[h][q] = 0;
-        }
-    }
+    xbar::adc_stage<KS>(bf, A, lut, side ? -1 : 1, nch, a.in_bits, part);
+    if (side == 1) xbar::shift_add(out, part, a.bpc, slice);
     __syncthreads();  // the slot and A are rewritten after this
   }
   cp_async_wait<0>();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int b = h * 8 + gr;
-    if (h < nch && b < nb) {
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int col = col0 + 32 * warp + 8 * t4 + q;
-        if (col < a.N)
-          atomicAdd(a.acc + static_cast<size_t>(b0 + b) * a.N + col,
-                    static_cast<unsigned long long>(out[h][q]));
-      }
-    }
-  }
+  xbar::add_codes(a.acc, out, b0, nb, a.N, col0);
 }
 
 // g: xbar::grid_for's grid at this launch's kCols columns per block
@@ -374,8 +251,9 @@ template <int KS, int WARPS>
 cudaError_t launch_tc(const MacArgs& a, dim3 g, cudaStream_t st) {
   constexpr int kCols = 32 * WARPS;
   const size_t smem =
-      static_cast<size_t>(lut_bytes(a.rows, a.bpc)) +
-      static_cast<size_t>(a_rows(a.B < kBT ? a.B : kBT, a.in_bits)) * 32 * KS +
+      static_cast<size_t>(xbar::lut_bytes(a.rows, a.bpc)) +
+      static_cast<size_t>(xbar::a_rows(a.B < kBT ? a.B : kBT, a.in_bits)) *
+          32 * KS +
       static_cast<size_t>(kStages) * 32 * KS * kCols;
   if (smem > static_cast<size_t>(kSmemLimit) ||
       g.x != static_cast<unsigned>((a.N + kCols - 1) / kCols))
@@ -409,7 +287,7 @@ int crossbar_mac_adc_table(const void* leak, void* out, int rows,
   if (rows <= 0 || rows > crossbar_mac_max_rows(bits_per_cell))
     return static_cast<int>(cudaErrorInvalidValue);
   const int maxsum = rows * ((1 << bits_per_cell) - 1);
-  const int smem = lut_bytes(rows, bits_per_cell);
+  const int smem = xbar::lut_bytes(rows, bits_per_cell);
   cudaError_t err = cudaFuncSetAttribute(
       adc_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

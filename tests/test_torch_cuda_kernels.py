@@ -17,8 +17,9 @@ Contracts:
   lane's weights and both lanes' outputs; its unit roundoff is 3.9e-3);
   the streamed lane at any split count against the one-pass oracle;
 * deep-net streaming: 1e-6 x max|y| against its plain version (as the
-  MAC), and BITWISE equal to ``engine.program`` + the crossbar-MAC kernel
-  (the same integer codes and the same final conversion);
+  MAC), and BITWISE equal both to the popcount kernel (an independent
+  integer MAC) and to ``engine.program`` + the crossbar-MAC kernel (the
+  same integer codes and the same final conversion);
 * Jacobi sweeps: rtol 1e-5 / atol 1e-7 against the plain sweep (the
   kernel repeats its float32 operations in order, without FMA
   contraction); the full solve within 2e-3 of the dense nodal solve.
@@ -416,7 +417,12 @@ def test_scratch_lane_raises_past_its_capacity(cuda):
     (5, 300, 200, 4, 1, 128, torch.bfloat16),      # ragged K, N and B
     (17, 512, 130, 4, 1, 256, torch.float32),
     (3, 96, 70, 5, 2, 32, torch.float32),
-    (16, 2560, 4096, 4, 1, 128, torch.bfloat16)])
+    (16, 2560, 4096, 4, 1, 128, torch.bfloat16),
+    (16, 384, 256, 7, 1, 128, torch.float32),       # w_bits 7: S 7
+    (9, 640, 264, 6, 2, 128, torch.bfloat16),       # bpc 2, 128 rows
+    (4, 1000, 136, 4, 1, 128, torch.float32),       # K % 32 != 0
+    (33, 512, 300, 4, 1, 128, torch.float32),       # three batch tiles
+    (33, 200, 98, 7, 2, 64, torch.bfloat16)])      # ragged N, bf16
 def test_deepnet_stream_matches_plain_and_programmed_mac(
         cuda, b, k, n, w_bits, bpc, rows, dtype):
     rng = np.random.default_rng(k + n)
@@ -435,6 +441,11 @@ def test_deepnet_stream_matches_plain_and_programmed_mac(
     assert ds.LAUNCHES["deepnet_stream"] == before + 1
     y_ref = ds.ref.deepnet_stream_ref(x, w, scale, **kw)
     assert _rel_err(y_ref, y) <= 1e-6
+    # the popcount kernel: an independent integer MAC of the same codes
+    before = ds.LAUNCHES["deepnet_stream_popcount"]
+    y_pop = ds.deepnet_stream_popcount(x, w, scale, **kw)
+    assert ds.LAUNCHES["deepnet_stream_popcount"] == before + 1
+    assert torch.equal(y, y_pop)
     # program + read through the crossbar-MAC kernel: the same codes
     pos, neg = ds.ref.quantize_codes(w, scale, w_bits=w_bits,
                                      bits_per_cell=bpc)

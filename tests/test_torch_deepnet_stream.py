@@ -67,6 +67,11 @@ def test_plain_version_matches_the_reference_kernel():
     via = tkernel.deepnet_stream(torch.from_numpy(x_int),
                                  torch.from_numpy(w), torch.from_numpy(ws),
                                  **KW).numpy()
+    assert np.array_equal(via, got)
+    # so is the popcount witness's
+    via = tkernel.deepnet_stream_popcount(
+        torch.from_numpy(x_int), torch.from_numpy(w), torch.from_numpy(ws),
+        **KW).numpy()
     assert tkernel.LAUNCHES == before
     assert np.array_equal(via, got)
 
