@@ -31,21 +31,32 @@ Phases, each of which fails the run (exit code 1, no result line):
              Jacobi kernel is driven through ``ir_solve.solve`` and held
              against the dense nodal solve, and timed (call and device
              ms);
-3. parity  — full-width qwen3-4b, 2 layers, float32, crossbar backend,
-             paged KV: greedy streams with and without the CUDA kernels
-             must be identical, with every weight in deep-net layout and
-             under ``--mode-policy auto``;
+3. parity  — full-width qwen3-4b, 2 layers, float32, crossbar backend:
+             greedy streams with the plain versions and with the CUDA
+             kernels, the window step captured in a CUDA graph (the
+             default on the card) and eager (``capture=False``, the
+             witness), paged and dense KV, must all be identical, with
+             every weight in deep-net layout and under
+             ``--mode-policy auto``;
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
-             with ``--backend crossbar --use-kernel --kv paged`` (its step
-             time), the same
-             under ``--mode-policy auto`` (attention and head read as
-             expansion-fused pairs, 256 rows per ADC), then two 4-layer
-             serves through the streamed attention lane, the second with
-             1024-token prompts in a 2048-token window, and last the
-             36-layer serve again in a ``torch.profiler`` trace (the
-             MAC's device ms per step and the device's idle share); every
-             kernel of each path must have launched, and no plain version
-             may have run.
+             with ``--backend crossbar --use-kernel --kv paged``, captured
+             (its step time: the warm-up, the capture and the replays),
+             the same under ``--mode-policy auto`` (attention and head
+             read as expansion-fused pairs, 256 rows per ADC), then two
+             4-layer serves through the streamed attention lane (the
+             second with 1024-token prompts in a 2048-token window), each
+             captured and eager with identical streams; last the 36-layer
+             serve on one programmed model: eager (its step time, streams
+             equal to the captured serve's), then captured and eager with
+             steps 4 on in a ``torch.profiler`` trace of the card (step
+             3 is the profiler's warm-up; a serve whose trace lost device
+             records is served and traced again, at most three times) (the MAC's device ms per step and the device's
+             idle share), then one eager step in a trace with CPU
+             activity (the host ops that cost most).  Every serve traces
+             its window step once (``serve_jit_traces_total``) and never
+             again; every kernel of each path must have run (a captured
+             serve runs the launches its capture recorded at each
+             replay), and no plain version may have run.
 
 The line before the last holds the card's name and power limit as
 ``nvidia-smi`` reports them; the line before that the kernels' JSON; the
@@ -73,6 +84,10 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
 ARCH = "qwen3-4b"
 L2_FLUSH_BYTES = 64 << 20            # > the H100's 50 MB L2
+# serves traced before the trace check gives up: the profiler sometimes
+# loses device records (MAC kernels and their conversions alike), which a
+# second serve does not repeat; a wrong launch count repeats every time
+TRACE_ATTEMPTS = 3
 
 
 class PhaseError(RuntimeError):
@@ -642,11 +657,13 @@ def phase_ir_solve(torch, dev, flush):
 # -- phase 3: token parity with and without the kernels -------------------------
 
 def phase_parity(torch, dev, mode_policy=None):
+    """Greedy streams at full width, 2 layers, float32, crossbar backend:
+    the plain versions (captured), and the CUDA kernels captured and
+    eager (``capture=False``, the witness), paged and dense, must all be
+    identical; each serve must trace its window step once."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.crossbar_mac import kernel as mac
-    from repro_torch.kernels.paged_attention import kernel as pa
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import BatchScheduler, Request
 
@@ -665,40 +682,54 @@ def phase_parity(torch, dev, mode_policy=None):
         model = build_model(cfg, device=dev)
         if params is None:
             params = model.init(0)
-        mac.LAUNCHES["crossbar_mac"] = 0
-        mac.LAUNCHES_BY_ROWS.clear()
-        pa.LAUNCHES["paged_attention_scratch"] = 0
-        sched = BatchScheduler(model, params, n_slots=2, max_len=64,
-                               mode_policy=mode_policy)
-        for i, p in enumerate(prompts):
-            sched.submit(Request(rid=i, prompt=p, max_new=4))
-        done, steps = [], 0
-        while len(done) < len(prompts) and steps < 100:
-            done += sched.step()
-            steps += 1
-        streams[use_kernel] = {r.rid: r.out for r in done}
-        n_mac = mac.LAUNCHES["crossbar_mac"]
-        n_pa = pa.LAUNCHES["paged_attention_scratch"]
-        check(len(done) == len(prompts), "parity run did not finish")
-        by_rows = dict(mac.LAUNCHES_BY_ROWS)
-        check((n_mac > 0 and n_pa > 0) if use_kernel
-              else (n_mac == 0 and n_pa == 0),
-              f"use_kernel={use_kernel}: launches mac={n_mac} paged={n_pa}")
-        if use_kernel and mode_policy == "auto":
-            check(by_rows.get(256, 0) > 0 and by_rows.get(128, 0) > 0,
-                  f"auto policy: crossbar_mac launches by rows {by_rows}")
-        log(f"  policy={mode_policy} use_kernel={use_kernel}: streams "
-            f"{streams[use_kernel]} (kernel launches: crossbar_mac {n_mac}"
-            f" {by_rows}, paged scratch {n_pa})")
-        del model, sched
+        runs = ([("paged", True), ("paged", False), ("dense", True),
+                 ("dense", False)] if use_kernel else [("paged", True)])
+        for kv, capture in runs:
+            _reset_counts()
+            sched = BatchScheduler(model, params, n_slots=2, max_len=64,
+                                   kv=kv, mode_policy=mode_policy,
+                                   capture=capture)
+            for i, p in enumerate(prompts):
+                sched.submit(Request(rid=i, prompt=p, max_new=4))
+            done, steps = [], 0
+            while len(done) < len(prompts) and steps < 100:
+                done += sched.step()
+                steps += 1
+            check(len(done) == len(prompts), "parity run did not finish")
+            cap = sched.capture_report()["A"]
+            counted, _, by_rows = _read_counts()
+            ran = _executed(counted, cap)
+            n_mac = ran["crossbar_mac"]
+            n_pa = ran["paged_attention_scratch"]
+            _check_traced_once(cap, capture)
+            run = (use_kernel, kv, capture)
+            streams[run] = {r.rid: r.out for r in done}
+            check((n_mac > 0 and (n_pa > 0) == (kv == "paged"))
+                  if use_kernel else (n_mac == 0 and n_pa == 0),
+                  f"use_kernel={use_kernel} kv={kv}: launches mac={n_mac} "
+                  f"paged={n_pa}")
+            if use_kernel and mode_policy == "auto":
+                check(by_rows.get(256, 0) > 0 and by_rows.get(128, 0) > 0,
+                      f"auto policy: crossbar_mac launches by rows "
+                      f"{by_rows}")
+            log(f"  policy={mode_policy} use_kernel={use_kernel} kv={kv} "
+                f"{'captured' if capture else 'eager'}: streams "
+                f"{streams[run]} (kernel launches run: crossbar_mac {n_mac}"
+                f" {by_rows}, paged scratch {n_pa}; {cap['captures']} "
+                f"capture, {cap['replays']} replays)")
+            del sched
+        del model
         gc.collect()
         torch.cuda.empty_cache()
-    check(streams[False] == streams[True],
-          f"greedy streams differ with and without the CUDA kernels "
-          f"(mode_policy={mode_policy})")
-    return {"streams": {str(k): v for k, v in streams[True].items()},
+    first = next(iter(streams.values()))
+    check(all(v == first for v in streams.values()),
+          f"greedy streams differ across plain/kernel, paged/dense, "
+          f"captured/eager (mode_policy={mode_policy}): {streams}")
+    return {"streams": {str(k): v for k, v in first.items()},
             "identical": True, "layers": 2, "dtype": "float32",
-            "mode_policy": mode_policy}
+            "mode_policy": mode_policy,
+            "runs": [f"use_kernel={k} kv={kv} capture={c}"
+                     for k, kv, c in streams]}
 
 
 # -- phase 4: serve through the port's CLI ---------------------------------------
@@ -736,7 +767,46 @@ def _read_counts():
     return kernels, plain, dict(by_rows)
 
 
-def phase_serve(torch, dev, argv, must_launch, rows_per_adc=()):
+def _executed(counted, cap):
+    """The kernel launches a serve ran: the wrappers count the eager
+    steps' launches and, once, the launches a capture records; each
+    replay runs the recorded launches again, so the replays beyond the
+    first add ``launches_per_replay`` each."""
+    lpr = cap["launches_per_replay"]
+    return {k: n + lpr.get(k, 0) * (cap["replays"] - 1)
+            for k, n in counted.items()}
+
+
+def _check_traced_once(cap, capture):
+    """One trace of the lane's window step (its capture; its first call
+    when eager), no retrace, since the counts were last set to 0."""
+    from repro_torch import obs
+
+    reg = obs.registry()
+    traces = reg.total("serve_jit_traces_total", closure="decode")
+    retraces = reg.total("serve_jit_retraces_total", closure="decode")
+    check(traces == 1 and retraces == 0,
+          f"window step traced {traces} times, {retraces} retraces "
+          f"(want 1, 0)")
+    want = (capture is not False)
+    check(cap["capture"] == want and cap["captures"] == int(want)
+          and (cap["replays"] > 0) == want,
+          f"capture report {cap} (capture={capture})")
+
+
+def _step_stats(step_s):
+    """Per-step wall ms: the mean, the first two steps (the warm-up and,
+    captured, the capture) and the median of the rest."""
+    ms = [t * 1e3 for t in step_s]
+    return {"step_ms": sum(ms) / len(ms), "first_steps_ms": ms[:2],
+            "later_step_ms": statistics.median(ms[2:])}
+
+
+def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
+                capture=None):
+    """``launch/serve.main(argv)``, its window step captured (the default)
+    or eager (``capture=False``); every kernel of ``must_launch`` must have
+    run and no plain version."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
@@ -748,16 +818,26 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=()):
     check(held < 1 << 30, f"{held / 2**30:.2f} GiB still allocated before "
           f"the serve")
     _reset_counts()
-    rep = serve.main(argv)
+    rep = serve.main(argv, capture=capture)
     torch.cuda.synchronize()
-    kernels, plain, by_rows = _read_counts()
+    counted, plain, by_rows = _read_counts()
+    cap = rep["capture"]
+    kernels = _executed(counted, cap)
+    _check_traced_once(cap, capture)
     peak = torch.cuda.max_memory_allocated(dev)
     toks = [t for r in rep["requests"] for t in r.out]
-    log(f"  tokens/s {rep['tok_per_s']:.2f} ({rep['tokens']} tokens, "
-        f"{rep['steps']} steps, {rep['seconds']:.2f} s); programming "
+    stats = _step_stats(rep["step_s"])
+    log(f"  {'captured' if cap['capture'] else 'eager'}: tokens/s "
+        f"{rep['tok_per_s']:.2f} ({rep['tokens']} tokens, {rep['steps']} "
+        f"steps, {rep['seconds']:.2f} s; step {stats['step_ms']:.2f} ms, "
+        f"first two {stats['first_steps_ms'][0]:.2f} / "
+        f"{stats['first_steps_ms'][1]:.2f} ms, then median "
+        f"{stats['later_step_ms']:.2f} ms); programming "
         f"{rep['program_s']:.2f} s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
-    log(f"  kernel launches {kernels} (crossbar_mac by rows per ADC "
+    log(f"  kernel launches run {kernels} (counted by the wrappers "
+        f"{counted}; {cap['captures']} capture, {cap['replays']} replays "
+        f"of {cap['launches_per_replay']}; crossbar_mac by rows per ADC "
         f"{by_rows}); plain-version calls {plain}")
     n_req = int(argv[argv.index("--requests") + 1])
     max_new = int(argv[argv.index("--max-new") + 1])
@@ -775,25 +855,16 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=()):
     return {"argv": argv, "tok_per_s": rep["tok_per_s"],
             "tokens": rep["tokens"], "steps": rep["steps"],
             "seconds": rep["seconds"], "program_s": rep["program_s"],
+            **stats, "capture": cap,
+            "streams": {r.rid: list(r.out) for r in rep["requests"]},
             "max_memory_allocated": peak, "memory_before": held,
-            "launches": kernels, "launches_by_rows": by_rows,
+            "launches": kernels, "launches_counted": counted,
+            "launches_by_rows": by_rows,
             "plain_calls": plain, "mode_report": rep.get("mode_report")}
 
 
-def phase_serve_traced(torch, dev, argv, must_launch, out_dir):
-    """The serve of ``argv`` again, in a ``torch.profiler`` trace of the
-    card alone.  Measured from the trace, between the start of the serve's
-    first MAC kernel and the end of its last MAC launch (its steps, the
-    programming before them excluded): the MAC's device ms per step (its
-    kernel, the memset that zeroes its code buffer just before it, and
-    its conversion kernel), every device event's ms per step, and the
-    device's idle share (the window less the union of those events).  The
-    trace costs host time, so this serve's step time is not the serve's
-    metric: phase_serve's untraced run is."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sv = phase_serve(torch, dev, argv, must_launch)
+def _device_events(torch, prof, out_dir):
+    """The card's events of a ``torch.profiler`` trace, in time order."""
     path = out_dir / "serve_trace.json"
     prof.export_chrome_trace(str(path))
     evs = sorted((e for e in json.loads(path.read_text())["traceEvents"]
@@ -801,6 +872,15 @@ def phase_serve_traced(torch, dev, argv, must_launch, out_dir):
                   in ("kernel", "gpu_memset", "gpu_memcpy")),
                  key=lambda e: float(e["ts"]))
     path.unlink()
+    return evs
+
+
+def _trace_stats(evs, steps):
+    """From the card's events, between the start of the first MAC kernel
+    and the end of the last MAC launch: the MAC's device ms per step (its
+    kernel, the memset that zeroes its code buffer just before it, and
+    its conversion kernel), every device event's ms per step, and the
+    device's idle share (the window less the union of those events)."""
     mac_us, mac_n, spans = 0.0, 0, []
     for i, e in enumerate(evs):
         t0, dur = float(e["ts"]), float(e["dur"])
@@ -809,14 +889,14 @@ def phase_serve_traced(torch, dev, argv, must_launch, out_dir):
             mac_us += dur
             spans.append(t0)
             prev = evs[i - 1] if i else None
-            if prev is not None and "memset" in str(prev["cat"]).lower():
+            # a graph's memset node may be traced as a kernel "memset32"
+            if prev is not None and "memset" in (
+                    str(prev["cat"]) + str(prev["name"])).lower():
                 mac_us += float(prev["dur"])
         elif "codes_to_float_kernel" in e["name"]:
             mac_us += dur
             spans.append(t0 + dur)
-    check(mac_n == sv["launches"]["crossbar_mac"],
-          f"serve trace holds {mac_n} MAC kernels, the wrapper counted "
-          f"{sv['launches']['crossbar_mac']}")
+    check(mac_n > 0, "the trace holds no MAC kernel")
     lo, hi = min(spans), max(spans)
     busy, end, n_dev = 0.0, lo, 0
     for e in evs:
@@ -827,20 +907,181 @@ def phase_serve_traced(torch, dev, argv, must_launch, out_dir):
         if b > a:
             busy += b - a
             end = b
-    steps = sv["steps"]
-    out = {"steps": steps, "traced_step_ms": sv["seconds"] / steps * 1e3,
-           "mac_device_ms_per_step": mac_us / steps / 1e3,
-           "device_busy_ms_per_step": busy / steps / 1e3,
-           "window_ms_per_step": (hi - lo) / steps / 1e3,
-           "device_idle_share": 1.0 - busy / (hi - lo),
-           "device_events_per_step": n_dev / steps,
-           "mac_launches": mac_n}
-    log(f"  traced: MAC {out['mac_device_ms_per_step']:.3f} ms of device "
-        f"time per step; all device work {out['device_busy_ms_per_step']:.3f}"
-        f" ms per step over a {out['window_ms_per_step']:.3f} ms window "
-        f"(device idle {100 * out['device_idle_share']:.1f}%), "
-        f"{out['device_events_per_step']:.0f} device events per step; step "
-        f"under the trace {out['traced_step_ms']:.2f} ms")
+    return {"mac_device_ms_per_step": mac_us / steps / 1e3,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "window_ms_per_step": (hi - lo) / steps / 1e3,
+            "device_idle_share": 1.0 - busy / (hi - lo),
+            "device_events_per_step": n_dev / steps, "mac_launches": mac_n}
+
+
+def _traced_serve(torch, st, capture, out_dir, untraced=2):
+    """A serve of ``st`` (launch/serve's setup): its first ``untraced``
+    steps (the warm-up and, captured, the capture) outside the trace, the
+    next one the profiler's warm-up (traced, its records dropped), the
+    rest in a ``torch.profiler`` trace of the card.  Returns the trace's
+    stats and the MAC launches the counted steps ran."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import launch_counts
+
+    _reset_counts()
+    sched = st.scheduler(capture=capture)
+    reqs = st.requests()
+    for r in reqs:
+        sched.submit(r)
+    done = []
+    for _ in range(untraced):
+        done += sched.step()
+    steps = 0
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=10_000)) as prof:
+        done += sched.step()
+        prof.step()
+        cap0 = dict(sched.capture_report()["A"])
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while len(done) < len(reqs) and steps < 10_000:
+            done += sched.step()
+            steps += 1
+            prof.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counted = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
+    cap = sched.capture_report()["A"]
+    _check_traced_once(cap, capture)
+    if capture:
+        check(cap["captures"] == cap0["captures"] == 1
+              and cap["replays"] - cap0["replays"] == steps,
+              f"traced steps were not all replays: {cap0} -> {cap}")
+        check(not any(counted.values()), f"a replay counted {counted}")
+        ran = {k: n * steps for k, n in cap["launches_per_replay"].items()}
+    else:
+        ran = counted
+    evs = _device_events(torch, prof, out_dir)
+    out = _trace_stats(evs, steps)
+    # MAC records per step: each step ends with the head's MAC, the one
+    # MAC kernel that runs longer than a millisecond
+    per_step, n = [], 0
+    for e in evs:
+        if "crossbar_mac_tc_kernel" in e["name"]:
+            n += 1
+            if float(e["dur"]) > 1e3:
+                per_step.append(n)
+                n = 0
+    out.update(steps=steps, traced_step_ms=wall / steps * 1e3,
+               mac_ran=ran.get("crossbar_mac", 0),
+               conversions=sum("codes_to_float_kernel" in e["name"]
+                               for e in evs),
+               mac_per_step=per_step + ([n] if n else []),
+               streams={r.rid: list(r.out) for r in done})
+    return out
+
+
+def _serve_in_trace(torch, st, capture, out_dir):
+    """``_traced_serve`` until its trace holds every MAC launch the
+    counted steps ran (at most ``TRACE_ATTEMPTS`` serves, each loss
+    logged); the trace's stats."""
+    lost = []
+    for _ in range(TRACE_ATTEMPTS):
+        out = _traced_serve(torch, st, capture, out_dir)
+        if out["mac_launches"] == out["mac_ran"]:
+            break
+        lost.append({k: out[k] for k in ("mac_launches", "conversions",
+                                         "mac_ran", "mac_per_step")})
+        log(f"  the trace holds {out['mac_launches']} MAC kernels and "
+            f"{out['conversions']} conversions of the {out['mac_ran']} MAC "
+            f"launches run (MAC records per step {out['mac_per_step']}); "
+            f"serving again")
+    check(out["mac_launches"] == out["mac_ran"],
+          f"no trace of {TRACE_ATTEMPTS} held every MAC launch the serve "
+          f"ran: {lost}")
+    out["lost_traces"] = lost
+    first = 4
+    log(f"  {'captured' if capture else 'eager'}, steps {first}-"
+        f"{first + out['steps'] - 1} traced: MAC "
+        f"{out['mac_device_ms_per_step']:.3f}"
+        f" ms of device time per step; all device work "
+        f"{out['device_busy_ms_per_step']:.3f} ms per step over a "
+        f"{out['window_ms_per_step']:.3f} ms window (device idle "
+        f"{100 * out['device_idle_share']:.1f}%), "
+        f"{out['device_events_per_step']:.0f} device events per step; "
+        f"step under the trace {out['traced_step_ms']:.2f} ms")
+    return out
+
+
+def _host_ops_of_one_step(torch, st, at_step=2, top=12):
+    """One eager step in a ``torch.profiler`` trace with CPU activity on:
+    the host ops (aten ops and CUDA runtime calls) by self CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _reset_counts()
+    sched = st.scheduler(capture=False)
+    for r in st.requests():
+        sched.submit(r)
+    for _ in range(at_step):
+        sched.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sched.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    _check_traced_once(sched.capture_report()["A"], False)
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_ms = sum(e.self_cpu_time_total for e in rows) / 1e3
+    ops = [{"name": e.key, "calls": e.count,
+            "self_cpu_ms": e.self_cpu_time_total / 1e3,
+            "cpu_ms": e.cpu_time_total / 1e3} for e in rows[:top]]
+    log(f"  one eager step under a trace with CPU activity: {wall:.1f} ms "
+        f"wall, {host_ms:.1f} ms of self CPU time over "
+        f"{sum(e.count for e in rows)} host events; by self CPU time:")
+    for op in ops:
+        log(f"    {op['name'][:48]:48s} {op['calls']:6d} calls "
+            f"{op['self_cpu_ms']:8.2f} ms self")
+    return {"step": at_step + 1, "wall_ms": wall, "self_cpu_ms": host_ms,
+            "top_ops": ops}
+
+
+def phase_witness(torch, dev, argv, want, out_dir):
+    """The 36-layer serve of ``argv`` on one model, programmed once: the
+    eager step (``capture=False``) untraced, its streams equal to the
+    captured serve's (``want``); then the captured and the eager serves
+    with steps 4 on in a trace of the card; last, one
+    eager step in a trace with CPU activity on."""
+    from repro_torch.launch import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = serve.setup(argv)
+    t0 = time.perf_counter()
+    sched = st.scheduler(capture=False)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    _reset_counts()
+    rep = serve.drive(sched, st.requests(), dev)
+    cap = sched.capture_report()["A"]
+    _check_traced_once(cap, False)
+    del sched
+    streams = {r.rid: list(r.out) for r in rep["requests"]}
+    check(streams == want, f"the eager 36-layer serve's streams {streams} "
+          f"differ from the captured serve's {want}")
+    stats = _step_stats(rep["step_s"])
+    log(f"  eager: tokens/s {rep['tok_per_s']:.2f} ({rep['tokens']} tokens,"
+        f" {rep['steps']} steps, {rep['seconds']:.2f} s; step "
+        f"{stats['step_ms']:.2f} ms, median after the first two "
+        f"{stats['later_step_ms']:.2f} ms); streams equal the captured "
+        f"serve's; programming {program_s:.2f} s")
+    out = {"eager": {"tok_per_s": rep["tok_per_s"], "steps": rep["steps"],
+                     "seconds": rep["seconds"], **stats,
+                     "program_s": program_s}}
+    # the traces slow the host for what follows them: untraced first
+    for name, capture in (("trace_captured", True), ("trace_eager", False)):
+        out[name] = _serve_in_trace(torch, st, capture, out_dir)
+        check(out[name]["streams"] == want,
+              f"{name}: streams differ from the captured serve's")
+    out["host_ops"] = _host_ops_of_one_step(torch, st)
     return out
 
 
@@ -929,7 +1170,8 @@ def main() -> int:
         report["parity_auto"] = phase_parity(torch, dev, "auto")
 
         phase = "serve"
-        log(f"[4/4] serve {ARCH} at full width through launch/serve.py")
+        log(f"[4/4] serve {ARCH} at full width through launch/serve.py "
+            f"(window step captured)")
         main_argv = ["--arch", ARCH, "--backend", "crossbar", "--use-kernel",
                      "--kv", "paged", "--requests", "4", "--prompt-len",
                      "16", "--max-new", "8", "--slots", "4", "--max-len",
@@ -939,13 +1181,12 @@ def main() -> int:
             ["crossbar_mac", "paged_attention_scratch"], rows_per_adc=[128])
         sv = report["serve"]
         mac_est, mac_per_step = mac_step_ms(mac_rows)
-        sv["step_ms"] = sv["seconds"] / sv["steps"] * 1e3
         sv["mac_launches_per_step"] = sv["launches"]["crossbar_mac"] / \
             sv["steps"]
-        log(f"  step {sv['step_ms']:.2f} ms; the MAC's {mac_per_step} "
-            f"launches per step (counted {sv['mac_launches_per_step']:.1f}) "
-            f"would take {mac_est:.2f} ms of device time at phase 2's "
-            f"per-geometry times (an estimate; the trace below measures it)")
+        log(f"  the MAC's {mac_per_step} launches per step (run "
+            f"{sv['mac_launches_per_step']:.1f}) would take {mac_est:.2f} ms "
+            f"of device time at phase 2's per-geometry times (an estimate; "
+            f"the traces below measure it)")
         log("  --mode-policy auto (attention and head expansion-fused)")
         report["serve_auto"] = phase_serve(
             torch, dev, main_argv + ["--mode-policy", "auto"],
@@ -953,38 +1194,51 @@ def main() -> int:
             rows_per_adc=[128, 256])
         report["serve_auto"]["mode_check"] = check_mode_report(
             report["serve_auto"]["mode_report"])
-        log("  streamed lane: --stream-pages 4 --max-len 256, 4 layers")
         stream_argv = ["--arch", ARCH, "--layers", "4", "--backend",
                        "crossbar", "--use-kernel", "--kv", "paged",
                        "--requests", "4", "--prompt-len", "16", "--max-new",
                        "4", "--slots", "4", "--max-len", "256", "--chunk",
                        "4", "--stream-pages", "4", "--block-pages", "4"]
-        report["serve_streamed"] = phase_serve(
-            torch, dev, stream_argv,
-            ["crossbar_mac", "paged_attention_streamed"])
-        log("  long context: --prompt-len 1024 --max-len 2048 --chunk 16, "
-            "streamed lane, 4 layers")
         long_argv = ["--arch", ARCH, "--layers", "4", "--backend",
                      "crossbar", "--use-kernel", "--kv", "paged",
                      "--requests", "4", "--slots", "4", "--prompt-len",
                      "1024", "--max-new", "8", "--max-len", "2048",
                      "--chunk", "16", "--stream-pages", "64",
                      "--block-pages", "16"]
-        report["serve_long"] = phase_serve(
-            torch, dev, long_argv,
-            ["crossbar_mac", "paged_attention_streamed",
-             "paged_attention_combine"])
+        for key, what, argv, must in (
+                ("serve_streamed", "streamed lane: --stream-pages 4 "
+                 "--max-len 256, 4 layers", stream_argv,
+                 ["crossbar_mac", "paged_attention_streamed"]),
+                ("serve_long", "long context: --prompt-len 1024 --max-len "
+                 "2048 --chunk 16, streamed lane, 4 layers", long_argv,
+                 ["crossbar_mac", "paged_attention_streamed",
+                  "paged_attention_combine"])):
+            log(f"  {what}; captured, then eager")
+            report[key] = phase_serve(torch, dev, argv, must)
+            eager = phase_serve(torch, dev, argv, must, capture=False)
+            check(eager["streams"] == report[key]["streams"],
+                  f"{key}: captured and eager streams differ")
+            report[key]["eager"] = {k: eager[k] for k in (
+                "tok_per_s", "steps", "seconds", "step_ms",
+                "later_step_ms", "launches")}
         # last: the serves after a trace ran slower (the profiler's state
-        # outlives it), so none of the timed serves follows it
-        log("  the main serve again, in a torch.profiler trace of the card")
-        sv["trace"] = phase_serve_traced(
-            torch, dev, main_argv,
-            ["crossbar_mac", "paged_attention_scratch"], out_dir)
-        log(f"  the MAC's measured device time is "
-            f"{100 * sv['trace']['mac_device_ms_per_step'] / sv['step_ms']:.1f}"
-            f"% of the untraced step; all device work "
-            f"{100 * sv['trace']['device_busy_ms_per_step'] / sv['step_ms']:.1f}"
-            f"%")
+        # outlives it), so none of the timed CLI serves follows one
+        log("  the main serve on one programmed model: eager (the "
+            "witness), then captured and eager in a torch.profiler trace "
+            "of the card, then one eager step with CPU activity traced")
+        sv["witness"] = phase_witness(torch, dev, main_argv, sv["streams"],
+                                      out_dir)
+        tc = sv["witness"]["trace_captured"]
+        te = sv["witness"]["trace_eager"]
+        ev = sv["witness"]["eager"]
+        log(f"  36-layer step: captured {sv['step_ms']:.2f} ms (replays "
+            f"{sv['later_step_ms']:.2f} ms), eager {ev['step_ms']:.2f} ms "
+            f"({ev['later_step_ms']:.2f} ms); tokens/s "
+            f"{sv['tok_per_s']:.2f} vs {ev['tok_per_s']:.2f}; device idle "
+            f"{100 * tc['device_idle_share']:.1f}% vs "
+            f"{100 * te['device_idle_share']:.1f}%; MAC device ms per step "
+            f"{tc['mac_device_ms_per_step']:.3f} vs "
+            f"{te['mac_device_ms_per_step']:.3f}")
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -994,6 +1248,7 @@ def main() -> int:
     head, head64 = (next(r for r in report["crossbar_mac"]
                          if r["geometry"] == "head" and r["mode"] == "deepnet"
                          and r["b"] == b and "ms" in r) for b in (16, 64))
+    witness = report["serve"]["witness"]
     serve_l = report["serve"]["launches"]
     stream_l = report["serve_streamed"]["launches"]
     long_l = report["serve_long"]["launches"]
@@ -1010,10 +1265,16 @@ def main() -> int:
          "library_ms": None, "shape": f"B=16 K={head['k']} N={head['n']}",
          "b64_ms": head64["ms"], "b64_device_ms": head64["device_ms"],
          "b64_bound_ms": head64["bound_ms"],
-         "step_device_ms":
-             report["serve"]["trace"]["mac_device_ms_per_step"],
-         "step_idle_share": report["serve"]["trace"]["device_idle_share"],
-         "step_ms": report["serve"]["step_ms"]},
+         "step_device_ms": witness["trace_captured"][
+             "mac_device_ms_per_step"],
+         "step_idle_share": witness["trace_captured"]["device_idle_share"],
+         "step_ms": report["serve"]["step_ms"],
+         "replay_step_ms": report["serve"]["later_step_ms"],
+         "eager_step_device_ms": witness["trace_eager"][
+             "mac_device_ms_per_step"],
+         "eager_step_idle_share": witness["trace_eager"][
+             "device_idle_share"],
+         "eager_step_ms": witness["eager"]["step_ms"]},
     ]
     for lane, line, launches in (
             ("scratch", 124, serve_l["paged_attention_scratch"]),

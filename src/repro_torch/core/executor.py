@@ -491,7 +491,10 @@ class CrossbarExecutor:
         expansion-fused pair reads with doubled-input ADC grouping).  A
         fused pair never hosts a write, so its reads carry no leak term;
         other reads carry the ambient :meth:`leak_scope` value (0.0
-        outside one)."""
+        outside one).  The leak always reaches the MAC as a device scalar
+        (:meth:`current_leak_codes` for 0.0), so a read makes no host
+        value into a device operand, and a captured step reads its leak
+        from device memory."""
         tenant = self._resolve_tenant(tenant)
         bank = self._cache[name]
         pw = bank.active_for(tenant)
@@ -502,7 +505,7 @@ class CrossbarExecutor:
         if k != pw.k:
             raise ValueError(f"{name}: input dim {k} != programmed {pw.k}")
         if bank.is_fused(tenant) or self._leak_override is None:
-            leak = 0.0
+            leak = self.current_leak_codes()
         else:
             leak = self._leak_override
         y = engine.matmul(x.reshape(*lead, k).to(torch.float32), pw, cfg,

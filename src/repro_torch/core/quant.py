@@ -17,6 +17,7 @@ correctly rounded quotient the reference computes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -137,15 +138,23 @@ def to_bit_serial(x_int: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:
     return torch.stack(bits, dim=0).to(torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], device) -> torch.Tensor:
+    """A float32 constant vector, copied to ``device`` once: a CUDA graph
+    of a step that reads it may hold no host-to-device copy.  Callers
+    only read it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def bit_weights(cfg: QuantConfig, device=None) -> torch.Tensor:
     """Signed positional weights of the bit-serial pulses, LSB first."""
     w = [2.0 ** s for s in range(cfg.in_bits - 1)]
     w.append(-(2.0 ** (cfg.in_bits - 1)))  # MSB of two's complement
-    return torch.tensor(w, dtype=torch.float32, device=device)
+    return _constant(tuple(w), torch.device(device or "cpu"))
 
 
 def slice_weights(cfg: QuantConfig, device=None) -> torch.Tensor:
     """Positional weights of the cell planes, LSB first."""
     base = 2 ** cfg.bits_per_cell
-    return torch.tensor([float(base ** s) for s in range(cfg.n_slices)],
-                        dtype=torch.float32, device=device)
+    return _constant(tuple(float(base ** s) for s in range(cfg.n_slices)),
+                     torch.device(device or "cpu"))

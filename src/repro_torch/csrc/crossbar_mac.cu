@@ -67,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_grant.cuh"
 #include "xbar_tc.cuh"
 
 namespace {
@@ -259,9 +260,8 @@ cudaError_t launch_tc(const MacArgs& a, dim3 g, cudaStream_t st) {
       g.x != static_cast<unsigned>((a.N + kCols - 1) / kCols))
     return cudaErrorInvalidValue;
   auto kernel = crossbar_mac_tc_kernel<KS, WARPS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static smem::SmemGrant grant;
+  cudaError_t err = grant.allow(kernel, smem);
   if (err != cudaSuccess) return err;
   // batch tiles fastest: they read the same plane tiles
   const dim3 grid(g.z, g.y, g.x);
@@ -288,8 +288,8 @@ int crossbar_mac_adc_table(const void* leak, void* out, int rows,
     return static_cast<int>(cudaErrorInvalidValue);
   const int maxsum = rows * ((1 << bits_per_cell) - 1);
   const int smem = xbar::lut_bytes(rows, bits_per_cell);
-  cudaError_t err = cudaFuncSetAttribute(
-      adc_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static smem::SmemGrant grant;
+  cudaError_t err = grant.allow(adc_table_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   adc_table_kernel<<<1, kTableThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(leak), static_cast<int*>(out), maxsum, lsb,

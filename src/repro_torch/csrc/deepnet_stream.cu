@@ -55,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_grant.cuh"
 #include "xbar_mac.cuh"
 #include "xbar_tc.cuh"
 
@@ -261,9 +262,8 @@ cudaError_t launch_tc(const StreamArgs& a, dim3 g, cudaStream_t st) {
       g.x != static_cast<unsigned>((a.N + kCols - 1) / kCols))
     return cudaErrorInvalidValue;
   auto kernel = deepnet_stream_tc_kernel<T, KS, WARPS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static smem::SmemGrant grant;
+  cudaError_t err = grant.allow(kernel, smem);
   if (err != cudaSuccess) return err;
   // batch tiles fastest: they read the same weight tiles
   const dim3 grid(g.z, g.y, g.x);

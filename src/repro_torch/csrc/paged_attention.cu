@@ -81,6 +81,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "smem_grant.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -1273,16 +1275,6 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   store_out(out, b, h, gm, r, i - r * gm.hd, a / l);
 }
 
-// dynamic shared memory above 48 KB must be opted into per kernel
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
-  }
-  return cudaSuccess;
-}
 
 struct SplitArgs {
   const void *q, *kp, *vp, *pt, *kv_len, *q_off;
@@ -1295,7 +1287,8 @@ struct SplitArgs {
 template <typename T, int HD>
 cudaError_t launch_split(const SplitArgs& a) {
   const size_t smem = streamed_smem(HD, sizeof(T), a.split_pages);
-  cudaError_t err = allow_smem(paged_split_kernel<T, HD>, smem);
+  static smem::SmemGrant grant;
+  cudaError_t err = grant.allow(paged_split_kernel<T, HD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B, a.gm.kv, a.n_split * a.groups);
   paged_split_kernel<T, HD><<<grid, kThreads, smem, a.st>>>(
@@ -1386,7 +1379,8 @@ int paged_scratch_launch(const void* q, const void* kp, const void* vp,
                              static_cast<size_t>(kSmemLimit))
       --stages;
     const size_t smem = scratch_layout(rows, hd, depth, ps, stages, cs).total;
-    err = allow_smem(paged_scratch_mma_kernel, smem);
+    static smem::SmemGrant mma_grant;
+    err = mma_grant.allow(paged_scratch_mma_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(B, kv, cs);
@@ -1409,7 +1403,8 @@ int paged_scratch_launch(const void* q, const void* kp, const void* vp,
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps, 4);
-  err = allow_smem(paged_scratch_kernel, smem);
+  static smem::SmemGrant grant;
+  err = grant.allow(paged_scratch_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_scratch_kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(kp),

@@ -24,13 +24,16 @@ choices and IR-drop deltas print from ``mode_report()``.
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
 PyTorch path on the CPU.  ``--layers N`` cuts the configuration's depth
-(never its width).
+(never its width).  On the card every window step after the first runs
+as one captured CUDA graph (``BatchScheduler``); no flag turns that off.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import statistics
 import time
+from typing import Any, Dict, List
 
 import torch
 
@@ -87,7 +90,60 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None):
+@dataclasses.dataclass
+class Setup:
+    """A parsed command line and the model and params it builds."""
+    args: argparse.Namespace
+    model: Any
+    params: Any
+    mode_policy: Any
+    device: torch.device
+
+    def scheduler(self, capture=None) -> BatchScheduler:
+        """The command line's scheduler (programming the weights);
+        ``capture`` as ``BatchScheduler`` takes it."""
+        a = self.args
+        return BatchScheduler(self.model, self.params, n_slots=a.slots,
+                              max_len=a.max_len, kv=a.kv,
+                              page_size=a.page_size, chunk=a.chunk,
+                              mode_policy=self.mode_policy, capture=capture)
+
+    def requests(self) -> List[Request]:
+        """The command line's synthetic requests (seeded prompts)."""
+        a = self.args
+        gen = torch.Generator()
+        gen.manual_seed(1)
+        return [Request(rid=rid,
+                        prompt=torch.randint(0, self.model.cfg.vocab - 1,
+                                             (a.prompt_len,), generator=gen,
+                                             dtype=torch.int32),
+                        max_new=a.max_new)
+                for rid in range(a.requests)]
+
+
+def drive(sched: BatchScheduler, reqs: List[Request],
+          device: torch.device) -> Dict[str, Any]:
+    """Submit ``reqs`` and step until all finish: the requests, tokens,
+    steps, wall seconds, tokens/s and each step's wall seconds (a step
+    ends with its tokens on the host)."""
+    for r in reqs:
+        sched.submit(r)
+    done, step_s = [], []
+    t0 = time.perf_counter()
+    while len(done) < len(reqs) and len(step_s) < 10_000:
+        t = time.perf_counter()
+        done += sched.step()
+        step_s.append(time.perf_counter() - t)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(r.out) for r in done)
+    return {"requests": done, "tokens": total_tokens, "steps": len(step_s),
+            "seconds": dt, "tok_per_s": total_tokens / max(dt, 1e-9),
+            "step_s": step_s}
+
+
+def setup(argv=None) -> Setup:
+    """Parse ``argv`` and build the model and its random params."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true")
@@ -149,13 +205,19 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, paged_stream_pages=args.stream_pages,
                                   paged_block_pages=args.block_pages)
     model = build_model(cfg, device=device)
-    params = model.init(0)
+    return Setup(args, model, model.init(0), mode_policy, device)
 
+
+def main(argv=None, *, capture=None):
+    """Serve the command line's requests and print what was served.
+    ``capture`` goes to ``BatchScheduler`` (None: capture on the card);
+    it is no command-line flag: ``capture=False`` is the eager witness
+    that tests and ``chip_smoke.py`` hold the captured step against."""
+    st = setup(argv)
+    args, cfg, device = st.args, st.model.cfg, st.device
+    mode_policy = st.mode_policy
     t0 = time.perf_counter()
-    sched = BatchScheduler(model, params, n_slots=args.slots,
-                           max_len=args.max_len, kv=args.kv,
-                           page_size=args.page_size, chunk=args.chunk,
-                           mode_policy=mode_policy)
+    sched = st.scheduler(capture)
     _sync(device)
     program_s = time.perf_counter() - t0
     print(f"model {cfg.name}: {cfg.n_layers} layers, d_model "
@@ -166,7 +228,7 @@ def main(argv=None):
                          for t, r in sched.kv_report().items())
         print(f"paged KV: page_size={args.page_size} tokens, pools "
               f"[{desc}], chunk={args.chunk} prompt tokens/step")
-    ex = model.executor
+    ex = st.model.executor
     if ex is not None:
         print(f"crossbar backend: {ex.n_resident} resident weight grids, "
               f"{ex.n_devices} programmed devices/plane, "
@@ -183,45 +245,35 @@ def main(argv=None):
         if mode_policy is not None:
             _print_mode_report(sched.mode_report())
 
-    gen = torch.Generator()
-    gen.manual_seed(1)
-    reqs = [Request(rid=rid,
-                    prompt=torch.randint(0, cfg.vocab - 1,
-                                         (args.prompt_len,), generator=gen,
-                                         dtype=torch.int32),
-                    max_new=args.max_new)
-            for rid in range(args.requests)]
-    for r in reqs:
-        sched.submit(r)
-
-    t0 = time.perf_counter()
-    done, steps = [], 0
-    while len(done) < args.requests and steps < 10_000:
-        done += sched.step()
-        steps += 1
-    _sync(device)
-    dt = time.perf_counter() - t0
-    total_tokens = sum(len(r.out) for r in done)
-    print(f"served {len(done)} requests, {total_tokens} tokens in "
-          f"{steps} decode steps, {dt:.2f}s "
-          f"({total_tokens / max(dt, 1e-9):.1f} tok/s)")
+    rep = drive(sched, st.requests(), device)
+    done = rep["requests"]
+    print(f"served {len(done)} requests, {rep['tokens']} tokens in "
+          f"{rep['steps']} decode steps, {rep['seconds']:.2f}s "
+          f"({rep['tok_per_s']:.1f} tok/s)")
+    cap = sched.capture_report()["A"]
+    ms = [t * 1e3 for t in rep["step_s"]]
+    if cap["capture"]:
+        print(f"window step: {cap['captures']} CUDA graph capture(s), "
+              f"{cap['replays']} replays, {cap['eager_steps']} eager "
+              f"warm-up step(s); step ms "
+              + ", ".join(f"{t:.1f}" for t in ms[:2])
+              + (f", then median {statistics.median(ms[2:]):.1f}"
+                 if len(ms) > 2 else ""))
     if args.stream_pages:
-        rep = sched.attn_lane_report()
-        d = rep["dispatch"]
-        print(f"attn lanes: streamed >= {rep['stream_min_pages']}p of "
-              f"{rep['pages_per_seq']}p table, "
-              f"block={rep['block_pages']}p; dispatches "
+        lanes = sched.attn_lane_report()
+        d = lanes["dispatch"]
+        print(f"attn lanes: streamed >= {lanes['stream_min_pages']}p of "
+              f"{lanes['pages_per_seq']}p table, "
+              f"block={lanes['block_pages']}p; dispatches "
               f"scratch={d['paged_scratch']} "
               f"streamed={d['paged_streamed']} "
               f"fallback={d['paged_fallback']}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out[:8]}...")
-    out = {"requests": done, "tokens": total_tokens, "steps": steps,
-           "seconds": dt, "tok_per_s": total_tokens / max(dt, 1e-9),
-           "program_s": program_s}
+    rep.update(program_s=program_s, capture=cap)
     if mode_policy is not None:
-        out["mode_report"] = sched.mode_report()
-    return out
+        rep["mode_report"] = sched.mode_report()
+    return rep
 
 
 if __name__ == "__main__":

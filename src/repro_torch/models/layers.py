@@ -165,9 +165,10 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
     also carries "pt" (B, P_seq) and whose k/v are page pools
     (n_pages + 1, page_size, kv_eff, hd).
 
-    The KV scatter updates the cache's k/v tensors IN PLACE (the caller
-    owns them; the reference returns updated copies); the returned cache
-    holds the same k/v tensors and a new "len".
+    The KV scatter and the fill marker update the cache's k/v and "len"
+    tensors IN PLACE (the caller owns them; the reference returns updated
+    copies), with shapes fixed by the window alone, so a CUDA graph can
+    hold the step; the returned cache holds the same tensors.
     """
     b, sq, _ = x.shape
     if cache is None:
@@ -181,7 +182,7 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
         # so out-of-range writes land there and gathers through it read
         # only masked positions.
         q, k, v = _project_qkv(p, cfg, x, positions)
-        pos = cache["len"]                                # (B,)
+        pos = cache["len"].clone()                        # (B,)
         pt = cache["pt"]                                  # (B, P_seq)
         ck, cv = cache["k"], cache["v"]
         ps = ck.shape[1]
@@ -195,7 +196,7 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
         slot = torch.where(inb, s_idx % ps, 0)
         ck[phys, slot] = k.to(ck.dtype)
         cv[phys, slot] = v.to(cv.dtype)
-        new_len = cache["len"] + sq
+        new_len = cache["len"].add_(sq)
         if cfg.paged_kernel:
             from repro_torch.kernels.paged_attention import paged_attention
             out = paged_attention(q, ck, cv, pt, new_len, pos,
@@ -210,28 +211,50 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
             gv = cv[ptl].reshape(b, depth, *cv.shape[2:])
             out = _chunked_sdpa(q, gk, gv, cfg, kv_len=new_len,
                                 q_offset=pos)
-        new_cache = {"k": ck, "v": cv, "len": new_len, "pt": pt}
+        new_cache = cache
     else:
         # decode: append this step's K/V at each row's own fill position;
         # positions past the cache depth are dropped, as the reference's
         # out-of-bounds scatter drops them
         q, k, v = _project_qkv(p, cfg, x, positions)
-        pos = cache["len"]                                # (B,)
+        pos = cache["len"].clone()                        # (B,)
         ck, cv = cache["k"], cache["v"]
-        b_idx = torch.arange(b, device=x.device)[:, None].expand(b, sq)
-        s_idx = (pos[:, None].to(torch.int64)
-                 + torch.arange(sq, device=x.device)[None])
-        keep = s_idx < ck.shape[1]
-        ck[b_idx[keep], s_idx[keep]] = k[keep].to(ck.dtype)
-        cv[b_idx[keep], s_idx[keep]] = v[keep].to(cv.dtype)
-        new_len = cache["len"] + sq
+        dense_append(ck, k, pos)
+        dense_append(cv, v, pos)
+        new_len = cache["len"].add_(sq)
         out = _chunked_sdpa(q, ck, cv, cfg, kv_len=new_len, q_offset=pos)
-        new_cache = {"k": ck, "v": cv, "len": new_len}
+        new_cache = cache
     y = crossbar_linear(
         out, p["wo"], "wo",
         digital=lambda: torch.einsum("bshk,hkd->bsd", out,
                                      p["wo"].to(x.dtype)))
     return y, new_cache
+
+
+def dense_append(c: torch.Tensor, x: torch.Tensor, pos: torch.Tensor
+                 ) -> None:
+    """Write window ``x`` (B, sq, ...) into the dense cache ``c`` (B,
+    S_max, ...) at row b's positions ``pos[b] + j``, in place; positions
+    at or past ``S_max`` are dropped.  Every shape is fixed by the window
+    (no mask indexing, no host sync): a dropped position is routed to
+    ``S_max - 1`` and carries the value that slot ends with (the window's
+    own entry for it, else the slot's old value), so every write to it is
+    the same write."""
+    b, sq = x.shape[:2]
+    depth = c.shape[1]
+    dev = x.device
+    rows = torch.arange(b, device=dev)
+    s_idx = pos[:, None].to(torch.int64) + torch.arange(sq, device=dev)[None]
+    keep = s_idx < depth                                  # (B, sq)
+    # the window position that lands on the last slot, if any
+    j_last = depth - 1 - pos.to(torch.int64)              # (B,)
+    hit = (j_last >= 0) & (j_last < sq)
+    last = torch.where(hit.reshape(b, *[1] * (x.dim() - 2)),
+                       x[rows, j_last.clamp(0, sq - 1)].to(c.dtype),
+                       c[:, depth - 1])
+    val = torch.where(keep.reshape(b, sq, *[1] * (x.dim() - 2)),
+                      x.to(c.dtype), last[:, None])
+    c[rows[:, None].expand(b, sq), s_idx.clamp(max=depth - 1)] = val
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,

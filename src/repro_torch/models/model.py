@@ -162,12 +162,18 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
 
     def _on_crossbar(fn):
         """Inference entry points read the resident tiles; programming
-        happens on the first call (or via executor.program_params)."""
+        happens on the first call (or via executor.program_params).
+        Inside the executor's own ``activate()`` region the caller has
+        programmed and checked the tree already (the scheduler's window
+        step, whose CUDA graph must hold no host work), so the call goes
+        straight to the tiles."""
         if executor is None:
             return torch.no_grad()(fn)
 
         @torch.no_grad()
         def wrapped(params, *args, **kwargs):
+            if xbar.active() is executor:
+                return fn(params, *args, **kwargs)
             executor.ensure_programmed(params)
             with executor.activate():
                 return fn(params, *args, **kwargs)

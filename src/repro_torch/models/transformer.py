@@ -80,9 +80,8 @@ def stack_apply(stacked_p, cfg: BlockConfig, x, positions, caches=None):
     ``<scope>.<layer>.<module>.<weight>``).
 
     caches: stacked per-layer caches (dict of (L, ...) tensors) or None.
-    Each layer updates its K/V pages in place through views of the
-    stacked pools, and its new fill marker is written back into
-    ``caches["len"]``; the returned caches are the same dict.
+    Each layer updates its K/V pages and its fill marker in place through
+    views of the stacked tensors; the returned caches are the same dict.
     Returns (x, caches).
     """
     n_layers = stacked_p["ln1"].shape[0]
@@ -91,11 +90,7 @@ def stack_apply(stacked_p, cfg: BlockConfig, x, positions, caches=None):
         cache_l = ({k: c[layer] for k, c in caches.items()}
                    if caches is not None else None)
         with xbar.scope(layer):   # names this layer's resident tiles
-            x, new_cache = block(p_l, cfg, x, positions, cache=cache_l)
-        if caches is not None:
-            for key, nc in new_cache.items():
-                if nc is not cache_l[key]:
-                    caches[key][layer] = nc.to(caches[key].dtype)
+            x, _ = block(p_l, cfg, x, positions, cache=cache_l)
     return x, caches
 
 

@@ -7,8 +7,16 @@ join the running batch as prefill *chunks* — rows mid prompt consume
 ``chunk`` tokens per step, decoding rows consume one — so admission
 never stalls an in-flight decode step.  KV storage is a block-paged pool
 (serve/kv_pool.py): fixed-size pages, per-slot page tables, free-list
-allocation at admission and reclaim at completion.  Each step is one
-eager call; nothing is traced or captured.
+allocation at admission and reclaim at completion.
+
+The window step is the reference's compiled step: on the card it runs
+once eagerly as a warm-up, is captured into one CUDA graph per lane at
+its second call, and is replayed on every later step, over static device
+buffers that the scheduler refills in place (``_WindowStep``).  Each
+capture counts as a trace (``serve_jit_traces_total{closure="decode"}``),
+as the reference counts its jit traces.  ``capture=False`` runs the same
+body eagerly; it is the CPU's step, and on the card the witness the
+captured step is held against.
 
 This slice serves one tenant, with the executor's per-weight read-mode
 policy (``mode_policy``) and its :meth:`BatchScheduler.mode_report`.
@@ -18,13 +26,16 @@ preemption are later slices of the port and raise
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.executor import flatten_with_path
+from repro_torch.kernels import launch_counts
 from repro_torch.models.model import Model
 from repro_torch.serve.kv_pool import PagedKVPool, default_pool_pages
 
@@ -61,6 +72,127 @@ class Request:
     t_done: Optional[float] = None
 
 
+class _WindowStep:
+    """One lane's window step ``(params, tokens, m, leak) -> token`` over
+    static device buffers: ``tokens`` (width, chunk) int32, ``m`` (width,)
+    int32, ``leak`` 0-d float32 and ``token`` (width,) int32, beside the
+    lane's cache, whose K/V pools, fill markers and page tables keep their
+    storage for the scheduler's life (admission and release write them
+    in place).
+
+    ``tokens`` is the fixed window; ``m`` the per-row valid counts (chunk
+    tokens for a row mid-prompt, 1 for a decoding row, 0 for an empty
+    slot).  The fill marker is pinned to ``old_len + m``, so pad positions
+    past a row's count are never attendable, and the token emitted at row
+    position ``m - 1`` equals an unpadded reference's.  ``leak`` is the
+    write-plane leakage (0.0 in this slice), which the MAC reads from
+    device memory.
+
+    With ``capture`` the first call runs eagerly as the warm-up (kernels
+    built, the allocator warm; its result is used), the second is
+    captured into one CUDA graph in the scheduler's memory pool and
+    replayed for its result, and every later call replays the graph.
+    The capture is the closure's trace (``obs.note_jit_trace``); a host
+    sync or a CUDA call that is no stream operation inside it raises.
+    Without ``capture`` every call runs the same body eagerly, and the
+    closure's first call is its trace.  A new params tree drops the graph
+    and builds the closure anew, whose first trace is no retrace (the
+    reference's fresh counter at a rebuild).
+    """
+
+    def __init__(self, model: Model, cache: Dict[str, Any], width: int,
+                 chunk: int, tenant: str, capture: bool, pool=None):
+        dev = model.device
+        self.model, self.cache, self.tenant = model, cache, tenant
+        self.capture, self.pool = capture, pool
+        self.tokens = torch.zeros((width, chunk), dtype=torch.int32,
+                                  device=dev)
+        self.m = torch.zeros((width,), dtype=torch.int32, device=dev)
+        self.leak = torch.zeros((), dtype=torch.float32, device=dev)
+        self.token = torch.zeros((width,), dtype=torch.int32, device=dev)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._leaves: Optional[Tuple[Any, ...]] = None
+        self._warm = False
+        self._traces = 0                  # traces of the current closure
+        self.stats = {"captures": 0, "replays": 0, "eager_steps": 0}
+        #: kernel launches one replay runs (recorded at the capture)
+        self.launches_per_replay: Dict[str, int] = {}
+
+    def __call__(self, params, tokens: np.ndarray, m: np.ndarray,
+                 leak: torch.Tensor) -> torch.Tensor:
+        leaves = tuple(w for _, w in flatten_with_path(params))
+        if self._leaves is None or len(leaves) != len(self._leaves) or any(
+                a is not b for a, b in zip(leaves, self._leaves)):
+            self._build(params, leaves)
+        self.tokens.copy_(torch.from_numpy(tokens))
+        self.m.copy_(torch.from_numpy(m))
+        self.leak.copy_(leak)
+        if self.graph is not None:
+            self.graph.replay()
+            self.stats["replays"] += 1
+        elif self.capture and self._warm:
+            self._capture(params)
+        else:
+            with self._reading():
+                self._body(params)
+            self.stats["eager_steps"] += 1
+            if self.capture:
+                self._warm = True
+            elif self._traces == 0:
+                self._note_trace()
+        return self.token
+
+    def _build(self, params, leaves) -> None:
+        """A new closure for ``params``: programming is host work, done
+        here and never inside a capture."""
+        ex = self.model.executor
+        if ex is not None:
+            ex.ensure_programmed(params)
+        self.graph, self._warm, self._traces = None, False, 0
+        self._leaves = leaves
+
+    def _note_trace(self) -> None:
+        self._traces += 1
+        obs.note_jit_trace("decode", self.tenant, retrace=self._traces > 1)
+
+    @contextlib.contextmanager
+    def _reading(self):
+        """No autograd, and reads on the resident tiles with this step's
+        leak buffer (the executor's Python state, entered before a
+        capture)."""
+        ex = self.model.executor
+        with torch.no_grad():
+            if ex is None:
+                yield
+            else:
+                with ex.activate(), ex.leak_scope(self.leak):
+                    yield
+
+    def _body(self, params) -> None:
+        fill = self.cache["layers"]["len"]                 # (L, B)
+        old = fill.clone()
+        logits, _ = self.model.decode_step(params, self.tokens, self.cache)
+        fill.copy_(old + self.m[None, :])
+        idx = torch.clamp(self.m - 1, min=0).to(torch.int64)
+        sel = logits[torch.arange(logits.shape[0], device=logits.device),
+                     idx]
+        self.token.copy_(torch.argmax(sel.to(torch.float32), dim=-1))
+
+    def _capture(self, params) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with self._reading(), torch.cuda.graph(graph, pool=self.pool):
+            self._body(params)
+        self.launches_per_replay = {
+            k: n - before.get(k, 0) for k, n in launch_counts().items()
+            if n != before.get(k, 0)}
+        self.graph = graph
+        self.stats["captures"] += 1
+        self._note_trace()
+        graph.replay()             # the capture recorded; this step runs
+        self.stats["replays"] += 1
+
+
 @dataclasses.dataclass
 class _Lane:
     """The tenant's serving state: a fixed slot batch with its cache,
@@ -70,7 +202,7 @@ class _Lane:
     slots: List[Optional[Request]]
     cache: Any
     queue: List[Request]
-    decode: Callable
+    decode: _WindowStep
     pool: Optional[PagedKVPool] = None
     width: int = 0
     # modeled per-token device read cost by mode (crossbar backend)
@@ -90,13 +222,19 @@ class BatchScheduler:
     reference.  ``kv="paged"`` (default) stores K/V in a block-paged
     pool; ``kv="dense"`` keeps a per-slot dense cache — same step, same
     streams.
+
+    ``capture`` (default: on the card, not on the CPU) runs each lane's
+    window step as one CUDA graph, captured once and replayed
+    (``_WindowStep``); ``capture=False`` on the card keeps the eager step
+    as the witness the captured one is held against.
     """
 
     def __init__(self, model: Model, params, n_slots: int, max_len: int,
                  tenants: Optional[Dict[str, Any]] = None,
                  mode_policy=None, telemetry: bool = True,
                  kv: str = "paged", page_size: int = 8, chunk: int = 4,
-                 prefix_share: bool = False, preemption: bool = False):
+                 prefix_share: bool = False, preemption: bool = False,
+                 capture: Optional[bool] = None):
         if tenants is not None and set(tenants) != {TENANT}:
             raise _later("multi-tenant multiplexing (tenants=...)")
         if prefix_share:
@@ -115,10 +253,19 @@ class BatchScheduler:
                 "mode_policy selects per-weight crossbar read modes; it "
                 "requires the crossbar backend "
                 "(ModelConfig(backend='crossbar'))")
+        if capture is None:
+            capture = model.device.type == "cuda"
+        if capture and model.device.type != "cuda":
+            raise ValueError("capture=True records the window step as a "
+                             "CUDA graph; it needs the model on the card")
         if tenants is not None:
             params = tenants[TENANT]
         self.model = model
         self.device = model.device
+        self.capture = bool(capture)
+        # one memory pool for every lane's graph
+        self._graph_pool = (torch.cuda.graph_pool_handle() if capture
+                            else None)
         self.n_slots, self.max_len = n_slots, max_len
         self.kv, self.page_size, self.chunk = kv, page_size, int(chunk)
         self.pages_per_seq = (max_len // page_size if kv == "paged"
@@ -196,44 +343,13 @@ class BatchScheduler:
                                                 self.page_size)
         else:
             cache = self.model.init_cache(n, self.max_len)
+        step = _WindowStep(self.model, cache, n, self.chunk, TENANT,
+                           self.capture, self._graph_pool)
         return _Lane(tenant=TENANT, params=params, slots=[None] * n,
-                     cache=cache, queue=[], decode=self._make_decode(),
+                     cache=cache, queue=[], decode=step,
                      pool=pool, width=n,
                      device_cost=(ex.device_token_cost(TENANT)
                                   if ex is not None else None))
-
-    def _make_decode(self) -> Callable:
-        """The window step ``(params, tokens, cache, m, leak) -> (token,
-        cache)``.
-
-        ``tokens`` is the fixed (width, chunk) window; ``m`` the per-row
-        valid counts (chunk tokens for a row mid-prompt, 1 for a decoding
-        row, 0 for an empty slot).  The cache fill marker is pinned to
-        ``old_len + m``, so pad positions past a row's count are never
-        attendable, and the token emitted at row position ``m - 1`` equals
-        an unpadded reference's.  ``leak`` is the write-plane leakage as a
-        device scalar (0.0 in this slice), read by the kernel from device
-        memory."""
-        model = self.model
-        ex = model.executor
-
-        @torch.no_grad()
-        def window(params, tokens, cache, m, leak):
-            old = cache["layers"]["len"].clone()            # (L, B)
-            if ex is None:
-                logits, cache = model.decode_step(params, tokens, cache)
-            else:
-                with ex.leak_scope(leak):
-                    logits, cache = model.decode_step(params, tokens, cache)
-            layers = dict(cache["layers"])
-            layers["len"] = (old + m[None, :]).to(old.dtype)
-            idx = torch.clamp(m - 1, min=0).to(torch.int64)
-            sel = logits[torch.arange(logits.shape[0],
-                                      device=logits.device), idx]
-            tok = torch.argmax(sel.to(torch.float32), dim=-1)
-            return tok.to(torch.int32), dict(cache, layers=layers)
-
-        return window
 
     def submit(self, req: Request):
         if req.model_id != TENANT:
@@ -263,8 +379,7 @@ class BatchScheduler:
     def _leak_now(self) -> torch.Tensor:
         ex = self.model.executor
         return (ex.current_leak_codes() if ex is not None
-                else torch.zeros((), dtype=torch.float32,
-                                 device=self.device))
+                else self._lane.decode.leak)
 
     def _admit(self, lane: _Lane) -> None:
         """Move queued requests into free slots: a slot index, a
@@ -348,9 +463,7 @@ class BatchScheduler:
                 m[i] = 1
                 emit[i] = "decode"
         t0 = self.tracer.now()
-        tok, lane.cache = lane.decode(
-            lane.params, torch.from_numpy(toks).to(self.device), lane.cache,
-            torch.from_numpy(m).to(self.device), self._leak_now())
+        tok = lane.decode(lane.params, toks, m, self._leak_now())
         tok_host = tok.cpu().numpy()
         n_admit = n_dec = 0
         for i, req in enumerate(lane.slots):
@@ -384,6 +497,15 @@ class BatchScheduler:
             for _ in range(n_admit + n_dec):
                 h.observe(dt, tenant=lane.tenant)
         return finished
+
+    def capture_report(self) -> Dict[str, Dict[str, Any]]:
+        """Per lane: whether its window step captures, its captures,
+        replays and eager steps, and the kernel launches one replay runs
+        (so a serve ran ``launches_per_replay x replays`` launches from
+        its graphs beside those the wrappers counted eagerly)."""
+        d = self._lane.decode
+        return {TENANT: {"capture": d.capture, **d.stats,
+                         "launches_per_replay": dict(d.launches_per_replay)}}
 
     def kv_report(self) -> Dict[str, Dict[str, Any]]:
         """Page-pool accounting (paged lane only), including the

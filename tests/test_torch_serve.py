@@ -8,6 +8,12 @@ run their plain versions), paged or dense, and through the streamed
 attention lane.  A divergence would be a fault unless shown to be a
 logit near-tie.
 
+The window step runs over static buffers (the protocol the card's CUDA
+graph replays; on the CPU it runs eagerly, ``capture=False``): it counts
+one trace per built closure, none per prompt mix, and a new one after a
+new params tree.  Its dense K/V append has fixed shapes and equals the
+boolean-mask append it replaced.
+
 At bfloat16 (docs/PORT.md): the prefill logits within
 ``BF16_LOGIT_BOUND`` of the reference's run eagerly, each serve step's
 logits within ``BF16_JIT_LOGIT_BOUND`` of the reference's jitted step
@@ -32,6 +38,7 @@ from repro.models import layers as jax_layers  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
 from repro.serve.engine import BatchScheduler as JaxScheduler  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_path_calls  # noqa: E402
@@ -58,11 +65,12 @@ def _prompts():
             for n in PROMPT_LENS]
 
 
-def _serve(sched, make_request):
-    for i, p in enumerate(_prompts()):
+def _serve(sched, make_request, prompts=None):
+    prompts = _prompts() if prompts is None else prompts
+    for i, p in enumerate(prompts):
         sched.submit(make_request(rid=i, prompt=p, max_new=MAX_NEW))
     done, steps = [], 0
-    while len(done) < len(PROMPT_LENS) and steps < 100:
+    while len(done) < len(prompts) and steps < 100:
         done += sched.step()
         steps += 1
     return {r.rid: list(r.out) for r in done}
@@ -276,3 +284,97 @@ def test_copy_paged_page_matches_reference():
     out = port_layers.paged_copy_page(port, 2, 5)
     for k in ("k", "v"):
         assert np.array_equal(out[k].numpy(), np.asarray(ref[k]))
+
+
+def _traces():
+    reg = obs.registry()
+    return (reg.total("serve_jit_traces_total", closure="decode"),
+            reg.total("serve_jit_retraces_total", closure="decode"))
+
+
+@pytest.mark.parametrize("kv", ["paged", "dense"])
+def test_static_buffer_step_traces_once_and_equals_the_reference(
+        reference, kv):
+    params = params_from_numpy(reference["params"], "cpu")
+    sched = BatchScheduler(_port_model(), params, n_slots=2, max_len=32,
+                           kv=kv, capture=False)
+    cache = sched._lane.cache["layers"]
+    storage = {k: t.data_ptr() for k, t in cache.items()}
+    before = _traces()
+    assert _serve(sched, Request) == reference["streams"]
+    # a second prompt mix: other lengths, the same compiled window
+    rng = np.random.default_rng(7)
+    mix = [rng.integers(0, 383, n).astype(np.int32) for n in (9, 2, 14, 6)]
+    assert len(_serve(sched, Request, mix)) == len(mix)
+    traces, retraces = _traces()
+    assert (traces - before[0], retraces - before[1]) == (1, 0)
+    assert sched.capture_report()["A"] == {
+        "capture": False, "captures": 0, "replays": 0,
+        "eager_steps": sched._lane.decode.stats["eager_steps"],
+        "launches_per_replay": {}}
+    # the cache is the step's static storage: written in place, never
+    # replaced
+    assert sched._lane.cache["layers"] is cache
+    assert {k: t.data_ptr() for k, t in cache.items()} == storage
+
+
+def test_new_params_tree_builds_a_new_closure(reference):
+    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True),
+                              dtype=torch.float32)
+    params = params_from_numpy(reference["params"], "cpu")
+    sched = BatchScheduler(build_model(cfg, device="cpu"), params,
+                           n_slots=2, max_len=32)
+    before = _traces()
+    first = _serve(sched, Request)
+    # the same values in new tensors: a new tree, so a new closure
+    sched._lane.params = params_from_numpy(reference["params"], "cpu")
+    assert _serve(sched, Request) == first
+    traces, retraces = _traces()
+    assert (traces - before[0], retraces - before[1]) == (2, 0)
+    # on the crossbar backend a new tree would re-program the tiles:
+    # refused until hot-swap lands
+    xsched = BatchScheduler(_port_model(), params, n_slots=2, max_len=32)
+    xsched._lane.params = params_from_numpy(reference["params"], "cpu")
+    xsched.submit(Request(rid=0, prompt=_prompts()[0], max_new=1))
+    with pytest.raises(RuntimeError, match="different params tree"):
+        xsched.step()
+
+
+def test_capture_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA graph"):
+        BatchScheduler(_port_model(), None, n_slots=2, max_len=32,
+                       capture=True)
+
+
+def _mask_append(c, x, pos):
+    """The boolean-mask append the fixed-shape one replaced."""
+    b, sq = x.shape[:2]
+    b_idx = torch.arange(b)[:, None].expand(b, sq)
+    s_idx = pos[:, None].to(torch.int64) + torch.arange(sq)[None]
+    keep = s_idx < c.shape[1]
+    c[b_idx[keep], s_idx[keep]] = x[keep].to(c.dtype)
+
+
+@pytest.mark.parametrize("depth,sq", [(8, 4), (8, 1), (5, 7)])
+def test_dense_append_equals_the_mask_append(depth, sq):
+    rng = np.random.default_rng(depth * 10 + sq)
+    # fill positions: inside, ending on the last slot, running past the
+    # depth, starting on the last slot, starting past it
+    pos = torch.tensor([0, depth - sq, depth - 2, depth - 1, depth,
+                        depth + 3], dtype=torch.int32).clamp(min=0)
+    b = pos.shape[0]
+    cache = torch.from_numpy(
+        rng.standard_normal((b, depth, 2, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((b, sq, 2, 8))
+                         .astype(np.float32))
+    want = cache.clone()
+    _mask_append(want, x, pos)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = cache.to(dtype)
+        port_layers.dense_append(got, x, pos)
+        ref = cache.to(dtype)
+        _mask_append(ref, x, pos)
+        assert torch.equal(got, ref)
+    got = cache.clone()
+    port_layers.dense_append(got, x, pos)
+    assert torch.equal(got, want)
