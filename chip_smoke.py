@@ -28,9 +28,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              on the crossbar-MAC kernel) and against the popcount kernel
              (its independent integer witness), float32 and bfloat16
              weights, both kernels timed (call and device ms); the
-             Jacobi kernel is driven through ``ir_solve.solve`` and held
-             against the dense nodal solve, and timed (call and device
-             ms);
+             Jacobi kernel is held bitwise against its plain version at
+             10, 64, 128, 256 and 512 squared, traced (one device kernel
+             per call), timed (call and device ms, device µs per sweep),
+             and driven through ``ir_solve.solve`` at 12 x 8, bitwise
+             against the plain solve and against the dense nodal solve;
 3. parity  — full-width qwen3-4b, 2 layers, float32, crossbar backend:
              greedy streams with the plain versions and with the CUDA
              kernels, the window step captured in a CUDA graph (the
@@ -583,12 +585,42 @@ def phase_deepnet_stream(torch, dev, flush):
     return {"rows": rows, "launches": launches, "max_abs_err": max_abs}
 
 
-def phase_ir_solve(torch, dev, flush):
+def _jacobi_trace(torch, fn, reps, out_dir):
+    """The device kernels' names and the memsets of ``reps`` calls of
+    ``fn`` in a ``torch.profiler`` trace of the card; a trace that lost
+    device records is taken again, at most ``TRACE_ATTEMPTS`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = _device_events(torch, prof, out_dir)
+        kernels = [e["name"] for e in evs
+                   if str(e.get("cat", "")).lower() == "kernel"]
+        memsets = sum("memset" in str(e.get("cat", "")).lower()
+                      for e in evs)
+        if len(kernels) >= reps:
+            break
+        log(f"    the trace lost device records ({len(kernels)} kernels in "
+            f"{reps} calls); tracing again")
+    return kernels, memsets
+
+
+def phase_ir_solve(torch, dev, flush, out_dir):
     """``jacobi_sweeps`` against ``jacobi_sweep_ref`` at 10 x 10 (the
-    paper's array), 128 x 128 (the engine tile) and 512 x 512, 16 sweeps
-    (rtol 1e-5 / atol 1e-7); then ``ir_solve.solve`` (the entry point,
-    its launches counted over that run alone) against the dense nodal
-    solve at 12 x 8, within 2e-3."""
+    paper's array, one band), 64 x 64 (16 bands), 128 x 128 (the engine
+    tile), 256 x 256 and 512 x 512 (the reference's largest tile), 16
+    sweeps, BITWISE (max error 0); a profiler trace of 5 calls must hold 5
+    device kernels, all the Jacobi kernel (a plan of more than one band
+    adds one memset of its halo buffer a call); each timed (call ms,
+    device ms, device µs per sweep).  Then ``ir_solve.solve`` (the entry
+    point, its launches counted over that run alone) at 12 x 8, one band:
+    bitwise against ``ir_drop.jacobi_planar`` (the plain sweep as many
+    times) and within 2e-3 of the dense nodal solve."""
     from repro_torch.core import ir_drop
     from repro_torch.core.timing import PAPER
     from repro_torch.kernels.ir_solve import kernel, ops
@@ -596,9 +628,9 @@ def phase_ir_solve(torch, dev, flush):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    g_w, sweeps = 1.0 / PAPER.r_wire, 16
+    g_w, sweeps, traced = 1.0 / PAPER.r_wire, 16, 5
     rows = []
-    for n in (10, 128, 512):
+    for n in (10, 64, 128, 256, 512):
         g = (PAPER.g_reset + (PAPER.g_set - PAPER.g_reset)
              * torch.rand((n, n), generator=gen, device=dev))
         v_in = PAPER.v_read * torch.rand((n,), generator=gen, device=dev)
@@ -616,42 +648,62 @@ def phase_ir_solve(torch, dev, flush):
                 r, c = jacobi_sweep_ref(r, c, g, v_in, g_w, 1.0)
             return r, c
 
-        kr, kc = run()
         pr, pc = plain()
+        plan = kernel.band_plan(n, n)
+        kr, kc = run()
         torch.cuda.synchronize()
         err = max((kr - pr).abs().max().item(), (kc - pc).abs().max().item())
-        ok = (torch.allclose(kr, pr, rtol=1e-5, atol=1e-7)
-              and torch.allclose(kc, pc, rtol=1e-5, atol=1e-7))
-        check(ok, f"jacobi_sweeps {n}x{n}: max|err| {err:.3e} outside "
-              f"rtol 1e-5 / atol 1e-7")
+        check(torch.equal(kr, pr) and torch.equal(kc, pc),
+              f"jacobi_sweeps {n}x{n}: max|err| {err:.3e}, not bitwise")
+        names, memsets = _jacobi_trace(torch, run, traced, out_dir)
+        check(len(names) == traced
+              and all("jacobi_band_kernel" in k for k in names),
+              f"jacobi_sweeps {n}x{n}: {traced} calls ran {len(names)} "
+              f"device kernels: {sorted(set(names))}")
+        dms, _ = device_ms(torch, run, 20, flush)
         nodes = n * n
         nbytes = (3 * nodes + n) * 4 + 2 * nodes * 4
         flops = (18 * sweeps + 4) * nodes
         bnd, by = bound(nbytes, flops, "fp32")
-        dms, _ = device_ms(torch, run, 20, flush)
-        row = {"n": n, "m": n, "sweeps": sweeps, "max_abs_err": err,
-               "bitwise": err == 0.0, "ms": timed(torch, run, 20, flush),
-               "device_ms": dms, "plain_ms": timed(torch, plain, 5, flush),
+        row = {"n": n, "m": n, "sweeps": sweeps, "bands": plan.bands,
+               "threads": plan.threads, "per_thread": plan.per_thread,
+               "smem_bytes": plan.smem_bytes, "max_abs_err": err,
+               "bitwise": True, "kernels_per_call": len(names) / traced,
+               "memsets_per_call": memsets / traced,
+               "ms": timed(torch, run, 20, flush), "device_ms": dms,
+               "us_per_sweep": dms * 1e3 / sweeps,
+               "plain_ms": timed(torch, plain, 5, flush),
                "bound_ms": bnd, "bound_by": by, "library_ms": None}
         rows.append(row)
-        log(f"  jacobi_sweeps {n:3d}x{n:<3d} {sweeps} sweeps: max|err| "
-            f"{err:.3e}; kernel {row['ms']:.4f} ms, device {dms:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
+        log(f"  jacobi_sweeps {n:3d}x{n:<3d} {sweeps} sweeps, {plan.bands} "
+            f"bands ({plan.threads} threads x {plan.per_thread}): bitwise; 1 "
+            f"kernel per call ({row['memsets_per_call']:g} memsets); call "
+            f"{row['ms']:.4f} ms, device {dms:.4f} ms, "
+            f"{row['us_per_sweep']:.3f} us per sweep; plain "
+            f"{row['plain_ms']:.4f} ms, bound {bnd:.5f} ms ({by})")
 
     g = torch.full((12, 8), PAPER.g_set, device=dev)
     v = torch.full((12,), PAPER.v_write, device=dev)
     kernel.LAUNCHES["jacobi_sweeps"] = 0
-    i_k, _, _ = ops.solve(g, v, n_iter=3000)
+    i_k, r_k, c_k = ops.solve(g, v, n_iter=3000)
     torch.cuda.synchronize()
     launches = kernel.LAUNCHES["jacobi_sweeps"]
+    # the same 187 x 16 sweeps, each the plain sweep
+    i_p, r_p, c_p = ir_drop.jacobi_planar(g, v, n_iter=launches * 16)
     i_d, _, _ = ir_drop.solve_planar(g, v)
     rel = ((i_k - i_d).abs() / i_d).max().item()
     check(launches == 3000 // 16, f"solve launched jacobi_sweeps "
           f"{launches} times")
+    check(torch.equal(i_k, i_p) and torch.equal(r_k, r_p)
+          and torch.equal(c_k, c_p),
+          "ir_solve.solve 12x8 is not bitwise the plain solve "
+          f"(max|err| {(c_k - c_p).abs().max().item():.3e})")
     check(rel < 2e-3, f"ir_solve.solve vs dense solve: rel err {rel:.3e}")
-    log(f"  ir_solve.solve 12x8, 3000 sweeps: {launches} kernel calls; max "
-        f"rel err vs the dense nodal solve {rel:.3e} (< 2e-3)")
-    return {"rows": rows, "launches": launches, "solve_rel_err": rel}
+    log(f"  ir_solve.solve 12x8, 3000 sweeps: {launches} kernel calls; "
+        f"bitwise the plain solve; max rel err vs the dense nodal solve "
+        f"{rel:.3e} (< 2e-3)")
+    return {"rows": rows, "launches": launches, "solve_rel_err": rel,
+            "solve_bitwise": True}
 
 
 # -- phase 3: token parity with and without the kernels -------------------------
@@ -1159,7 +1211,7 @@ def main() -> int:
         report["crossbar_mac"] = mac_rows
         report["paged_attention"] = pa
         report["deepnet_stream"] = phase_deepnet_stream(torch, dev, flush)
-        report["ir_solve"] = phase_ir_solve(torch, dev, flush)
+        report["ir_solve"] = phase_ir_solve(torch, dev, flush, out_dir)
         del flush
         torch.cuda.empty_cache()
 
@@ -1329,7 +1381,8 @@ def main() -> int:
         "popcount_device_ms": ds_head["popcount_device_ms"],
         "popcount_bf16_ms": ds_head["popcount_ms_bf16"],
         "popcount_bf16_device_ms": ds_head["popcount_device_ms_bf16"]})
-    tile = next(r for r in report["ir_solve"]["rows"] if r["n"] == 128)
+    ir_rows = {r["n"]: r for r in report["ir_solve"]["rows"]}
+    tile = ir_rows[128]
     kernels.append({
         "name": "jacobi_sweeps", "route": "cuda",
         "source": "src/repro_torch/csrc/ir_solve.cu",
@@ -1340,7 +1393,10 @@ def main() -> int:
         "ms": tile["ms"], "device_ms": tile["device_ms"],
         "plain_ms": tile["plain_ms"],
         "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
-        "library_ms": None, "shape": "128x128, 16 sweeps"})
+        "library_ms": None, "shape": "128x128, 16 sweeps",
+        "us_per_sweep": tile["us_per_sweep"],
+        **{f"device_ms_{n}x{n}": ir_rows[n]["device_ms"]
+           for n in (10, 64, 256, 512)}})
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"chip_smoke: all phases passed in {report['seconds']:.1f} s")

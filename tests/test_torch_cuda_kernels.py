@@ -20,9 +20,11 @@ Contracts:
   MAC), and BITWISE equal both to the popcount kernel (an independent
   integer MAC) and to ``engine.program`` + the crossbar-MAC kernel (the
   same integer codes and the same final conversion);
-* Jacobi sweeps: rtol 1e-5 / atol 1e-7 against the plain sweep (the
-  kernel repeats its float32 operations in order, without FMA
-  contraction); the full solve within 2e-3 of the dense nodal solve.
+* Jacobi sweeps: BITWISE equal to the plain sweep (the kernel repeats
+  its float32 operations in order with explicitly rounded intrinsics,
+  without FMA contraction), with one band and with many; one call is
+  one device kernel; the full solve is bitwise ``jacobi_planar`` (the
+  plain sweep, as many times) and within 2e-3 of the dense nodal solve.
 """
 import dataclasses
 
@@ -476,19 +478,31 @@ def test_stream_linear_equals_the_programmed_read(cuda, mode):
                        engine.linear(x, w.bfloat16().float(), cfg))
 
 
-@pytest.mark.parametrize("n,m,sweeps,omega", [
-    (10, 10, 1, 1.0), (10, 10, 16, 1.0), (37, 53, 5, 0.8),
-    (128, 128, 16, 1.0), (512, 512, 4, 1.0)])
-def test_jacobi_sweeps_match_plain(cuda, n, m, sweeps, omega):
+# one band (2 x 2, 10 x 10, 12 x 8: ops.solve's shape) and many (the rest,
+# a band remainder at 130 x 128)
+JACOBI_SHAPES = [(2, 2), (10, 10), (12, 8), (37, 53), (128, 128),
+                 (130, 128), (3, 700), (700, 3), (256, 256), (512, 512)]
+
+
+def _jacobi_case(cuda, n, m):
     rng = np.random.default_rng(n * m)
     g = torch.from_numpy(rng.uniform(PAPER.g_reset, PAPER.g_set, (n, m))
                          .astype(np.float32)).to(cuda)
     v_in = torch.from_numpy(rng.uniform(0, PAPER.v_read, (n,)).astype(
         np.float32)).to(cuda)
-    g_w = 1.0 / PAPER.r_wire
     vr = v_in[:, None].expand(n, m).contiguous()
     vc = torch.from_numpy(rng.uniform(0, 0.01, (n, m)).astype(
         np.float32)).to(cuda)
+    return g, v_in, vr, vc
+
+
+@pytest.mark.parametrize("sweeps,omega", [(1, 1.0), (16, 1.0), (17, 1.0),
+                                          (16, 0.8), (17, 0.8)])
+@pytest.mark.parametrize("n,m", JACOBI_SHAPES)
+def test_jacobi_sweeps_match_plain(cuda, n, m, sweeps, omega):
+    """Bitwise against the plain sweep."""
+    g, v_in, vr, vc = _jacobi_case(cuda, n, m)
+    g_w = 1.0 / PAPER.r_wire
     before = ir.LAUNCHES["jacobi_sweeps"]
     kr, kc = ir.jacobi_sweeps(g, v_in[:, None].contiguous(), vr, vc,
                               g_w=g_w, omega=omega, sweeps=sweeps)
@@ -497,13 +511,60 @@ def test_jacobi_sweeps_match_plain(cuda, n, m, sweeps, omega):
     rr, rc = vr, vc
     for _ in range(sweeps):
         rr, rc = jacobi_sweep_ref(rr, rc, g, v_in, g_w, omega)
-    assert torch.allclose(kr, rr, rtol=1e-5, atol=1e-7)
-    assert torch.allclose(kc, rc, rtol=1e-5, atol=1e-7)
+    assert torch.equal(kr, rr)
+    assert torch.equal(kc, rc)
+
+
+@pytest.mark.parametrize("n", [10, 64, 512])
+def test_jacobi_sweeps_one_kernel_per_call_and_deterministic(cuda, n,
+                                                             tmp_path):
+    """One call is one device kernel (10: one band, a plain launch; 64 and
+    512: 16 and 128 bands, a cooperative launch after the memset of its
+    halo buffer); two calls give identical results."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    g, v_in, vr, vc = _jacobi_case(cuda, n, n)
+    vin_col = v_in[:, None].contiguous()
+
+    def run():
+        return ir.jacobi_sweeps(g, vin_col, vr, vc, g_w=1.0 / PAPER.r_wire,
+                                sweeps=16)
+
+    first = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = run()
+        torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("ph") == "X"
+               and str(e.get("cat", "")).lower() == "kernel"]
+    assert len(kernels) == 1 and "jacobi_band_kernel" in kernels[0], kernels
+    assert ir.band_plan(n, n).cooperative == (n > 10)
+
+
+def test_jacobi_sweeps_past_capacity_raise_before_a_launch(cuda):
+    n, m = 2, 20_000             # one row a band, more nodes than a CTA holds
+    g = torch.full((n, m), PAPER.g_set, device=cuda)
+    before = ir.LAUNCHES["jacobi_sweeps"]
+    with pytest.raises(ValueError, match="132 co-resident bands"):
+        ir.jacobi_sweeps(g, torch.zeros((n, 1), device=cuda), g,
+                         torch.zeros_like(g), g_w=1.0, sweeps=4)
+    assert ir.LAUNCHES["jacobi_sweeps"] == before
 
 
 def test_ir_solve_matches_dense_nodal_solve(cuda):
     g = torch.full((12, 8), PAPER.g_set, device=cuda)
     v = torch.full((12,), PAPER.v_write, device=cuda)
-    i_k, _, _ = ir_ops.solve(g, v, n_iter=3000)
+    i_k, r_k, c_k = ir_ops.solve(g, v, n_iter=3000)
+    # the kernel's 187 calls of 16 sweeps are the plain sweep 2,992 times
+    i_p, r_p, c_p = ir_drop.jacobi_planar(g, v, n_iter=3000 // 16 * 16)
+    assert torch.equal(r_k, r_p) and torch.equal(c_k, c_p)
+    assert torch.equal(i_k, i_p)
     i_d, _, _ = ir_drop.solve_planar(g, v)
     assert float(((i_k - i_d).abs() / i_d).max()) < 2e-3

@@ -8,7 +8,10 @@ reference test's own bound, for float32 sweeps evaluated in another
 order.  ``ops.solve`` is the same sweep as ``ir_drop.jacobi_planar``
 (bitwise on the CPU) and converges to the dense nodal solve within
 2e-3.  The CUDA kernel is held against the plain version on the card
-(test_torch_cuda_kernels.py).
+(test_torch_cuda_kernels.py); its launch plan, ``band_plan``, is pure
+Python and is held here to the card's limits: every row in one band, at
+most 132 bands, 232,448 bytes of shared memory a band, a cooperative
+launch exactly when the plan has more than one band.
 """
 import numpy as np
 import pytest
@@ -77,3 +80,49 @@ def test_solve_is_jacobi_planar_and_converges():
     i_k, _, _ = tops.solve(g, v, n_iter=3000)
     i_d, _, _ = tird.solve_planar(g, v)
     assert float(((i_k - i_d).abs() / i_d).max()) < 2e-3
+
+
+PLAN_SHAPES = [(2, 2), (2, 3), (3, 2), (10, 10), (12, 8), (37, 53),
+               (64, 64), (128, 128), (130, 128), (3, 700), (700, 3),
+               (255, 257), (256, 256), (511, 512), (512, 512), (2, 4000),
+               (2, 8000), (17, 8000), (1000, 1000)]
+
+
+def _bands(n, plan):
+    # band b holds rows [b n // P, (b + 1) n // P) (csrc/ir_solve.cu)
+    return [(b * n // plan.bands, (b + 1) * n // plan.bands)
+            for b in range(plan.bands)]
+
+
+@pytest.mark.parametrize("n,m", PLAN_SHAPES)
+def test_band_plan_fits_the_card(n, m):
+    plan = tkernel.band_plan(n, m)
+    rows = [i for lo, hi in _bands(n, plan) for i in range(lo, hi)]
+    assert rows == list(range(n))                  # each row in one band
+    assert max(hi - lo for lo, hi in _bands(n, plan)) == plan.rows
+    assert 1 <= plan.bands <= 132
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes == tkernel.band_smem_bytes(plan.rows, m)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.per_thread in (1, 2, 4, 8)
+    assert plan.threads * plan.per_thread >= plan.rows * m
+    assert plan.cooperative == (plan.bands > 1)
+
+
+@pytest.mark.parametrize("n,m", [(2, 20_000), (2, 8193), (16, 16_000),
+                                 (4000, 4000), (1500, 1400)])
+def test_band_plan_past_capacity_raises(n, m):
+    with pytest.raises(ValueError, match="132 co-resident bands"):
+        tkernel.band_plan(n, m)
+
+
+def test_band_plan_picks_the_bands_by_size():
+    assert tkernel.band_plan(10, 10).bands == 1
+    assert not tkernel.band_plan(12, 8).cooperative   # ops.solve's shape
+    assert tkernel.band_plan(64, 64).bands == 16
+    assert tkernel.band_plan(128, 128) == tkernel.BandPlan(
+        64, 2, 256, 1, 4 * (2 * 130 + 4 * 128))
+    assert tkernel.band_plan(256, 256).bands == 128
+    assert tkernel.band_plan(512, 512).bands == 128
+    with pytest.raises(ValueError):
+        tkernel.band_plan(1, 8)
