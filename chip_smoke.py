@@ -47,7 +47,18 @@ Phases, each of which fails the run (exit code 1, no result line):
              read as expansion-fused pairs, 256 rows per ADC), then two
              4-layer serves through the streamed attention lane (the
              second with 1024-token prompts in a 2048-token window), each
-             captured and eager with identical streams; last the 36-layer
+             captured and eager with identical streams; then the hot-swap
+             serves at full width and 16 layers (``SWAP_ARGV``): without
+             a swap, with ``--hot-swap ft:0.02`` captured and eager
+             (identical streams), with ``--hot-swap init`` captured (the
+             no-swap streams), each swap at version 2 with one
+             overlapped ``swap_history`` entry, every request served,
+             two closures traced and none retraced, two captures (the
+             flip drops the graph), at least 3 decode steps inside the
+             window and 2 replays after the flip (the window's steps,
+             wall seconds, step ms against the replays before and after
+             it, and peak memory logged), and one timed
+             ``stop_the_world_swap`` on a 16-layer scheduler; last the 36-layer
              serve on one programmed model: eager (its step time, streams
              equal to the captured serve's), then captured and eager with
              steps 4 on in a ``torch.profiler`` trace of the card (step
@@ -70,6 +81,7 @@ a directory without the repository beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import statistics
@@ -821,27 +833,29 @@ def _read_counts():
 
 def _executed(counted, cap):
     """The kernel launches a serve ran: the wrappers count the eager
-    steps' launches and, once, the launches a capture records; each
+    steps' launches and, once, the launches each capture records; every
     replay runs the recorded launches again, so the replays beyond the
-    first add ``launches_per_replay`` each."""
+    one that follows each capture add ``launches_per_replay`` each."""
     lpr = cap["launches_per_replay"]
-    return {k: n + lpr.get(k, 0) * (cap["replays"] - 1)
+    return {k: n + lpr.get(k, 0) * (cap["replays"] - cap["captures"])
             for k, n in counted.items()}
 
 
-def _check_traced_once(cap, capture):
-    """One trace of the lane's window step (its capture; its first call
-    when eager), no retrace, since the counts were last set to 0."""
+def _check_traced_once(cap, capture, closures=1):
+    """One trace of each of the lane's ``closures`` window-step closures
+    (a serve with a hot-swap builds two: before and after the flip) — its
+    capture, or its first call when eager — and no retrace, since the
+    counts were last set to 0."""
     from repro_torch import obs
 
     reg = obs.registry()
     traces = reg.total("serve_jit_traces_total", closure="decode")
     retraces = reg.total("serve_jit_retraces_total", closure="decode")
-    check(traces == 1 and retraces == 0,
+    check(traces == closures and retraces == 0,
           f"window step traced {traces} times, {retraces} retraces "
-          f"(want 1, 0)")
+          f"(want {closures}, 0)")
     want = (capture is not False)
-    check(cap["capture"] == want and cap["captures"] == int(want)
+    check(cap["capture"] == want and cap["captures"] == closures * want
           and (cap["replays"] > 0) == want,
           f"capture report {cap} (capture={capture})")
 
@@ -855,10 +869,13 @@ def _step_stats(step_s):
 
 
 def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
-                capture=None):
+                capture=None, closures=1, run=None):
     """``launch/serve.main(argv)``, its window step captured (the default)
     or eager (``capture=False``); every kernel of ``must_launch`` must have
-    run and no plain version."""
+    run and no plain version.  ``closures``: the window-step closures the
+    serve builds (2 across a hot-swap's flip).  ``run``, if given, serves
+    instead of ``main`` (on a model it holds programmed, so memory is
+    not checked to be free first) and returns what ``main`` returns."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
@@ -867,15 +884,15 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
-    check(held < 1 << 30, f"{held / 2**30:.2f} GiB still allocated before "
-          f"the serve")
+    check(run is not None or held < 1 << 30, f"{held / 2**30:.2f} GiB "
+          f"still allocated before the serve")
     _reset_counts()
-    rep = serve.main(argv, capture=capture)
+    rep = run() if run is not None else serve.main(argv, capture=capture)
     torch.cuda.synchronize()
     counted, plain, by_rows = _read_counts()
     cap = rep["capture"]
     kernels = _executed(counted, cap)
-    _check_traced_once(cap, capture)
+    _check_traced_once(cap, capture, closures)
     peak = torch.cuda.max_memory_allocated(dev)
     toks = [t for r in rep["requests"] for t in r.out]
     stats = _step_stats(rep["step_s"])
@@ -912,7 +929,9 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
             "max_memory_allocated": peak, "memory_before": held,
             "launches": kernels, "launches_counted": counted,
             "launches_by_rows": by_rows,
-            "plain_calls": plain, "mode_report": rep.get("mode_report")}
+            "plain_calls": plain, "mode_report": rep.get("mode_report"),
+            "step_s": rep["step_s"], "swap_phase": rep["swap_phase"],
+            "swap_history": rep["swap_history"], "version": rep["version"]}
 
 
 def _device_events(torch, prof, out_dir):
@@ -1164,6 +1183,187 @@ def check_mode_report(rep):
             cpu["ir_drop_reduction"], "abs_diff": diff}
 
 
+# -- phase 4b: hot-swap at full width ----------------------------------------
+
+#: the hot-swap serves: qwen3-4b at full width, 16 layers (a staged swap
+#: holds two plane sets and two params trees: ~53 GB at 16 layers, more
+#: than the card's 80 GB at 36), 8 requests on 4 slots, 16 new tokens
+SWAP_ARGV = ["--arch", ARCH, "--layers", "16", "--backend", "crossbar",
+             "--use-kernel", "--kv", "paged", "--requests", "8", "--slots",
+             "4", "--prompt-len", "16", "--max-new", "16", "--max-len", "64",
+             "--chunk", "4"]
+SWAP_FLAGS = ["--swap-after", "2", "--swap-chunks", "256"]
+#: the memory a swap at 16 layers was reckoned to peak at (GB)
+SWAP_RECKONED_GB = (55, 65)
+
+
+def _window(sv):
+    """A swap serve's steps split at its window: ms of the replays before
+    it (after the warm-up and the capture), of the window's steps, and of
+    the replays after the flip (after its warm-up and its capture)."""
+    phase, ms = sv["swap_phase"], [t * 1e3 for t in sv["step_s"]]
+    first, flip = phase.index("window"), phase.index("flip")
+    check(phase[first:flip] == ["window"] * (flip - first)
+          and "window" not in phase[flip:],
+          f"the swap window is not one run of steps: {phase}")
+    return {"before_ms": ms[2:first], "window_ms": ms[first:flip],
+            "flip_ms": ms[flip:flip + 2], "after_ms": ms[flip + 2:],
+            "first_window_step": first, "flip_step": flip}
+
+
+def _check_swap(sv, policy="overlapped", version=2):
+    """The deploy ``version`` and one ``swap_history`` entry of
+    ``policy``."""
+    check(sv["version"] == version and len(sv["swap_history"]) == 1
+          and sv["swap_history"][0]["policy"] == policy,
+          f"swap: version {sv['version']} (want {version}), history "
+          f"{[h['policy'] for h in sv['swap_history']]}")
+    return sv["swap_history"][0]
+
+
+@contextlib.contextmanager
+def _swap_host_timers():
+    """Wall seconds a swap spends in the source digests
+    (``planes.fingerprint_weight``, which copies each weight to the host),
+    in the chunk writes less their digests, and in write-verify; the
+    functions are wrapped for the block and restored after it."""
+    from repro_torch.core import planes
+
+    spent = {"digest": 0.0, "chunks": 0.0, "verify": 0.0}
+    cp = planes.ChunkedProgram
+    saved = (planes.fingerprint_weight, cp.write_chunk, cp.verify)
+
+    def timer(key, fn):
+        def wrapped(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrapped
+
+    planes.fingerprint_weight = timer("digest", saved[0])
+    cp.write_chunk = timer("chunks", saved[1])
+    cp.verify = timer("verify", saved[2])
+    try:
+        yield spent
+    finally:
+        planes.fingerprint_weight, cp.write_chunk, cp.verify = saved
+        spent["chunks"] -= spent["digest"]   # first chunks take digests
+
+
+def _drive(st, dev, swap_params=None):
+    """A captured serve of ``st``'s requests on its model, whose weights
+    are resident (``launch/serve.drive``, with a hot-swap of
+    ``swap_params`` as ``SWAP_FLAGS`` set it); returns what
+    ``launch/serve.main`` returns."""
+    from repro_torch.launch import serve
+
+    sched = st.scheduler()
+    after, chunks = (int(SWAP_FLAGS[i]) for i in (1, 3))
+    rep = serve.drive(sched, st.requests(), dev, swap_params=swap_params,
+                      swap_after=after, swap_chunks=chunks)
+    rep.update(program_s=0.0, capture=sched.capture_report()["A"],
+               swap_history=list(sched.swap_history),
+               version=st.model.executor.version())
+    return rep
+
+
+def phase_hotswap(torch, dev):
+    """The 16-layer serve with an ``ft:0.02`` swap through the CLI,
+    captured and eager (equal streams); then on one programmed model the
+    serve without a swap and with an ``init`` swap, captured (equal
+    streams: the graph captured after the flip reads the promoted
+    planes), and one timed ``stop_the_world_swap``."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.hotswap import finetune_delta
+
+    must = ["crossbar_mac", "paged_attention_scratch"]
+    ft = SWAP_ARGV + ["--hot-swap", "ft:0.02"] + SWAP_FLAGS
+    out = {"argv": ft}
+    log(f"  {' '.join(ft)}; captured")
+    cap = out["ft"] = phase_serve(torch, dev, ft, must, closures=2)
+    log("  the same, eager")
+    eager = out["ft_eager"] = phase_serve(torch, dev, ft, must,
+                                          capture=False, closures=2)
+    check(eager["streams"] == cap["streams"],
+          "ft swap: captured and eager streams differ")
+    log("  one programmed model: no swap, then --hot-swap init, captured")
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = serve.setup(SWAP_ARGV)
+    t0 = time.perf_counter()
+    st.model.executor.program_params(st.params)
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+    base = out["no_swap"] = phase_serve(torch, dev, SWAP_ARGV, must,
+                                        run=lambda: _drive(st, dev))
+    ident = out["init"] = phase_serve(
+        torch, dev, SWAP_ARGV, must, closures=2,
+        run=lambda: _drive(st, dev, swap_params=st.params))
+    check(ident["streams"] == base["streams"],
+          "init swap: streams differ from the serve without a swap")
+    for key, sv in (("ft", cap), ("ft_eager", eager), ("init", ident)):
+        h = _check_swap(sv)
+        w = sv["window"] = _window(sv)
+        check(h["decode_steps_during_swap"] >= 3,
+              f"{key}: {h['decode_steps_during_swap']} decode steps in the "
+              f"window (want >= 3)")
+        check(len(w["after_ms"]) >= 2,
+              f"{key}: {len(w['after_ms'])} replays after the flip "
+              f"(want >= 2)")
+        lpr = sv["capture"]["launches_per_replay"].get("crossbar_mac", 0)
+        sv["window_mac_launches"] = (h["decode_steps_during_swap"] * lpr
+                                     if lpr else None)
+        med = {k: statistics.median(w[k]) for k in
+               ("before_ms", "window_ms", "after_ms")}
+        sv["window_median_ms"] = med
+        log(f"  {key}: {h['n_chunks']} chunks in "
+            f"{h['decode_steps_during_swap']} decode steps, window "
+            f"{h['wall_swap_s']:.3f} s wall; step ms median before "
+            f"{med['before_ms']:.2f}, in the window {med['window_ms']:.2f}"
+            f" (max {max(w['window_ms']):.1f}), after "
+            f"{med['after_ms']:.2f} (flip and the next "
+            f"{w['flip_ms'][0]:.1f}, {w['flip_ms'][1]:.1f}); MAC launches "
+            f"in the window {sv['window_mac_launches']} (replays x "
+            f"{lpr}); max_memory_allocated "
+            f"{sv['max_memory_allocated'] / 1e9:.2f} GB (reckoned "
+            f"{SWAP_RECKONED_GB[0]}-{SWAP_RECKONED_GB[1]} GB)")
+    check(cap["window"]["flip_step"] == eager["window"]["flip_step"]
+          and cap["swap_history"][0]["decode_steps_during_swap"]
+          == eager["swap_history"][0]["decode_steps_during_swap"],
+          "captured and eager swaps flipped at different steps")
+    log("  stop_the_world_swap (ft:0.02) on a scheduler of that model")
+    sched = st.scheduler()
+    fp_old = st.model.executor.fingerprint()
+    new = finetune_delta(st.params, 0.02)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with _swap_host_timers() as spent:
+        stats = sched.stop_the_world_swap(new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = _check_swap({"version": stats["programmed_version"],
+                     "swap_history": sched.swap_history}, "stop_the_world",
+                    version=3)
+    check(st.model.executor.fingerprint() != fp_old
+          and not sched.swap_in_flight, "stop-the-world swap did not land")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["stop_the_world"] = {"wall_s": wall, "n_chunks": stats["n_chunks"],
+                             "max_memory_allocated": peak,
+                             "report_wall_s": h["wall_swap_s"],
+                             "host_s": spent}
+    log(f"  stop-the-world: {stats['n_chunks']} chunks in {wall:.3f} s "
+        f"wall (no step served): source digests {spent['digest']:.3f} s, "
+        f"chunk writes {spent['chunks']:.3f} s, write-verify "
+        f"{spent['verify']:.3f} s; programming the model took "
+        f"{out['program_s']:.2f} s; max_memory_allocated "
+        f"{peak / 1e9:.2f} GB")
+    del st, sched, new
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -1273,6 +1473,10 @@ def main() -> int:
             report[key]["eager"] = {k: eager[k] for k in (
                 "tok_per_s", "steps", "seconds", "step_ms",
                 "later_step_ms", "launches")}
+        phase = "hotswap"
+        log("  hot-swap at full width, 16 layers")
+        report["hotswap"] = phase_hotswap(torch, dev)
+        phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
         log("  the main serve on one programmed model: eager (the "
@@ -1304,6 +1508,7 @@ def main() -> int:
     serve_l = report["serve"]["launches"]
     stream_l = report["serve_streamed"]["launches"]
     long_l = report["serve_long"]["launches"]
+    swap_l = report["hotswap"]["ft"]["launches"]
     kernels = [
         {"name": "crossbar_mac", "route": "cuda",
          "source": "src/repro_torch/csrc/crossbar_mac.cu",
@@ -1315,6 +1520,7 @@ def main() -> int:
          "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": None, "shape": f"B=16 K={head['k']} N={head['n']}",
+         "swap_serve_launches": swap_l["crossbar_mac"],
          "b64_ms": head64["ms"], "b64_device_ms": head64["device_ms"],
          "b64_bound_ms": head64["bound_ms"],
          "step_device_ms": witness["trace_captured"][

@@ -41,6 +41,9 @@ class EngineConfig:
     mode: str = "expansion"            # "expansion" | "deepnet"
     params: CrossStackParams = PAPER
     use_kernel: bool = False           # route MAC through the CUDA kernel
+    swap_leakage: bool = False         # perturb reads with write-plane
+    # leakage while a hot-swap is in flight (fidelity studies; breaks
+    # bit-exactness of mid-swap reads by at most the ADC residual)
     device: DeviceConfig = DeviceConfig()  # vertical stack geometry
 
     @property

@@ -25,9 +25,18 @@ fuses the accuracy-critical weights (attention, the LM head) and keeps
 the MLP in deep-net layout; :meth:`CrossbarExecutor.mode_report` scores
 each choice with the exact nodal IR-drop solves of ``core/ir_drop.py``.
 
-This slice serves one tenant (``"A"``).  Hot-swap, eviction and
-multi-tenant multiplexing are later slices of the port and raise
-``NotImplementedError``.
+:meth:`CrossbarExecutor.begin_swap` is the paper's deep-net mode at
+the serving tier: a staging slot is reserved per bank, the new
+checkpoint programs into it in write-latency-costed chunks
+(:meth:`~CrossbarExecutor.write_chunks`, meant to interleave with decode
+steps), each weight is write-verified against a one-shot programming,
+and :meth:`~CrossbarExecutor.promote` retargets the tenant's
+read-enable atomically — the tenant serves its old planes through the
+whole window.
+
+This slice serves one tenant (``"A"``).  Multi-tenant multiplexing,
+with the in-place swap lifecycle and eviction of a second tenant, is a
+later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import contextlib
 import dataclasses
 import hashlib
 import math
+import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -42,7 +52,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import engine, ir_drop, planes, timing
 from repro_torch.core.engine import EngineConfig
-from repro_torch.core.planes import PlaneBank
+from repro_torch.core.planes import ChunkedProgram, PlaneBank, SwapPlan
 
 # weight-leaf classification: final path key -> contracted input axes,
 # in the context of its parent module key
@@ -105,19 +115,27 @@ class CrossbarExecutor:
         # per tenant, the leaf tensors its planes were programmed from:
         # serving a DIFFERENT tree through them must be an error
         self._programmed_leaves: Dict[str, Tuple[Any, ...]] = {}
+        self._swap: Optional[SwapPlan] = None
         self._versions: Dict[str, int] = {}
         # ambient leak override: a serving step runs under
         # leak_scope(<device scalar>) so the kernel reads the leak from
         # device memory
         self._leak_override: Optional[Any] = None
+        # cached device scalars for current_leak_codes(): cfg is frozen,
+        # so both values are constants — one host->device copy each
         self._leak_zero: Optional[torch.Tensor] = None
+        self._leak_live: Optional[torch.Tensor] = None
         self._device: Optional[torch.device] = None
         # per-weight read mode: one cached EngineConfig per mode, plus the
         # resolved policy's reasons and the IR scores for mode_report
         self._mode_cfgs: Dict[str, EngineConfig] = {cfg.mode: cfg}
         self._mode_reasons: Dict[Tuple[str, str], str] = {}
         self._ir_scores: Dict[Tuple[int, int], Dict[str, Any]] = {}
-        self.stats = {"programmed": 0, "cache_hits": 0, "program_walks": 0}
+        self.stats = {"programmed": 0, "cache_hits": 0, "program_walks": 0,
+                      "swaps": 0, "swap_chunks": 0}
+        # wall-clock start of the in-flight swap window, for the
+        # executor_swap span recorded at promote()
+        self._swap_t0: Optional[float] = None
 
     def _event(self, stat: str, metric: str, help: str, n: int = 1,
                **labels: Any) -> None:
@@ -176,7 +194,17 @@ class CrossbarExecutor:
 
     def current_leak_codes(self) -> torch.Tensor:
         """The leak value a read issued now carries, as a cached device
-        scalar: 0.0, since no swap is ever in flight in this slice."""
+        scalar: the write plane's subthreshold leakage while a swap is in
+        flight with ``cfg.swap_leakage`` set, else 0.0.  A serving step
+        copies it into its own leak buffer each step."""
+        if self._swap is not None and self.cfg.swap_leakage:
+            if self._leak_live is None:
+                self._leak_live = planes.write_leak_scalar(self.cfg,
+                                                           self._device)
+            return self._leak_live
+        return self._zero_leak()
+
+    def _zero_leak(self) -> torch.Tensor:
         if self._leak_zero is None:
             self._leak_zero = torch.zeros((), dtype=torch.float32,
                                           device=self._device)
@@ -403,7 +431,9 @@ class CrossbarExecutor:
             raise RuntimeError(
                 f"tenant {tenant!r} planes are already programmed from a "
                 f"different params tree; resident weights are physical "
-                f"state (hot-swap is a later slice of the port)")
+                f"state — use swap(params, tenant={tenant!r}) / "
+                f"begin_swap(params, tenant={tenant!r}) for a "
+                f"zero-downtime reprogram")
         self._event("program_walks", "crossstack_program_walks_total",
                     "program_params pytree walks", tenant=tenant)
         new = 0
@@ -490,11 +520,12 @@ class CrossbarExecutor:
         tenant's plane in the mode of its residency layout (an
         expansion-fused pair reads with doubled-input ADC grouping).  A
         fused pair never hosts a write, so its reads carry no leak term;
-        other reads carry the ambient :meth:`leak_scope` value (0.0
-        outside one).  The leak always reaches the MAC as a device scalar
-        (:meth:`current_leak_codes` for 0.0), so a read makes no host
-        value into a device operand, and a captured step reads its leak
-        from device memory."""
+        other reads carry the ambient :meth:`leak_scope` value, or
+        outside one :meth:`current_leak_codes` (the write plane's leakage
+        while a swap is in flight with ``cfg.swap_leakage``, else 0.0).
+        The leak always reaches the MAC as a device scalar, so a read
+        makes no host value into a device operand, and a captured step
+        reads its leak from device memory."""
         tenant = self._resolve_tenant(tenant)
         bank = self._cache[name]
         pw = bank.active_for(tenant)
@@ -504,10 +535,12 @@ class CrossbarExecutor:
         k = math.prod(x.shape[-n_in:])
         if k != pw.k:
             raise ValueError(f"{name}: input dim {k} != programmed {pw.k}")
-        if bank.is_fused(tenant) or self._leak_override is None:
-            leak = self.current_leak_codes()
-        else:
+        if bank.is_fused(tenant):
+            leak = self._zero_leak()
+        elif self._leak_override is not None:
             leak = self._leak_override
+        else:
+            leak = self.current_leak_codes()
         y = engine.matmul(x.reshape(*lead, k).to(torch.float32), pw, cfg,
                           leak_codes=leak)
         return y.reshape(*lead, *w.shape[n_in:]).to(x.dtype)
@@ -537,18 +570,179 @@ class CrossbarExecutor:
 
     def version(self, tenant: str = TENANT) -> int:
         """Monotone deploy counter: 0 = unprogrammed; +1 per program walk
-        that wrote tiles."""
+        that wrote tiles; +1 per promoted swap."""
         return self._versions.get(self._resolve_tenant(tenant), 0)
 
-    # -- later slices ----------------------------------------------------------
+    @property
+    def programmed_version(self) -> int:
+        """Tenant A's deploy counter; see :meth:`version`."""
+        return self.version(TENANT)
 
-    def begin_swap(self, params: Any, tenant: str = TENANT):
-        raise _later("hot-swap (begin_swap / promote)")
+    # -- deep-net hot-swap (write the shadow planes, then flip) --------------
 
-    def swap(self, params: Any, chunk_burst: int = 64, tenant: str = TENANT):
-        raise _later("hot-swap (swap)")
+    @property
+    def swap_in_flight(self) -> bool:
+        return self._swap is not None
+
+    def begin_swap(self, params: Any, tenant: str = TENANT) -> SwapPlan:
+        """Stage ``params`` for chunked programming of the tenant's plane
+        set: a staging slot is reserved per bank, the new checkpoint
+        programs into it chunk by chunk (:meth:`write_chunks`), and
+        :meth:`promote` retargets the tenant's read-enable atomically —
+        the tenant never stops serving.
+
+        The incoming tree must carry exactly the resident tile set with
+        matching shapes (a new checkpoint, a fine-tuned delta or
+        recalibrated conductances — not a different architecture).
+
+        Expansion-fused weights refuse overlap writes: a fused pair holds
+        both of its planes RE-high for the tenant's reads, so there is no
+        write shadow to stage into.  The anchor tenant, whose reads may
+        never pause, therefore cannot swap at all while any of its
+        weights is fused.
+        """
+        tenant = self._resolve_tenant(tenant)
+        if not self._cache:
+            raise RuntimeError("nothing programmed; call program_params "
+                               "before begin_swap")
+        if self._swap is not None:
+            raise RuntimeError("a hot-swap is already in flight; promote() "
+                               "or abort_swap() first")
+        if any(bank.is_fused(tenant) for bank in self._cache.values()):
+            raise RuntimeError(
+                f"tenant {tenant!r} holds expansion-fused planes (both "
+                f"RE high — no write shadow) and anchors the stack, so "
+                f"its reads cannot pause for an in-place rewrite; "
+                f"expansion-mode anchor deploys are cold deploys "
+                f"(evict/reprogram), or program the anchor in deep-net "
+                f"layout to hot-swap it")
+        leaves = flatten_with_path(params)
+        programs = []
+        for name, w, n_in in self._eligible(leaves):
+            if name not in self._cache:
+                raise ValueError(
+                    f"swap tree carries {name!r} which has no resident "
+                    f"tiles; hot-swap reprograms existing planes only")
+            pw = self._cache[name].any_plane
+            k = math.prod(w.shape[:n_in])
+            w2d = w.to(torch.float32).reshape(k, -1)
+            if (k, w2d.shape[1]) != (pw.k, pw.n):
+                raise ValueError(
+                    f"{name}: swap shape {(k, w2d.shape[1])} != resident "
+                    f"{(pw.k, pw.n)}")
+            programs.append(ChunkedProgram(name, w2d, self.cfg))
+        missing = set(self._cache) - {cp.name for cp in programs}
+        if missing:
+            raise ValueError(
+                f"swap tree is missing resident tiles: {sorted(missing)}")
+        # reserve the write target up front (all validation passed)
+        for bank in self._cache.values():
+            bank.reserve_staging()
+        self._swap = SwapPlan(programs, tuple(w for _, w in leaves), params,
+                              tenant=tenant)
+        self._swap_t0 = time.perf_counter()
+        return self._swap
+
+    def write_chunks(self, n: int = 1) -> int:
+        """Program up to ``n`` write-latency-costed chunks of the staged
+        swap (each is one t_write pulse in the device-time model); a
+        weight whose last chunk lands is write-verified here, inside the
+        overlap window.  Returns the number of chunks still unwritten."""
+        if self._swap is None:
+            raise RuntimeError("no hot-swap in flight")
+        for _ in range(n):
+            if self._swap.done:
+                break
+            finished = self._swap.write_chunk()
+            self._event("swap_chunks", "crossstack_swap_chunks_total",
+                        "write-latency-costed chunks programmed into "
+                        "swap targets", tenant=self._swap.tenant)
+            if finished is not None:
+                staged = finished.finish()
+                finished.verify(staged)
+                self._swap.staged[finished.name] = (staged, finished.fp)
+        return self._swap.remaining
+
+    def promote(self) -> Any:
+        """Atomically land the freshly written plane set.
+
+        Every staged plane was write-verified when its last chunk landed;
+        this gate checks completeness and ownership — every tile staged
+        by THIS plan — before any bank changes, so a read can never
+        observe a mixed-plane state.  Each bank's staging slot becomes
+        the tenant's resident plane and the previous slot reverts to free
+        (its plane tensors are released: a captured step that read them
+        must be dropped).  Returns the promoted params tree.
+        """
+        plan = self._swap
+        if plan is None:
+            raise RuntimeError("no hot-swap in flight")
+        if not plan.done:
+            raise RuntimeError(
+                f"swap not complete: {plan.remaining} chunks unwritten")
+        for name, fp in plan.expected_fingerprints.items():
+            got = plan.staged.get(name)
+            if got is None or got[1] != fp:
+                raise RuntimeError(
+                    f"{name}: staged plane fingerprint "
+                    f"{got[1] if got else None} != checkpoint {fp}; "
+                    f"refusing to promote")
+        for cp in plan.programs:
+            pw, fp = plan.staged[cp.name]
+            self._cache[cp.name].land_staged(plan.tenant, pw, fp)
+        self._programmed_leaves[plan.tenant] = plan.leaves
+        self._versions[plan.tenant] = self._versions.get(plan.tenant, 0) + 1
+        self._event("swaps", "crossstack_swaps_total",
+                    "promoted plane-set swaps, by lifecycle",
+                    tenant=plan.tenant, lifecycle="staged")
+        obs.tracer().record(
+            "executor_swap", self._swap_t0, time.perf_counter(),
+            tenant=plan.tenant, lifecycle="staged",
+            chunks=plan.total_chunks,
+            device_write_s=plan.device_write_time())
+        self._swap = None
+        self._swap_t0 = None
+        return plan.params
+
+    def abort_swap(self) -> None:
+        """Drop an in-flight swap; the resident planes keep serving
+        (written-and-verified planes are buffered in the plan and never
+        touch a bank before promote, so abort is pure discard — the
+        reserved staging slots revert to free)."""
+        if self._swap is not None:
+            obs.registry().counter(
+                "crossstack_swap_aborts_total",
+                help="in-flight swaps discarded before promote").inc(
+                    tenant=self._swap.tenant)
+            for bank in self._cache.values():
+                bank.release_staging()
+        self._swap = None
+        self._swap_t0 = None
+
+    def swap(self, params: Any, chunk_burst: int = 64,
+             tenant: str = TENANT) -> Dict[str, Any]:
+        """Blocking swap: stage, write every chunk, promote — the
+        stop-the-world comparison point and the API for offline reloads
+        (the overlapped path interleaves ``write_chunks`` with decode
+        steps instead)."""
+        plan = self.begin_swap(params, tenant=tenant)
+        while not plan.done:
+            self.write_chunks(chunk_burst)
+        self.promote()
+        return {"n_tiles": len(plan.programs),
+                "n_chunks": plan.total_chunks,
+                "tenant": plan.tenant,
+                "swap_mode": "staged",
+                "device_write_s": plan.device_write_time(),
+                "programmed_version": self.version(plan.tenant)}
 
     def evict_tenant(self, tenant: str) -> None:
+        """The anchor tenant cannot be evicted (reprogram it via swap);
+        evicting a second tenant comes with multi-tenant serving."""
+        if tenant == TENANT:
+            raise ValueError(
+                f"tenant {tenant!r} anchors the plane banks; "
+                f"swap(params) to replace its weights")
         raise _later("tenant eviction")
 
     # -- bookkeeping ---------------------------------------------------------

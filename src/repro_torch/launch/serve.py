@@ -22,6 +22,21 @@ gives up the write shadow; ``auto`` fuses the accuracy-critical layers
 (attention, head) and keeps the MLP in deep-net layout, and the per-layer
 choices and IR-drop deltas print from ``mode_report()``.
 
+``--hot-swap SPEC`` (crossbar backend only) deploys a second
+checkpoint under live traffic (deep-net mode at the serving tier,
+serve/hotswap.py): once ``--swap-after`` requests have finished, the new
+weights program onto the staging planes, ``--swap-chunks`` row-tile
+chunks between steps, and an atomic flip promotes them with zero dropped
+requests.  SPEC is ``ft:<scale>`` (the serving params plus a scaled
+fine-tune delta), ``seed:<int>`` (a fresh init) or ``init`` (the serving
+params themselves).
+
+``--metrics-out FILE.jsonl`` writes the telemetry at exit (request and
+swap spans, then every metric sample), ``--metrics-interval N`` prints a
+stats line every N steps, ``--no-telemetry`` turns the scheduler's
+metrics and spans off, and ``--tile-rows`` sets the crossbar tile's
+wordlines.
+
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain
 PyTorch path on the CPU.  ``--layers N`` cuts the configuration's depth
 (never its width).  On the card every window step after the first runs
@@ -31,16 +46,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import statistics
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import BatchScheduler, Request
+from repro_torch.serve.hotswap import finetune_delta
 
 
 def parse_mode_policy(spec):
@@ -64,6 +82,31 @@ def parse_mode_policy(spec):
                 f"expansion/deepnet/auto)")
         policy[name] = mode
     return policy
+
+
+def resolve_swap_params(spec: str, model, params):
+    """``--hot-swap`` spec resolution: ``init`` | ``seed:<int>`` |
+    ``ft:<scale>``."""
+    if spec == "init":
+        return params
+    if spec.startswith("seed:"):
+        try:
+            seed = int(spec[5:])
+        except ValueError:
+            raise SystemExit(f"--hot-swap: {spec!r} needs an integer seed")
+        return model.init(seed)
+    if spec.startswith("ft:"):
+        try:
+            scale = float(spec[3:])
+        except ValueError:
+            raise SystemExit(f"--hot-swap: {spec!r} needs a float scale")
+        return finetune_delta(params, scale=scale)
+    if os.path.isdir(spec):
+        raise SystemExit(
+            f"--hot-swap: {spec!r} is a checkpoint directory; the port has "
+            f"no checkpoint manager yet (ROADMAP.md, A.11)")
+    raise SystemExit(f"--hot-swap: unknown spec {spec!r} (want init, "
+                     f"ft:<scale> or seed:<int>)")
 
 
 def _print_mode_report(rep) -> None:
@@ -106,7 +149,8 @@ class Setup:
         return BatchScheduler(self.model, self.params, n_slots=a.slots,
                               max_len=a.max_len, kv=a.kv,
                               page_size=a.page_size, chunk=a.chunk,
-                              mode_policy=self.mode_policy, capture=capture)
+                              mode_policy=self.mode_policy,
+                              telemetry=not a.no_telemetry, capture=capture)
 
     def requests(self) -> List[Request]:
         """The command line's synthetic requests (seeded prompts)."""
@@ -122,24 +166,60 @@ class Setup:
 
 
 def drive(sched: BatchScheduler, reqs: List[Request],
-          device: torch.device) -> Dict[str, Any]:
+          device: torch.device, swap_params=None, swap_after: int = 0,
+          swap_chunks: int = 8,
+          on_step: Optional[Callable[[int], None]] = None
+          ) -> Dict[str, Any]:
     """Submit ``reqs`` and step until all finish: the requests, tokens,
     steps, wall seconds, tokens/s and each step's wall seconds (a step
-    ends with its tokens on the host)."""
+    ends with its tokens on the host).
+
+    With ``swap_params`` a hot-swap begins once ``swap_after`` requests
+    have finished; if the requests drain first, the loop steps on until
+    the swap promotes.  ``swap_phase`` labels each step: ``"window"``
+    (chunks programmed, the old planes serving), ``"flip"`` (the last
+    chunks, the promotion, and the step on the new planes) or ``"-"``."""
     for r in reqs:
         sched.submit(r)
-    done, step_s = [], []
+    done: List[Request] = []
+    step_s: List[float] = []
+    phase: List[str] = []
+
+    def one_step():
+        in_flight = sched.swap_in_flight
+        t = time.perf_counter()
+        out = sched.step()
+        step_s.append(time.perf_counter() - t)
+        phase.append("window" if sched.swap_in_flight
+                     else "flip" if in_flight else "-")
+        if on_step is not None:
+            on_step(len(step_s))
+        return out
+
     t0 = time.perf_counter()
     while len(done) < len(reqs) and len(step_s) < 10_000:
-        t = time.perf_counter()
-        done += sched.step()
-        step_s.append(time.perf_counter() - t)
+        if (swap_params is not None and not sched.swap_in_flight
+                and not sched.swap_history and len(done) >= swap_after):
+            hs = sched.begin_hot_swap(swap_params,
+                                      chunks_per_step=swap_chunks)
+            print(f"hot-swap: staging {hs.plan.total_chunks} chunks onto "
+                  f"tenant {hs.tenant}'s write planes after {len(done)} "
+                  f"requests ({len(step_s)} decode steps)")
+        done += one_step()
+    # requests can drain before the chunked swap completes — finish the
+    # deployment rather than abandon a half-written shadow plane (idle
+    # steps still program chunks and promote at the boundary)
+    if sched.swap_in_flight:
+        print("hot-swap: requests drained mid-swap; finishing shadow "
+              "programming before exit")
+        while sched.swap_in_flight and len(step_s) < 20_000:
+            one_step()
     _sync(device)
     dt = time.perf_counter() - t0
     total_tokens = sum(len(r.out) for r in done)
     return {"requests": done, "tokens": total_tokens, "steps": len(step_s),
             "seconds": dt, "tok_per_s": total_tokens / max(dt, 1e-9),
-            "step_s": step_s}
+            "step_s": step_s, "swap_phase": phase}
 
 
 def setup(argv=None) -> Setup:
@@ -184,7 +264,36 @@ def setup(argv=None) -> Setup:
     ap.add_argument("--block-pages", type=int, default=16, metavar="N",
                     help="pages per streamed attention block (clamped to "
                          "a divisor of the table width)")
+    ap.add_argument("--tile-rows", type=int, default=None,
+                    help="override crossbar tile rows (wordlines per "
+                         "plane); expansion fusing pairs row tiles "
+                         "across the two planes, so it needs an even "
+                         "count >= 2 per weight")
+    ap.add_argument("--hot-swap", default=None, metavar="SPEC",
+                    help="second checkpoint to deploy mid-serving "
+                         "(ft:<scale> | seed:<int> | init); requires "
+                         "--backend crossbar")
+    ap.add_argument("--swap-after", type=int, default=None,
+                    help="begin the swap once this many requests finished "
+                         "(default: half)")
+    ap.add_argument("--swap-chunks", type=int, default=8,
+                    help="shadow-plane chunks programmed per decode step")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE.jsonl",
+                    help="write the telemetry at exit: one JSON object per "
+                         "line — request and swap spans, then every metric "
+                         "sample")
+    ap.add_argument("--metrics-interval", type=int, default=0,
+                    metavar="N",
+                    help="print a one-line stats banner every N decode "
+                         "steps (0 = off)")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="disable scheduler metrics and span collection")
     args = ap.parse_args(argv)
+    if args.no_telemetry and (args.metrics_out or args.metrics_interval):
+        raise SystemExit("--no-telemetry contradicts --metrics-out / "
+                         "--metrics-interval")
+    if args.hot_swap and args.backend != "crossbar":
+        raise SystemExit("--hot-swap requires --backend crossbar")
     if args.stream_pages and args.kv != "paged":
         raise SystemExit("--stream-pages routes paged attention; it "
                          "requires --kv paged")
@@ -204,6 +313,10 @@ def setup(argv=None) -> Setup:
     if args.stream_pages:
         cfg = dataclasses.replace(cfg, paged_stream_pages=args.stream_pages,
                                   paged_block_pages=args.block_pages)
+    if args.tile_rows is not None:
+        cfg = dataclasses.replace(
+            cfg, xbar=dataclasses.replace(cfg.xbar,
+                                          tile_rows=args.tile_rows))
     model = build_model(cfg, device=device)
     return Setup(args, model, model.init(0), mode_policy, device)
 
@@ -245,7 +358,26 @@ def main(argv=None, *, capture=None):
         if mode_policy is not None:
             _print_mode_report(sched.mode_report())
 
-    rep = drive(sched, st.requests(), device)
+    reqs = st.requests()
+    swap_params = (resolve_swap_params(args.hot_swap, st.model, st.params)
+                   if args.hot_swap else None)
+    swap_after = (args.swap_after if args.swap_after is not None
+                  else args.requests // 2)
+
+    def stats_banner(steps):
+        if not args.metrics_interval or steps % args.metrics_interval:
+            return
+        reg = sched.metrics
+        n = int(reg.total("serve_tokens_total", tenant="A"))
+        e = reg.total("serve_device_energy_joules_total", tenant="A")
+        pj = e / n * 1e12 if n else 0.0
+        retr = int(obs.registry().total("serve_jit_retraces_total"))
+        print(f"[obs] step {steps}: {int(reg.total('serve_tokens_total'))} "
+              f"tokens (A:{n}tok/{pj:.0f}pJ); jit retraces {retr}")
+
+    rep = drive(sched, reqs, device, swap_params=swap_params,
+                swap_after=swap_after, swap_chunks=args.swap_chunks,
+                on_step=stats_banner)
     done = rep["requests"]
     print(f"served {len(done)} requests, {rep['tokens']} tokens in "
           f"{rep['steps']} decode steps, {rep['seconds']:.2f}s "
@@ -270,7 +402,37 @@ def main(argv=None, *, capture=None):
               f"fallback={d['paged_fallback']}")
     for r in done[:3]:
         print(f"  req {r.rid}: {r.out[:8]}...")
-    rep.update(program_s=program_s, capture=cap)
+    for h in sched.swap_history:
+        print(f"hot-swap promoted [{h['policy']} tenant {h['tenant']}]: "
+              f"version={ex.version(h['tenant'])} "
+              f"fingerprint={ex.fingerprint(tenant=h['tenant'])} "
+              f"wall={h['wall_swap_s']:.2f}s "
+              f"({h['decode_steps_during_swap']} decode steps served "
+              f"during the swap, zero dropped)")
+        print(f"  device-time: overlapped window "
+              f"{h['device_swap_window_overlapped_s'] * 1e6:.1f}us vs "
+              f"stop-the-world "
+              f"{h['device_swap_window_stop_world_s'] * 1e6:.1f}us; "
+              f"throughput-during-swap ratio "
+              f"{h['throughput_ratio_overlap_vs_stop_world']:.2f}x; "
+              f"steady-state overlap "
+              f"{h['overlap_frac_steady_state'] * 100:.1f}% at "
+              f"{h['in_bits']}-bit reads (paper: ~29% at 10-bit)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(sched.tracer.to_jsonl())
+            f.write(sched.metrics.to_jsonl())
+            f.write(obs.tracer().to_jsonl())
+            f.write(obs.registry().to_jsonl())
+        n_spans = len(sched.tracer) + len(obs.tracer())
+        print(f"telemetry: wrote {n_spans} spans + metric samples to "
+              f"{args.metrics_out}")
+        print("# --- Prometheus snapshot (scheduler + global) ---")
+        print(sched.metrics.to_prometheus(), end="")
+        print(obs.registry().to_prometheus(), end="")
+    rep.update(program_s=program_s, capture=cap,
+               swap_history=list(sched.swap_history),
+               version=ex.version() if ex is not None else None)
     if mode_policy is not None:
         rep["mode_report"] = sched.mode_report()
     return rep

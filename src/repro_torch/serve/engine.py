@@ -19,15 +19,19 @@ body eagerly; it is the CPU's step, and on the card the witness the
 captured step is held against.
 
 This slice serves one tenant, with the executor's per-weight read-mode
-policy (``mode_policy``) and its :meth:`BatchScheduler.mode_report`.
-Hot-swap, multi-tenant multiplexing with QoS weights, prefix sharing and
-preemption are later slices of the port and raise
-``NotImplementedError``.
+policy (``mode_policy``) and its :meth:`BatchScheduler.mode_report`, and
+hot-swaps it (:meth:`BatchScheduler.begin_hot_swap`): chunks of the new
+checkpoint program between steps while the old planes serve, and the
+planes flip at a step boundary, where the lane's captured graph is
+dropped and captured anew over the promoted planes.  Multi-tenant
+multiplexing with QoS weights, prefix sharing and preemption are later
+slices of the port and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,6 +41,7 @@ from repro_torch import obs
 from repro_torch.core.executor import flatten_with_path
 from repro_torch.kernels import launch_counts
 from repro_torch.models.model import Model
+from repro_torch.serve.hotswap import HotSwapper, overlap_report
 from repro_torch.serve.kv_pool import PagedKVPool, default_pool_pages
 
 TENANT = "A"
@@ -85,8 +90,9 @@ class _WindowStep:
     slot).  The fill marker is pinned to ``old_len + m``, so pad positions
     past a row's count are never attendable, and the token emitted at row
     position ``m - 1`` equals an unpadded reference's.  ``leak`` is the
-    write-plane leakage (0.0 in this slice), which the MAC reads from
-    device memory.
+    write-plane leakage (0.0 outside a swap window, the live value inside
+    one), which the MAC reads from device memory, so one graph serves
+    both.
 
     With ``capture`` the first call runs eagerly as the warm-up (kernels
     built, the allocator warm; its result is used), the second is
@@ -97,7 +103,9 @@ class _WindowStep:
     Without ``capture`` every call runs the same body eagerly, and the
     closure's first call is its trace.  A new params tree drops the graph
     and builds the closure anew, whose first trace is no retrace (the
-    reference's fresh counter at a rebuild).
+    reference's fresh counter at a rebuild); so does :meth:`reset`, which
+    a hot-swap promotion calls because the graph holds the device
+    addresses of planes the flip releases.
     """
 
     def __init__(self, model: Model, cache: Dict[str, Any], width: int,
@@ -141,6 +149,15 @@ class _WindowStep:
             elif self._traces == 0:
                 self._note_trace()
         return self.token
+
+    def reset(self) -> None:
+        """Drop the captured graph (releasing its memory to the pool) and
+        the built closure: the next call builds a new closure, runs it
+        eagerly as the warm-up and captures it over the planes the
+        executor holds then."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph, self._warm, self._leaves = None, False, None
 
     def _build(self, params, leaves) -> None:
         """A new closure for ``params``: programming is host work, done
@@ -275,6 +292,9 @@ class BatchScheduler:
         # dispatch counters) live in obs.registry()
         self.metrics = obs.MetricsRegistry(enabled=telemetry)
         self.tracer = obs.Tracer(enabled=telemetry)
+        self._swap: Optional[HotSwapper] = None
+        self._swap_t0: Optional[float] = None
+        self.swap_history: List[Dict[str, Any]] = []
         executor = model.executor
         if executor is not None:
             # crossbar backend: program the weights ONCE at construction
@@ -367,12 +387,106 @@ class BatchScheduler:
     def set_weights(self, weights: Dict[str, float]) -> None:
         raise _later("QoS weights (set_weights)")
 
-    def begin_hot_swap(self, new_params, chunks_per_step: int = 8,
-                       tenant: str = TENANT):
-        raise _later("hot-swap (begin_hot_swap)")
+    # -- deep-net-mode hot-swap (serve reads while shadow planes program) ----
 
-    def stop_the_world_swap(self, new_params, tenant: str = TENANT):
-        raise _later("hot-swap (stop_the_world_swap)")
+    def _require_crossbar(self):
+        ex = self.model.executor
+        if ex is None:
+            raise RuntimeError("hot-swap requires the crossbar backend "
+                               "(ModelConfig(backend='crossbar'))")
+        if self._swap is not None:
+            raise RuntimeError("a hot-swap is already in flight")
+        return ex
+
+    def begin_hot_swap(self, new_params, chunks_per_step: int = 8,
+                       tenant: str = TENANT) -> HotSwapper:
+        """Start programming ``new_params`` onto the staging planes.
+
+        Chunks are written between decode steps (inside :meth:`step`);
+        when every chunk lands, the planes land atomically at a step
+        boundary and later tokens come from the new weights — no request
+        is dropped and no step reads mixed planes.  The tenant keeps
+        serving its old planes through the whole window."""
+        ex = self._require_crossbar()
+        self._swap = HotSwapper(ex, new_params,
+                                chunks_per_step=chunks_per_step,
+                                tenant=tenant)
+        self._swap_t0 = self.tracer.now()
+        return self._swap
+
+    @property
+    def swap_in_flight(self) -> bool:
+        return self._swap is not None
+
+    def _apply_promotion(self, tenant: str, new_params) -> None:
+        """Land promoted params on the lane.  The flip released the
+        planes the lane's captured graph reads, so the graph is dropped
+        here, whatever the new tree is (an ``init`` swap promotes the
+        same tree object); the next step warms up eagerly and captures
+        a new closure — one trace, no retrace, zero dropped requests."""
+        lane = self._lane
+        lane.params = new_params
+        lane.decode.reset()
+        lane.device_cost = self.model.executor.device_token_cost(tenant)
+
+    def _note_swap_window(self, tenant: str, lifecycle: str, policy: str,
+                          rep: Dict[str, Any]) -> None:
+        """Record a completed swap window: one counter bump plus a span
+        tagged with its lifecycle and policy
+        (``overlapped``/``stop_the_world``)."""
+        self.metrics.counter(
+            "serve_swap_windows_total",
+            help="completed swap windows, by lifecycle and policy").inc(
+                tenant=tenant, lifecycle=lifecycle, policy=policy)
+        if self._swap_t0 is not None:
+            self.tracer.record(
+                "swap_window", self._swap_t0, self.tracer.now(),
+                tenant=tenant, lifecycle=lifecycle, policy=policy,
+                chunks=rep.get("n_chunks"),
+                decode_steps_during=rep.get("decode_steps_during_swap"))
+
+    def stop_the_world_swap(self, new_params,
+                            tenant: str = TENANT) -> Dict[str, Any]:
+        """Blocking reprogram (the conventional-2-D-array policy): serving
+        stalls while every chunk is written, the planes land, and the
+        window step is built anew.  The comparison baseline for the
+        overlapped path — same end state, but no tokens flow during the
+        swap; it lands in ``swap_history`` like the overlapped path."""
+        ex = self._require_crossbar()
+        t0 = time.perf_counter()
+        stats = ex.swap(new_params, tenant=tenant)
+        wall = time.perf_counter() - t0
+        self._apply_promotion(tenant, new_params)
+        rep = overlap_report(ex.cfg, n_grids=ex.n_resident,
+                             n_chunks=stats["n_chunks"],
+                             batch_size=self.n_slots,
+                             decode_steps_during=0, wall_swap_s=wall)
+        rep["policy"] = "stop_the_world"
+        rep["tenant"] = tenant
+        rep["swap_mode"] = stats["swap_mode"]
+        self.swap_history.append(rep)
+        self._swap_t0 = t0
+        self._note_swap_window(tenant, rep["swap_mode"],
+                               "stop_the_world", rep)
+        self._swap_t0 = None
+        return stats
+
+    def _advance_swap(self) -> None:
+        """Program a burst of chunks; promote at the step boundary once
+        the staged planes are fully written."""
+        sw = self._swap
+        if sw is None:
+            return
+        sw.step()
+        if sw.done:
+            new_params = sw.promote()
+            self._apply_promotion(sw.tenant, new_params)
+            rep = sw.report(batch_size=self.n_slots)
+            self.swap_history.append(rep)
+            self._note_swap_window(sw.tenant, rep["swap_mode"],
+                                   "overlapped", rep)
+            self._swap = None
+            self._swap_t0 = None
 
     # -- admission (host bookkeeping only: slots + pages) --------------------
 
@@ -435,9 +549,15 @@ class BatchScheduler:
 
     def step(self) -> List[Request]:
         """One window step over the active slots; returns the requests
-        that finished.  Each occupied row contributes its next prompt
-        chunk or its last generated token; empty rows ride along at
-        ``m = 0``.  One fixed-shape call serves them all."""
+        that finished.
+
+        An in-flight hot-swap advances first — plane chunks program
+        strictly between steps, and promotion happens here at the
+        boundary, so every step reads one consistent plane set.  Each
+        occupied row contributes its next prompt chunk or its last
+        generated token; empty rows ride along at ``m = 0``.  One
+        fixed-shape call serves them all."""
+        self._advance_swap()
         lane = self._lane
         finished: List[Request] = []
         self._admit(lane)
@@ -496,6 +616,8 @@ class BatchScheduler:
                 help="wall time of the step that produced each token")
             for _ in range(n_admit + n_dec):
                 h.observe(dt, tenant=lane.tenant)
+        if self._swap is not None:
+            self._swap.note_decode_step()
         return finished
 
     def capture_report(self) -> Dict[str, Dict[str, Any]]:

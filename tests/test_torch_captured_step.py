@@ -15,7 +15,11 @@ at float32 and bfloat16, paged and dense, with the CUDA kernels and with
 their plain versions, so the greedy streams are identical.  A lane
 captures once over any number of prompt mixes; replays read the page
 tables and fill markers that admission and release write in place; and a
-host sync inside the capture raises.
+host sync inside the capture raises.  A hot-swap replays the graph
+through its window with the live write leak in the step's leak buffer,
+and the flip drops the graph and captures once more over the promoted
+planes: two captures, no retrace, the eager streams, and an ``init``
+swap serves the streams of no swap at all.
 """
 import dataclasses
 
@@ -26,8 +30,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.planes import write_leak_codes  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import BatchScheduler, Request  # noqa: E402
+from repro_torch.serve.hotswap import finetune_delta  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -41,11 +47,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(dev, dtype=torch.float32, use_kernel=True):
+def _model(dev, dtype=torch.float32, use_kernel=True, **xbar):
     cfg = get_config("qwen3-4b", smoke=True)
     cfg = dataclasses.replace(
         cfg, backend="crossbar", dtype=dtype, paged_kernel=use_kernel,
-        xbar=dataclasses.replace(cfg.xbar, use_kernel=use_kernel))
+        xbar=dataclasses.replace(cfg.xbar, use_kernel=use_kernel, **xbar))
     return build_model(cfg, device=dev)
 
 
@@ -183,3 +189,81 @@ def test_a_host_sync_in_the_capture_raises(cuda):
         sched.step()                  # the capture
     assert sched._lane.decode.graph is None
     torch.cuda.synchronize()
+
+
+def _swap_run(sched, prompts, new_params, at_step=2, chunks=4):
+    """Serve ``prompts`` with a hot-swap of ``new_params`` begun before
+    step ``at_step``, until every request finished and the swap promoted:
+    the streams, each step's snapshot of every request's tokens, each
+    step's leak buffer and swap phase (window / flip / -)."""
+    reqs = [Request(rid=i, prompt=p, max_new=2 * MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    done, snaps, leaks, phase, steps = [], [], [], [], 0
+    while (len(done) < len(reqs) or sched.swap_in_flight) and steps < 200:
+        if new_params is not None and steps == at_step:
+            sched.begin_hot_swap(new_params, chunks_per_step=chunks)
+        was = sched.swap_in_flight
+        done += sched.step()
+        steps += 1
+        snaps.append({r.rid: list(r.out) for r in reqs})
+        leaks.append(sched._lane.decode.leak.item())
+        phase.append("window" if sched.swap_in_flight
+                     else "flip" if was else "-")
+    return {r.rid: list(r.out) for r in done}, snaps, leaks, phase
+
+
+def test_hot_swap_replays_its_window_and_captures_again_after_the_flip(
+        cuda):
+    prompts = _mix(6, (5, 11, 3))
+    params = _model(cuda).init(0)
+    new = finetune_delta(params, 0.05)
+    reg = obs.registry()
+    runs = {}
+    for capture in (True, False):
+        model = _model(cuda, swap_leakage=True)   # a fresh executor each
+        leak = float(np.float32(write_leak_codes(model.executor.cfg)))
+        before = (reg.total("serve_jit_traces_total", closure="decode"),
+                  reg.total("serve_jit_retraces_total", closure="decode"))
+        sched = BatchScheduler(model, params, n_slots=2, max_len=64,
+                               capture=capture)
+        runs[capture] = _swap_run(sched, prompts, new)
+        rep = sched.capture_report()["A"]
+        assert rep["captures"] == (2 if capture else 0)
+        assert (reg.total("serve_jit_traces_total", closure="decode")
+                - before[0]) == 2
+        assert (reg.total("serve_jit_retraces_total", closure="decode")
+                - before[1]) == 0
+        (hist,) = sched.swap_history
+        assert hist["policy"] == "overlapped" and model.executor.version() == 2
+        streams, _, leaks, phase = runs[capture]
+        assert all(len(s) == 2 * MAX_NEW for s in streams.values())
+        flip = phase.index("flip")
+        assert phase[2:flip] == ["window"] * (flip - 2) and flip - 2 >= 3
+        assert hist["decode_steps_during_swap"] == flip - 2
+        assert len(phase) - flip >= 4        # a capture, then replays
+        assert leaks[2:flip] == [leak] * (flip - 2)
+        assert set(leaks[:2] + leaks[flip:]) == {0.0}
+    assert runs[True][0] == runs[False][0]
+    # the window reads the old planes (its leak rounds away): every token
+    # before the flip is that of a serve without a swap
+    _, plain_snaps, _, _ = _swap_run(
+        BatchScheduler(_model(cuda), params, n_slots=2, max_len=64),
+        prompts, None)
+    flip = runs[True][3].index("flip")
+    assert runs[True][1][:flip] == plain_snaps[:flip]
+    assert runs[True][1][flip:] != plain_snaps[flip:]
+
+
+def test_an_init_swap_serves_the_streams_of_no_swap(cuda):
+    prompts = _mix(7, (9, 4, 6))
+    model = _model(cuda)
+    params = model.init(0)
+    plain, _, _, _ = _swap_run(
+        BatchScheduler(model, params, n_slots=2, max_len=64), prompts, None)
+    sched = BatchScheduler(model, params, n_slots=2, max_len=64)
+    swapped, _, _, phase = _swap_run(sched, prompts, params)
+    assert "flip" in phase and sched._lane.params is params
+    assert sched.capture_report()["A"]["captures"] == 2
+    assert swapped == plain

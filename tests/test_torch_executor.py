@@ -97,7 +97,6 @@ def test_single_tenant_slice_refuses_later_features():
     w = torch.ones((8, 8))
     ex.program_params({"head": w})
     for call in (lambda: ex.program_params({"head": w}, tenant="B"),
-                 lambda: ex.begin_swap({"head": w}),
                  lambda: ex.evict_tenant("B")):
         with pytest.raises(NotImplementedError, match="later slice"):
             call()

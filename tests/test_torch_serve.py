@@ -239,9 +239,6 @@ def test_later_slices_raise_not_implemented(reference):
                dict(tenants={"A": params, "B": params})):
         with pytest.raises(NotImplementedError, match="later slice"):
             BatchScheduler(model, params, n_slots=2, max_len=32, **kw)
-    sched = BatchScheduler(model, params, n_slots=2, max_len=32)
-    with pytest.raises(NotImplementedError, match="hot-swap"):
-        sched.begin_hot_swap(params)
 
 
 @pytest.mark.parametrize("extra", [
@@ -332,7 +329,7 @@ def test_new_params_tree_builds_a_new_closure(reference):
     traces, retraces = _traces()
     assert (traces - before[0], retraces - before[1]) == (2, 0)
     # on the crossbar backend a new tree would re-program the tiles:
-    # refused until hot-swap lands
+    # refused (a new tree goes through begin_hot_swap)
     xsched = BatchScheduler(_port_model(), params, n_slots=2, max_len=32)
     xsched._lane.params = params_from_numpy(reference["params"], "cpu")
     xsched.submit(Request(rid=0, prompt=_prompts()[0], max_new=1))
