@@ -58,8 +58,19 @@ Phases, each of which fails the run (exit code 1, no result line):
              window and 2 replays after the flip (the window's steps,
              wall seconds, step ms against the replays before and after
              it, and peak memory logged), and one timed
-             ``stop_the_world_swap`` on a 16-layer scheduler; last the 36-layer
-             serve on one programmed model: eager (its step time, streams
+             ``stop_the_world_swap`` on a 16-layer scheduler; then the
+             multiplex serves at full width and 8 layers (``MUX_ARGV``:
+             tenants A and B at QoS 2:1 from one 2-plane bank, B's page
+             budget binding): the CLI's serve captured; on one programmed
+             model the serve captured and eager (equal streams per
+             tenant), an in-place swap of B onto its own checkpoint (the
+             no-swap streams; A one capture, B two, no retrace), an
+             ``evict_tenant("B")`` and live redeploy of B (the no-swap
+             streams), an in-place swap of B onto ``ft:0.02`` (A's
+             no-swap streams; A's replay ms before, inside and after B's
+             window, per-tenant tokens/s and peak memory logged), and a
+             dedicated single-tenant serve of B's checkpoint (B's
+             streams); last the 36-layer serve on one programmed model: eager (its step time, streams
              equal to the captured serve's), then captured and eager with
              steps 4 on in a ``torch.profiler`` trace of the card (step
              3 is the profiler's warm-up; a serve whose trace lost device
@@ -214,8 +225,9 @@ LAYER_PATH = ["wq", "wk/wv", "wk/wv", "attn wo", "wi/wg", "wi/wg", "mlp wo",
 
 def phase_crossbar_mac(torch, dev, flush):
     """The MAC at every qwen3-4b projection (B 16, 128 rows per ADC, leak
-    0 and 0.37), at the auto policy's 256-row reads, and at B 64 (the
-    long-context serve's batch): BITWISE equal to the exact int64 code
+    0 and 0.37), at the auto policy's 256-row reads, at B 64 (the
+    long-context serve's batch) and at B 20 and 12 (the multiplexed
+    serve's two lanes): BITWISE equal to the exact int64 code
     sums of ``crossbar_mac_codes_ref`` times the LSB, and within 1e-5 of
     the f32 plain version.  Runs at leak 0 are timed: call ms (CUDA
     events, the wrapper included) and device ms (the zeroing, MAC and
@@ -236,6 +248,10 @@ def phase_crossbar_mac(torch, dev, flush):
     # the long-context serve's 64 rows (4 slots x chunk 16)
     runs += [(geoms[-1], "deepnet", 128, 0.0, 64),
              (geoms[2], "deepnet", 128, 0.37, 64)]
+    # the multiplexed serve's lanes (``MUX_ARGV``): A's 5 slots and B's 3
+    # at chunk 4, so 20 rows (a partial second 16-row tile) and 12
+    runs += [(g, "deepnet", 128, leak, b) for b in (20, 12)
+             for g in (geoms[0], geoms[-1]) for leak in (0.0, 0.37)]
     for (name, k, n), mode, rows, leak, b in runs:
         x = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -416,12 +432,17 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
     return r
 
 
+#: the multiplexed serve's scratch lanes: (rows, fill of each row)
+MUX_PAGED_CASES = ((5, [64, 37, 12, 5, 31]), (3, [31, 20, 5]))
+
+
 def phase_paged_attention(torch, dev, flush):
     """Both lanes at their serving shapes (a 64-token table for the
     scratch lane, 512 tokens in 4-page blocks for the streamed lane), then
     both at the long-context shape (``LONG_CASE``), then the streamed lane
     at the long-context serve's shape (``SERVE_LONG_CASE``), past the
-    scratch lane's capacity."""
+    scratch lane's capacity, then the scratch lane at the multiplexed
+    serve's two lanes (``MUX_PAGED_CASES``)."""
     from repro_torch.kernels.paged_attention import kernel, ref
 
     gen = torch.Generator(device=dev)
@@ -447,6 +468,13 @@ def phase_paged_attention(torch, dev, flush):
     out["streamed"]["serve_long"] = _paged_measure(
         torch, kernel, ref, "streamed", serve_args, c["block_pages"],
         c["max_len"], c["kv_len"], flush)
+    # the multiplexed serve's scratch lanes (``MUX_ARGV``): A's 5 rows and
+    # B's 3 at chunk 4 over a 64-token table, qwen3-4b's 8 KV heads
+    for b_mux, kv_len in MUX_PAGED_CASES:
+        args = _paged_case(torch, dev, gen, b_mux, sq, 64, ps, hq, 8, hd,
+                           kv_len, torch.bfloat16)
+        out["scratch"][f"mux_b{b_mux}"] = _paged_measure(
+            torch, kernel, ref, "scratch", args, 0, 64, kv_len, flush)
     # a head dim off the streamed lane's compiled widths: 40 runs on
     # kernel.streamed_width(40) = 64, its extra columns zero
     kv_len = [512, 300, 77, 9]
@@ -760,12 +788,13 @@ def phase_parity(torch, dev, mode_policy=None):
                 done += sched.step()
                 steps += 1
             check(len(done) == len(prompts), "parity run did not finish")
-            cap = sched.capture_report()["A"]
+            caps = sched.capture_report()
+            cap = caps["A"]
             counted, _, by_rows = _read_counts()
-            ran = _executed(counted, cap)
+            ran = _executed(counted, caps)
             n_mac = ran["crossbar_mac"]
             n_pa = ran["paged_attention_scratch"]
-            _check_traced_once(cap, capture)
+            _check_traced_once(caps, capture)
             run = (use_kernel, kv, capture)
             streams[run] = {r.rid: r.out for r in done}
             check((n_mac > 0 and (n_pa > 0) == (kv == "paged"))
@@ -831,33 +860,42 @@ def _read_counts():
     return kernels, plain, dict(by_rows)
 
 
-def _executed(counted, cap):
+def _executed(counted, caps):
     """The kernel launches a serve ran: the wrappers count the eager
     steps' launches and, once, the launches each capture records; every
-    replay runs the recorded launches again, so the replays beyond the
-    one that follows each capture add ``launches_per_replay`` each."""
-    lpr = cap["launches_per_replay"]
-    return {k: n + lpr.get(k, 0) * (cap["replays"] - cap["captures"])
-            for k, n in counted.items()}
+    replay runs the recorded launches again, so the replays of each lane
+    (``caps``: the scheduler's ``capture_report()``) beyond the one that
+    follows each capture add its ``launches_per_replay`` each."""
+    out = dict(counted)
+    for cap in caps.values():
+        for k, n in cap["launches_per_replay"].items():
+            out[k] = out.get(k, 0) + n * (cap["replays"] - cap["captures"])
+    return out
 
 
-def _check_traced_once(cap, capture, closures=1):
-    """One trace of each of the lane's ``closures`` window-step closures
-    (a serve with a hot-swap builds two: before and after the flip) — its
-    capture, or its first call when eager — and no retrace, since the
-    counts were last set to 0."""
+def _check_traced_once(caps, capture, closures=1):
+    """One trace of each window-step closure each lane built (``closures``
+    per lane, or a count per tenant: a lane whose planes flip builds two,
+    before and after) — its capture, or its first call when eager — and
+    no retrace, since the counts were last set to 0."""
     from repro_torch import obs
 
+    if isinstance(closures, int):
+        closures = {t: closures for t in caps}
     reg = obs.registry()
     traces = reg.total("serve_jit_traces_total", closure="decode")
     retraces = reg.total("serve_jit_retraces_total", closure="decode")
-    check(traces == closures and retraces == 0,
+    want_traces = sum(closures.values())
+    check(traces == want_traces and retraces == 0,
           f"window step traced {traces} times, {retraces} retraces "
-          f"(want {closures}, 0)")
+          f"(want {want_traces}, 0)")
     want = (capture is not False)
-    check(cap["capture"] == want and cap["captures"] == closures * want
-          and (cap["replays"] > 0) == want,
-          f"capture report {cap} (capture={capture})")
+    for t, cap in caps.items():
+        check(cap["capture"] == want
+              and cap["captures"] == closures[t] * want
+              and (cap["replays"] > 0) == want,
+              f"lane {t}: capture report {cap} (capture={capture}, "
+              f"closures {closures[t]})")
 
 
 def _step_stats(step_s):
@@ -890,9 +928,10 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
     rep = run() if run is not None else serve.main(argv, capture=capture)
     torch.cuda.synchronize()
     counted, plain, by_rows = _read_counts()
-    cap = rep["capture"]
-    kernels = _executed(counted, cap)
-    _check_traced_once(cap, capture, closures)
+    caps = rep["captures"]
+    cap = caps["A"]
+    kernels = _executed(counted, caps)
+    _check_traced_once(caps, capture, closures)
     peak = torch.cuda.max_memory_allocated(dev)
     toks = [t for r in rep["requests"] for t in r.out]
     stats = _step_stats(rep["step_s"])
@@ -904,10 +943,12 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
         f"{stats['later_step_ms']:.2f} ms); programming "
         f"{rep['program_s']:.2f} s; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
+    lanes = "; ".join(
+        f"{t}: {c['captures']} capture(s), {c['replays']} replays of "
+        f"{c['launches_per_replay']}" for t, c in caps.items())
     log(f"  kernel launches run {kernels} (counted by the wrappers "
-        f"{counted}; {cap['captures']} capture, {cap['replays']} replays "
-        f"of {cap['launches_per_replay']}; crossbar_mac by rows per ADC "
-        f"{by_rows}); plain-version calls {plain}")
+        f"{counted}; {lanes}; crossbar_mac by rows per ADC {by_rows}); "
+        f"plain-version calls {plain}")
     n_req = int(argv[argv.index("--requests") + 1])
     max_new = int(argv[argv.index("--max-new") + 1])
     check(len(rep["requests"]) == n_req
@@ -924,14 +965,19 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
     return {"argv": argv, "tok_per_s": rep["tok_per_s"],
             "tokens": rep["tokens"], "steps": rep["steps"],
             "seconds": rep["seconds"], "program_s": rep["program_s"],
-            **stats, "capture": cap,
+            **stats, "capture": cap, "captures": caps,
             "streams": {r.rid: list(r.out) for r in rep["requests"]},
+            "tenant_of": {r.rid: r.model_id for r in rep["requests"]},
             "max_memory_allocated": peak, "memory_before": held,
             "launches": kernels, "launches_counted": counted,
             "launches_by_rows": by_rows,
             "plain_calls": plain, "mode_report": rep.get("mode_report"),
             "step_s": rep["step_s"], "swap_phase": rep["swap_phase"],
-            "swap_history": rep["swap_history"], "version": rep["version"]}
+            "swap_history": rep["swap_history"], "version": rep["version"],
+            "versions": rep.get("versions"), "qos": rep.get("qos"),
+            "kv": rep.get("kv"), "lane_ms": rep.get("lane_ms"),
+            "in_flight": {r.rid: [r.t_admit, r.t_done]
+                          for r in rep["requests"]}}
 
 
 def _device_events(torch, prof, out_dir):
@@ -1020,7 +1066,7 @@ def _traced_serve(torch, st, capture, out_dir, untraced=2):
         wall = time.perf_counter() - t0
     counted = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
     cap = sched.capture_report()["A"]
-    _check_traced_once(cap, capture)
+    _check_traced_once(sched.capture_report(), capture)
     if capture:
         check(cap["captures"] == cap0["captures"] == 1
               and cap["replays"] - cap0["replays"] == steps,
@@ -1099,7 +1145,7 @@ def _host_ops_of_one_step(torch, st, at_step=2, top=12):
         sched.step()
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    _check_traced_once(sched.capture_report()["A"], False)
+    _check_traced_once(sched.capture_report(), False)
     rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     host_ms = sum(e.self_cpu_time_total for e in rows) / 1e3
     ops = [{"name": e.key, "calls": e.count,
@@ -1132,8 +1178,7 @@ def phase_witness(torch, dev, argv, want, out_dir):
     program_s = time.perf_counter() - t0
     _reset_counts()
     rep = serve.drive(sched, st.requests(), dev)
-    cap = sched.capture_report()["A"]
-    _check_traced_once(cap, False)
+    _check_traced_once(sched.capture_report(), False)
     del sched
     streams = {r.rid: list(r.out) for r in rep["requests"]}
     check(streams == want, f"the eager 36-layer serve's streams {streams} "
@@ -1263,7 +1308,8 @@ def _drive(st, dev, swap_params=None):
     after, chunks = (int(SWAP_FLAGS[i]) for i in (1, 3))
     rep = serve.drive(sched, st.requests(), dev, swap_params=swap_params,
                       swap_after=after, swap_chunks=chunks)
-    rep.update(program_s=0.0, capture=sched.capture_report()["A"],
+    caps = sched.capture_report()
+    rep.update(program_s=0.0, capture=caps["A"], captures=caps,
                swap_history=list(sched.swap_history),
                version=st.model.executor.version())
     return rep
@@ -1361,6 +1407,280 @@ def phase_hotswap(torch, dev):
         f"{out['program_s']:.2f} s; max_memory_allocated "
         f"{peak / 1e9:.2f} GB")
     del st, sched, new
+    return out
+
+
+# -- phase 4c: multiplexing at full width ---------------------------------
+
+#: the multiplex serves: qwen3-4b at full width, 8 layers (until the
+#: promote an in-place swap of B holds three plane sets and three params
+#: trees, ~48 GB at 8 layers and ~77 GB at 16), tenants A (seed 0) and B
+#: (seed 1) at QoS 2:1, 8 requests round-robin.  --kv-pages 16 splits
+#: into 21 pages for A and 11 for B (``_split_slots``), and every request
+#: claims 4 pages (16 + 16 - 1 tokens): A's four requests all fit, B holds
+#: two of its four at a time, so the page budget binds on B's lane only
+MUX_ARGV = ["--arch", ARCH, "--layers", "8", "--backend", "crossbar",
+            "--use-kernel", "--kv", "paged", "--requests", "8", "--slots",
+            "4", "--prompt-len", "16", "--max-new", "16", "--max-len", "64",
+            "--chunk", "4", "--multiplex", "init,seed:1", "--qos", "2,1",
+            "--stack-planes", "2", "--kv-pages", "16"]
+#: the swap of B begins after this many steps (A's warm-up, its capture
+#: and 4 replays before the window), 256 chunks a step: 1,684 chunks (8 x
+#: 208 + 20) make 6 window steps and the flip
+MUX_SWAP_AT, MUX_CHUNKS, MUX_TOTAL_CHUNKS = 6, 256, 1684
+#: the memory an in-place swap at 8 layers was reckoned to peak at (GB)
+MUX_RECKONED_GB = (50, 62)
+
+
+class _TimedStep:
+    """A lane's window step, timed: for each call the host ms (ending in
+    a sync), whether it replayed, captured or ran eagerly, and the step
+    it belongs to; every other attribute is the step's own."""
+
+    def __init__(self, step, tenant, rec, clock):
+        self._step, self._tenant = step, tenant
+        self._rec, self._clock = rec, clock
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, *args):
+        import torch
+
+        stats = self._step.stats
+        before = (stats["captures"], stats["replays"])
+        t0 = time.perf_counter()
+        out = self._step(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = ("capture" if stats["captures"] > before[0] else
+                "replay" if stats["replays"] > before[1] else "eager")
+        self._rec.append({"tenant": self._tenant, "kind": kind, "ms": ms,
+                          "step": self._clock["step"]})
+        return out
+
+
+def _mux_drive(st, dev, swap=None, capture=None):
+    """A serve of ``st``'s requests on its model, whose tenants are
+    resident (``launch/serve.drive``), each lane's step timed; with
+    ``swap``, a hot-swap of tenant B onto it begins after
+    ``MUX_SWAP_AT`` steps.  Returns what ``launch/serve.main`` returns,
+    plus the lanes' timings."""
+    from repro_torch.launch import serve
+
+    sched = st.scheduler(capture)
+    rec, clock = [], {"step": 0}
+    for t, lane in sched._lanes.items():
+        lane.decode = _TimedStep(lane.decode, t, rec, clock)
+
+    def on_step(n):
+        clock["step"] = n
+        if swap is not None and n == MUX_SWAP_AT:
+            sched.begin_hot_swap(swap, chunks_per_step=MUX_CHUNKS,
+                                 tenant="B")
+
+    rep = serve.drive(sched, st.requests(), dev, on_step=on_step)
+    ex = st.model.executor
+    caps = sched.capture_report()
+    rep.update(program_s=0.0, capture=caps["A"], captures=caps,
+               swap_history=list(sched.swap_history),
+               version=ex.version(), lane_ms=rec,
+               versions={t: ex.version(t) for t in sched.tenants},
+               qos=sched.qos_report(), kv=sched.kv_report())
+    return rep
+
+
+def _by_tenant(sv, tenant):
+    return {r: s for r, s in sv["streams"].items()
+            if sv["tenant_of"][r] == tenant}
+
+
+def _most_in_flight(sv, tenant):
+    """The most requests of ``tenant`` admitted and unfinished at once."""
+    spans = [sv["in_flight"][r] for r in sv["streams"]
+             if sv["tenant_of"][r] == tenant]
+    return max(sum(a <= t < b for a, b in spans) for t, _ in spans)
+
+
+def _tenant_tok_per_s(sv, tenant):
+    """A tenant's tokens over the wall time from its first admission to
+    its last completion (scheduler clock)."""
+    rids = [r for r in sv["streams"] if sv["tenant_of"][r] == tenant]
+    span = (max(sv["in_flight"][r][1] for r in rids)
+            - min(sv["in_flight"][r][0] for r in rids))
+    return sum(len(sv["streams"][r]) for r in rids) / span
+
+
+def _lane_windows(sv, tenant="A"):
+    """Tenant's replay ms before B's window, inside it and after the
+    flip, from the timed lane steps."""
+    phase = sv["swap_phase"]
+    first, flip = phase.index("window"), phase.index("flip")
+    check(phase[first:flip] == ["window"] * (flip - first)
+          and "window" not in phase[flip:],
+          f"the swap window is not one run of steps: {phase}")
+    out = {"before_ms": [], "window_ms": [], "after_ms": []}
+    for r in sv["lane_ms"]:
+        if r["tenant"] != tenant or r["kind"] != "replay":
+            continue
+        key = ("before_ms" if r["step"] < first else
+               "window_ms" if r["step"] < flip else "after_ms")
+        out[key].append(r["ms"])
+    out.update(first_window_step=first, flip_step=flip,
+               window_steps=flip - first)
+    return out
+
+
+def phase_multiplex(torch, dev):
+    """Two tenants from one plane bank at full width, 8 layers: the CLI's
+    multiplexed serve, captured; then on one model, programmed once, the
+    serve without a swap captured and eager (equal streams per tenant),
+    with an in-place swap of B onto its own checkpoint (B's streams, A's
+    streams, A one capture and B two), after ``evict_tenant("B")`` and a
+    live redeploy of B's checkpoint (the same streams), and with an
+    in-place swap of B onto ``finetune_delta(B, 0.02)`` (A's streams; the
+    timed window and peak memory); last a dedicated single-tenant serve
+    of B's checkpoint on B's requests (B's streams)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import BatchScheduler, Request
+    from repro_torch.serve.hotswap import finetune_delta
+
+    must = ["crossbar_mac", "paged_attention_scratch"]
+    t_phase = time.perf_counter()
+    out = {"argv": MUX_ARGV}
+    log(f"  {' '.join(MUX_ARGV)}; captured, through the CLI")
+    cli = out["cli"] = phase_serve(torch, dev, MUX_ARGV, must)
+    check(cli["versions"] == {"A": 1, "B": 1}
+          and cli["kv"]["A"]["budget"] == 21 and cli["kv"]["B"]["budget"]
+          == 11 and cli["qos"]["A"]["slots"] == 5
+          and cli["qos"]["B"]["slots"] == 3,
+          f"multiplex split: versions {cli['versions']}, qos {cli['qos']}")
+    check(_most_in_flight(cli, "A") == 4 and _most_in_flight(cli, "B") == 2,
+          f"in flight at once: A {_most_in_flight(cli, 'A')}, B "
+          f"{_most_in_flight(cli, 'B')} (want 4 and 2: B's page budget "
+          f"binds)")
+    log("  one programmed model: no swap captured and eager, an in-place "
+        "swap of B onto its own checkpoint, evict + redeploy B, an "
+        "in-place swap of B onto ft:0.02")
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = serve.setup(MUX_ARGV)
+    ex = st.model.executor
+    params_b = st.tenants["B"][0]
+    t0 = time.perf_counter()
+    for t, (params, _) in sorted(st.tenants.items()):
+        ex.program_params(params, tenant=t)
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+    base = out["no_swap"] = phase_serve(
+        torch, dev, MUX_ARGV, must, run=lambda: _mux_drive(st, dev))
+    check(base["streams"] == cli["streams"],
+          "the programmed model's streams differ from the CLI's")
+    eager = out["eager"] = phase_serve(
+        torch, dev, MUX_ARGV, must, capture=False,
+        run=lambda: _mux_drive(st, dev, capture=False))
+    for t in "AB":
+        check(_by_tenant(eager, t) == _by_tenant(base, t),
+              f"tenant {t}: captured and eager streams differ")
+    two = {"A": 1, "B": 2}
+    init = out["init_b"] = phase_serve(
+        torch, dev, MUX_ARGV, must, closures=two,
+        run=lambda: _mux_drive(st, dev, swap=params_b))
+    check(init["streams"] == base["streams"],
+          "in-place swap of B onto its own checkpoint: streams differ "
+          "from the serve without a swap")
+    check(init["versions"] == {"A": 1, "B": 2},
+          f"versions after B's swap {init['versions']}")
+    ex.evict_tenant("B")
+    check(ex.tenants == ["A"], f"resident after eviction: {ex.tenants}")
+    t0 = time.perf_counter()
+    stats = ex.swap(params_b, chunk_burst=MUX_CHUNKS, tenant="B")
+    torch.cuda.synchronize()
+    out["redeploy_s"] = time.perf_counter() - t0
+    check(stats["swap_mode"] == "staged" and ex.tenants == ["A", "B"],
+          f"live redeploy of B: {stats}")
+    redeploy = out["redeploy_b"] = phase_serve(
+        torch, dev, MUX_ARGV, must, run=lambda: _mux_drive(st, dev))
+    check(redeploy["streams"] == base["streams"],
+          "evict + redeploy of B: streams differ from the serve without "
+          "a swap")
+    ft = finetune_delta(params_b, 0.02)
+    torch.cuda.synchronize()
+    swap = out["ft_b"] = phase_serve(
+        torch, dev, MUX_ARGV, must, closures=two,
+        run=lambda: _mux_drive(st, dev, swap=ft))
+    del ft
+    check(_by_tenant(swap, "A") == _by_tenant(base, "A"),
+          "A's streams under B's in-place swap differ from no swap")
+    check(swap["versions"] == {"A": 1, "B": 4},
+          f"versions after evict, redeploy and B's ft swap "
+          f"{swap['versions']}")
+    for key, sv in (("init_b", init), ("ft_b", swap)):
+        (h,) = sv["swap_history"]
+        check(h["tenant"] == "B" and h["swap_mode"] == "in_place"
+              and h["policy"] == "overlapped"
+              and h["n_chunks"] == MUX_TOTAL_CHUNKS,
+              f"{key}: swap report {h}")
+        w = sv["lanes"] = _lane_windows(sv)
+        check(w["window_steps"] == 6 and h["decode_steps_during_swap"]
+              == 6 and len(w["before_ms"]) >= 3 and len(w["window_ms"])
+              == 6 and len(w["after_ms"]) >= 3,
+              f"{key}: A's replays around B's window {w}")
+        med = {k: statistics.median(w[k]) for k in
+               ("before_ms", "window_ms", "after_ms")}
+        sv["a_replay_median_ms"] = med
+        wb = _lane_windows(sv, "B")
+        check(not wb["window_ms"], f"{key}: B replayed inside its window")
+        sv["b_replay_median_ms"] = {k: statistics.median(wb[k]) for k in
+                                    ("before_ms", "after_ms")}
+        lpr = {t: c["launches_per_replay"].get("crossbar_mac", 0)
+               for t, c in sv["captures"].items()}
+        log(f"  {key}: {h['n_chunks']} chunks in {w['window_steps']} "
+            f"window steps, window {h['wall_swap_s']:.3f} s wall; A's "
+            f"replay ms median before {med['before_ms']:.2f}, in B's "
+            f"window {med['window_ms']:.2f}, after {med['after_ms']:.2f} "
+            f"(B's before {sv['b_replay_median_ms']['before_ms']:.2f}, "
+            f"after {sv['b_replay_median_ms']['after_ms']:.2f}); captures "
+            f"{ {t: c['captures'] for t, c in sv['captures'].items()} }, "
+            f"replays { {t: c['replays'] for t, c in sv['captures'].items()} }"
+            f"; MAC launches per replay {lpr}; max_memory_allocated "
+            f"{sv['max_memory_allocated'] / 1e9:.2f} GB (reckoned "
+            f"{MUX_RECKONED_GB[0]}-{MUX_RECKONED_GB[1]} GB)")
+    for key in ("cli", "no_swap", "eager", "init_b", "redeploy_b", "ft_b"):
+        sv = out[key]
+        sv["tok_per_s_by_tenant"] = {t: _tenant_tok_per_s(sv, t)
+                                     for t in "AB"}
+        log(f"  {key}: tokens/s by tenant over its own span, A "
+            f"{sv['tok_per_s_by_tenant']['A']:.2f}, B "
+            f"{sv['tok_per_s_by_tenant']['B']:.2f}")
+    log("  a dedicated single-tenant serve of B's checkpoint on B's "
+        "requests")
+    ded = build_model(st.model.cfg, device=dev)
+    t0 = time.perf_counter()
+    ded.executor.program_params(params_b)
+    torch.cuda.synchronize()
+    out["dedicated_program_s"] = time.perf_counter() - t0
+    a = st.args
+    sched = BatchScheduler(ded, params_b, n_slots=a.slots,
+                           max_len=a.max_len, kv=a.kv,
+                           page_size=a.page_size, chunk=a.chunk)
+    reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=r.max_new)
+            for r in st.requests() if r.model_id == "B"]
+    rep = serve.drive(sched, reqs, dev)
+    got = {r.rid: list(r.out) for r in rep["requests"]}
+    check(got == _by_tenant(base, "B"),
+          "B's multiplexed streams differ from a dedicated serve of B")
+    out["dedicated_b"] = {"tok_per_s": rep["tok_per_s"],
+                          "steps": rep["steps"], "seconds": rep["seconds"]}
+    del sched, ded, st, ex, params_b
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  multiplex phase: {out['seconds']:.1f} s (programming two "
+        f"tenants {out['program_s']:.2f} s, redeploying B "
+        f"{out['redeploy_s']:.2f} s, programming the dedicated B "
+        f"{out['dedicated_program_s']:.2f} s)")
+    for key in ("cli", "no_swap", "eager", "init_b", "redeploy_b", "ft_b"):
+        out[key].pop("lane_ms", None)
     return out
 
 
@@ -1476,6 +1796,9 @@ def main() -> int:
         phase = "hotswap"
         log("  hot-swap at full width, 16 layers")
         report["hotswap"] = phase_hotswap(torch, dev)
+        phase = "multiplex"
+        log("  multiplexing two tenants at full width, 8 layers")
+        report["multiplex"] = phase_multiplex(torch, dev)
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
@@ -1509,6 +1832,7 @@ def main() -> int:
     stream_l = report["serve_streamed"]["launches"]
     long_l = report["serve_long"]["launches"]
     swap_l = report["hotswap"]["ft"]["launches"]
+    mux_l = report["multiplex"]["ft_b"]["launches"]
     kernels = [
         {"name": "crossbar_mac", "route": "cuda",
          "source": "src/repro_torch/csrc/crossbar_mac.cu",
@@ -1521,6 +1845,7 @@ def main() -> int:
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": None, "shape": f"B=16 K={head['k']} N={head['n']}",
          "swap_serve_launches": swap_l["crossbar_mac"],
+         "mux_serve_launches": mux_l["crossbar_mac"],
          "b64_ms": head64["ms"], "b64_device_ms": head64["device_ms"],
          "b64_bound_ms": head64["bound_ms"],
          "step_device_ms": witness["trace_captured"][
@@ -1544,15 +1869,19 @@ def main() -> int:
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": f"src/repro/kernels/paged_attention/kernel.py:{line}",
             "launches": launches,
-            "max_abs_err": max(x["max_abs_err"] for x in
-                               (r, lg, r.get("serve_long", lg),
-                                r.get("hd40", lg))),
+            "max_abs_err": max([r["max_abs_err"]] + [
+                r[k]["max_abs_err"] for k in (
+                    "long", "serve_long", "hd40", "mux_b5", "mux_b3")
+                if k in r]),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": f"B={r['b']} sq={r['sq']} max_len={r['max_len']}",
             "long_launches": long_l[f"paged_attention_{lane}"],
+            "mux_serve_launches": mux_l.get(f"paged_attention_{lane}", 0),
+            **{f"mux_b{b}_device_ms": r[f"mux_b{b}"]["device_ms"]
+               for b, _ in MUX_PAGED_CASES if f"mux_b{b}" in r},
             "long_ms": lg["ms"], "long_device_ms": lg["device_ms"],
             "long_library_ms": lg["library_ms"],
             "long_bound_ms": lg["bound_ms"],

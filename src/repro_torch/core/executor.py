@@ -1,6 +1,6 @@
 """Weight-resident crossbar execution: program at load, read at inference.
 
-The counterpart of ``repro.core.executor`` for one tenant:
+The counterpart of ``repro.core.executor``:
 
   * :meth:`CrossbarExecutor.program_params` walks a model's params tree
     once, classifies every eligible linear weight (attention projections,
@@ -25,18 +25,31 @@ fuses the accuracy-critical weights (attention, the LM head) and keeps
 the MLP in deep-net layout; :meth:`CrossbarExecutor.mode_report` scores
 each choice with the exact nodal IR-drop solves of ``core/ir_drop.py``.
 
-:meth:`CrossbarExecutor.begin_swap` is the paper's deep-net mode at
-the serving tier: a staging slot is reserved per bank, the new
-checkpoint programs into it in write-latency-costed chunks
-(:meth:`~CrossbarExecutor.write_chunks`, meant to interleave with decode
-steps), each weight is write-verified against a one-shot programming,
-and :meth:`~CrossbarExecutor.promote` retargets the tenant's
-read-enable atomically — the tenant serves its old planes through the
-whole window.
+Every weight is a :class:`~repro_torch.core.planes.PlaneBank` of
+``stack_planes`` role-tagged slots, and the executor keeps one residency
+registry over the banks: ``program_params(params, tenant=...)`` deploys
+up to ``stack_planes`` checkpoints (tenants "A", "B", ...; one plane
+each), and ``linear(..., tenant=...)`` or the ambient :meth:`read_tenant`
+scope selects the tenant's plane per bank — N models served from one
+physical stack.  "A" anchors the banks: it is never evicted and its
+reads never pause.
 
-This slice serves one tenant (``"A"``).  Multi-tenant multiplexing,
-with the in-place swap lifecycle and eviction of a second tenant, is a
-later slice of the port and raises ``NotImplementedError``.
+:meth:`CrossbarExecutor.begin_swap` is the paper's deep-net mode at the
+serving tier.  With a free plane the swap is **staged**: a staging slot
+is reserved per bank, the new checkpoint programs into it in
+write-latency-costed chunks (:meth:`~CrossbarExecutor.write_chunks`,
+meant to interleave with decode steps), each weight is write-verified
+against a one-shot programming, and :meth:`~CrossbarExecutor.promote`
+retargets the tenant's read-enable atomically — the tenant serves its
+old planes through the whole window; a tenant not yet resident deploys
+live the same way.  With a full bank a resident non-anchor tenant is
+rewritten **in place**: its reads pause for the window while every other
+tenant keeps serving.
+
+Each tenant's plane set carries a generation (:meth:`plane_generation`)
+that moves whenever its planes are programmed, promoted, rewritten or
+evicted; a captured serving step records it and is dropped when it
+moved, since a CUDA graph holds plane addresses, not planes.
 """
 from __future__ import annotations
 
@@ -60,8 +73,6 @@ _ATTN_KEYS = {"wq": 1, "wk": 1, "wv": 1, "wo": 2}
 _MLP_KEYS = {"wi": 1, "wg": 1, "wo": 1}
 # top-level param stacks whose leading axis is the layer index
 _STACKED_ROOTS = ("blocks",)
-#: the one tenant this slice serves
-TENANT = "A"
 
 #: per-weight read modes a policy may assign ("auto" resolves to one)
 READ_MODES = ("expansion", "deepnet")
@@ -71,12 +82,6 @@ READ_MODES = ("expansion", "deepnet")
 #: name / dotted name fragment to a mode (values may themselves be
 #: "auto"; the special key "default" covers unmatched weights)
 ModePolicy = Union[None, str, Dict[str, str]]
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is a later slice of the PyTorch port (ROADMAP.md); this "
-        f"slice serves one tenant")
 
 
 def flatten_with_path(tree: Any, prefix: Tuple[str, ...] = ()
@@ -117,6 +122,12 @@ class CrossbarExecutor:
         self._programmed_leaves: Dict[str, Tuple[Any, ...]] = {}
         self._swap: Optional[SwapPlan] = None
         self._versions: Dict[str, int] = {}
+        # per tenant, moved whenever its plane set changes (programmed,
+        # promoted, rewritten in place, evicted); see plane_generation
+        self._generations: Dict[str, int] = {}
+        # ambient tenant for linear()/fingerprint()/ensure_programmed()
+        # when no tenant is passed; set by read_tenant()
+        self._read_tenant: str = "A"
         # ambient leak override: a serving step runs under
         # leak_scope(<device scalar>) so the kernel reads the leak from
         # device memory
@@ -149,16 +160,51 @@ class CrossbarExecutor:
     def stack_planes(self) -> int:
         return self.cfg.stack_planes
 
+    @property
+    def tenant_names(self) -> Tuple[str, ...]:
+        """The addressable tenant population, one name per plane slot."""
+        return self.cfg.device.tenant_names
+
+    @property
+    def anchor(self) -> str:
+        """The anchor tenant (the first name, "A"): required by the
+        serving tier, never evicted, and never paused by an in-place
+        rewrite — its deploys go through staged swaps."""
+        return self.tenant_names[0]
+
+    def _check_tenant(self, tenant: str) -> str:
+        if tenant not in self.tenant_names:
+            raise ValueError(
+                f"unknown tenant {tenant!r}: a {self.stack_planes}-plane "
+                f"stack serves at most tenants {self.tenant_names}")
+        return tenant
+
     def _resolve_tenant(self, tenant: Optional[str]) -> str:
-        if tenant not in (None, TENANT):
-            raise _later(f"tenant {tenant!r} (multi-tenant multiplexing)")
-        return TENANT
+        return self._check_tenant(tenant or self._read_tenant)
 
     @contextlib.contextmanager
     def read_tenant(self, tenant: str):
-        """Ambient-tenant scope; this slice serves tenant "A" only."""
-        self._resolve_tenant(tenant)
-        yield self
+        """Ambient-tenant scope: reads (and programming checks) inside
+        the block address ``tenant``'s plane set.  A serving lane enters
+        it before its step runs or is captured, so the step reads that
+        tenant's planes."""
+        self._check_tenant(tenant)
+        prev, self._read_tenant = self._read_tenant, tenant
+        try:
+            yield self
+        finally:
+            self._read_tenant = prev
+
+    def plane_generation(self, tenant: str) -> int:
+        """A counter that moves whenever ``tenant``'s plane set changes:
+        programmed, promoted (staged or in place) or evicted.  A CUDA
+        graph holds the device addresses of the planes it read, so a
+        captured step records this at capture and must not replay once
+        it moved."""
+        return self._generations.get(self._check_tenant(tenant), 0)
+
+    def _planes_changed(self, tenant: str) -> None:
+        self._generations[tenant] = self._generations.get(tenant, 0) + 1
 
     @property
     def tenants(self) -> List[str]:
@@ -423,6 +469,8 @@ class CrossbarExecutor:
         programmed."""
         tenant = self._resolve_tenant(tenant)
         self._validate_policy(mode_policy)
+        if tenant not in self._programmed_leaves:
+            self._require_free_plane(tenant)
         leaves = flatten_with_path(params)
         tree = tuple(w for _, w in leaves)
         if tenant not in self._programmed_leaves:
@@ -450,7 +498,34 @@ class CrossbarExecutor:
                                          reason)
         if new:
             self._versions[tenant] = self._versions.get(tenant, 0) + 1
+            self._planes_changed(tenant)
         return new
+
+    def _require_free_plane(self, tenant: str) -> None:
+        """A first-time tenant needs one free slot per bank.  Resident
+        tenants (an expansion-fused one holds two slots in its banks),
+        an in-flight staged swap's reserved slot and fused companions
+        all occupy planes; admitting a tenant past the bound would
+        overflow the stack or take the plane an open swap lands on at
+        promote().  Bank slot roles are the ground truth once banks
+        exist; before any does, the tenant count is."""
+        staging = self._swap is not None and not self._swap.in_place
+        if self._cache:
+            if min(b.n_free for b in self._cache.values()) > 0:
+                return
+        else:
+            occupied = len(self._programmed_leaves) + (1 if staging else 0)
+            if occupied < self.stack_planes:
+                return
+        if staging:
+            raise RuntimeError(
+                f"cannot deploy new tenant {tenant!r} while a hot-swap is "
+                f"in flight (the staging plane is the swap's write "
+                f"target); promote() or abort_swap() first")
+        raise RuntimeError(
+            f"stack is full: {self.stack_planes} planes hold resident "
+            f"tenants {self.tenants}; evict_tenant() before deploying "
+            f"{tenant!r}")
 
     def _program_one(self, name: str, w: torch.Tensor, n_in: int,
                      tenant: str, mode: Optional[str], reason: str) -> int:
@@ -461,8 +536,8 @@ class CrossbarExecutor:
                 raise RuntimeError(
                     f"{name}: tenant {tenant!r} is already resident in "
                     f"{have} layout but the policy asks for {mode}; mode "
-                    f"is physical plane layout — re-program a fresh "
-                    f"executor to change it")
+                    f"is physical plane layout — evict_tenant() and "
+                    f"re-program to change it")
             self._event("cache_hits", "crossstack_program_cache_hits_total",
                         "re-walks that found the weight already resident",
                         tenant=tenant)
@@ -473,6 +548,13 @@ class CrossbarExecutor:
             bank = self._cache[name] = PlaneBank(
                 name, n_planes=self.stack_planes)
             self._n_in[name] = n_in
+        else:
+            ref = bank.any_plane
+            if (w2d.shape[0], w2d.shape[1]) != (ref.k, ref.n):
+                raise ValueError(
+                    f"{name}: tenant {tenant!r} weight shape "
+                    f"{tuple(w2d.shape)} != the bank's tile geometry "
+                    f"{(ref.k, ref.n)}; tenants share physical stacks")
         if self._device is None:
             self._device = w2d.device
         # programming is mode-independent: the same ProgrammedLinear
@@ -525,8 +607,15 @@ class CrossbarExecutor:
         while a swap is in flight with ``cfg.swap_leakage``, else 0.0).
         The leak always reaches the MAC as a device scalar, so a read
         makes no host value into a device operand, and a captured step
-        reads its leak from device memory."""
+        reads its leak from device memory.  Reads of a tenant whose own
+        planes are mid-write (an in-place swap) are refused: those
+        wordlines drive write pulses, not read pulses."""
         tenant = self._resolve_tenant(tenant)
+        if (self._swap is not None and self._swap.in_place
+                and self._swap.tenant == tenant):
+            raise RuntimeError(
+                f"tenant {tenant!r} planes are mid-write (in-place swap "
+                f"in flight); reads resume after promote()")
         bank = self._cache[name]
         pw = bank.active_for(tenant)
         cfg = self._read_cfg(bank.mode_for(tenant))
@@ -568,15 +657,15 @@ class CrossbarExecutor:
         return {n: p.fingerprint_for(tenant)
                 for n, p in sorted(self._cache.items())}
 
-    def version(self, tenant: str = TENANT) -> int:
-        """Monotone deploy counter: 0 = unprogrammed; +1 per program walk
-        that wrote tiles; +1 per promoted swap."""
-        return self._versions.get(self._resolve_tenant(tenant), 0)
+    def version(self, tenant: str = "A") -> int:
+        """Per-tenant monotone deploy counter: 0 = unprogrammed; +1 per
+        program walk that wrote tiles; +1 per promoted swap."""
+        return self._versions.get(self._check_tenant(tenant), 0)
 
     @property
     def programmed_version(self) -> int:
         """Tenant A's deploy counter; see :meth:`version`."""
-        return self.version(TENANT)
+        return self.version("A")
 
     # -- deep-net hot-swap (write the shadow planes, then flip) --------------
 
@@ -584,12 +673,19 @@ class CrossbarExecutor:
     def swap_in_flight(self) -> bool:
         return self._swap is not None
 
-    def begin_swap(self, params: Any, tenant: str = TENANT) -> SwapPlan:
-        """Stage ``params`` for chunked programming of the tenant's plane
-        set: a staging slot is reserved per bank, the new checkpoint
-        programs into it chunk by chunk (:meth:`write_chunks`), and
+    def begin_swap(self, params: Any, tenant: str = "A") -> SwapPlan:
+        """Stage ``params`` for chunked programming of a tenant's plane
+        set.
+
+        With a free plane in every bank the swap is **staged**: a
+        staging slot is reserved per bank, the new checkpoint programs
+        into it chunk by chunk (:meth:`write_chunks`), and
         :meth:`promote` retargets the tenant's read-enable atomically —
-        the tenant never stops serving.
+        the tenant (resident, or a first-time live deploy) never stops
+        serving.  With a full bank a resident non-anchor tenant is
+        rewritten **in place**: its reads pause until :meth:`promote`
+        while every other tenant keeps serving.  The anchor's reads never
+        pause, so its swaps need a free plane.
 
         The incoming tree must carry exactly the resident tile set with
         matching shapes (a new checkpoint, a fine-tuned delta or
@@ -597,18 +693,22 @@ class CrossbarExecutor:
 
         Expansion-fused weights refuse overlap writes: a fused pair holds
         both of its planes RE-high for the tenant's reads, so there is no
-        write shadow to stage into.  The anchor tenant, whose reads may
-        never pause, therefore cannot swap at all while any of its
-        weights is fused.
+        write shadow to stage into.  A tenant with any fused weight
+        therefore always swaps in place, and the anchor cannot swap at
+        all while fused.
         """
-        tenant = self._resolve_tenant(tenant)
+        self._check_tenant(tenant)
         if not self._cache:
             raise RuntimeError("nothing programmed; call program_params "
                                "before begin_swap")
         if self._swap is not None:
             raise RuntimeError("a hot-swap is already in flight; promote() "
                                "or abort_swap() first")
-        if any(bank.is_fused(tenant) for bank in self._cache.values()):
+        resident = tenant in self._programmed_leaves
+        fused = resident and any(
+            bank.is_fused(tenant) for bank in self._cache.values()
+            if bank.has_tenant(tenant))
+        if fused and tenant == self.anchor:
             raise RuntimeError(
                 f"tenant {tenant!r} holds expansion-fused planes (both "
                 f"RE high — no write shadow) and anchors the stack, so "
@@ -616,6 +716,27 @@ class CrossbarExecutor:
                 f"expansion-mode anchor deploys are cold deploys "
                 f"(evict/reprogram), or program the anchor in deep-net "
                 f"layout to hot-swap it")
+        n_free = min(bank.n_free for bank in self._cache.values())
+        if fused:
+            # overlap refused: rewrite the fused tenant's own pair with
+            # reads paused, whatever free planes exist
+            n_free = 0
+        if n_free == 0 and not fused:
+            others = sorted(t for t in self._programmed_leaves
+                            if t != tenant)
+            if not resident:
+                raise RuntimeError(
+                    f"cannot live-deploy tenant {tenant!r}: stack is full "
+                    f"({self.stack_planes} planes hold tenant(s) "
+                    f"{others}); evict_tenant() first")
+            if tenant == self.anchor:
+                raise RuntimeError(
+                    f"tenant {tenant!r} has no free write plane: the "
+                    f"{self.stack_planes}-plane stack also holds "
+                    f"tenant(s) {others}, and the anchor tenant cannot "
+                    f"pause for an in-place rewrite; swap or evict one "
+                    f"of {others} first")
+        in_place = resident and n_free == 0
         leaves = flatten_with_path(params)
         programs = []
         for name, w, n_in in self._eligible(leaves):
@@ -635,11 +756,14 @@ class CrossbarExecutor:
         if missing:
             raise ValueError(
                 f"swap tree is missing resident tiles: {sorted(missing)}")
-        # reserve the write target up front (all validation passed)
-        for bank in self._cache.values():
-            bank.reserve_staging()
+        if not in_place:
+            # reserve the write target up front (all validation passed):
+            # a concurrent new-tenant deploy cannot claim the plane this
+            # swap lands on at promote()
+            for bank in self._cache.values():
+                bank.reserve_staging()
         self._swap = SwapPlan(programs, tuple(w for _, w in leaves), params,
-                              tenant=tenant)
+                              tenant=tenant, in_place=in_place)
         self._swap_t0 = time.perf_counter()
         return self._swap
 
@@ -671,8 +795,10 @@ class CrossbarExecutor:
         by THIS plan — before any bank changes, so a read can never
         observe a mixed-plane state.  Each bank's staging slot becomes
         the tenant's resident plane and the previous slot reverts to free
-        (its plane tensors are released: a captured step that read them
-        must be dropped).  Returns the promoted params tree.
+        (its plane tensors are released); an in-place plan rewrites the
+        tenant's own slot and un-pauses its reads.  Either way the
+        tenant's plane generation moves, so a captured step that read the
+        old planes is dropped.  Returns the promoted params tree.
         """
         plan = self._swap
         if plan is None:
@@ -688,16 +814,22 @@ class CrossbarExecutor:
                     f"{got[1] if got else None} != checkpoint {fp}; "
                     f"refusing to promote")
         for cp in plan.programs:
+            bank = self._cache[cp.name]
             pw, fp = plan.staged[cp.name]
-            self._cache[cp.name].land_staged(plan.tenant, pw, fp)
+            if plan.in_place:
+                bank.assign(plan.tenant, pw, fp)
+            else:
+                bank.land_staged(plan.tenant, pw, fp)
         self._programmed_leaves[plan.tenant] = plan.leaves
         self._versions[plan.tenant] = self._versions.get(plan.tenant, 0) + 1
+        self._planes_changed(plan.tenant)
+        lifecycle = "in_place" if plan.in_place else "staged"
         self._event("swaps", "crossstack_swaps_total",
                     "promoted plane-set swaps, by lifecycle",
-                    tenant=plan.tenant, lifecycle="staged")
+                    tenant=plan.tenant, lifecycle=lifecycle)
         obs.tracer().record(
             "executor_swap", self._swap_t0, time.perf_counter(),
-            tenant=plan.tenant, lifecycle="staged",
+            tenant=plan.tenant, lifecycle=lifecycle,
             chunks=plan.total_chunks,
             device_write_s=plan.device_write_time())
         self._swap = None
@@ -705,22 +837,23 @@ class CrossbarExecutor:
         return plan.params
 
     def abort_swap(self) -> None:
-        """Drop an in-flight swap; the resident planes keep serving
-        (written-and-verified planes are buffered in the plan and never
-        touch a bank before promote, so abort is pure discard — the
-        reserved staging slots revert to free)."""
+        """Drop an in-flight swap; every tenant's resident planes keep
+        serving (written-and-verified planes are buffered in the plan and
+        never touch a bank before promote, so abort is pure discard — a
+        staged plan's reserved slots revert to free)."""
         if self._swap is not None:
             obs.registry().counter(
                 "crossstack_swap_aborts_total",
                 help="in-flight swaps discarded before promote").inc(
                     tenant=self._swap.tenant)
-            for bank in self._cache.values():
-                bank.release_staging()
+            if not self._swap.in_place:
+                for bank in self._cache.values():
+                    bank.release_staging()
         self._swap = None
         self._swap_t0 = None
 
     def swap(self, params: Any, chunk_burst: int = 64,
-             tenant: str = TENANT) -> Dict[str, Any]:
+             tenant: str = "A") -> Dict[str, Any]:
         """Blocking swap: stage, write every chunk, promote — the
         stop-the-world comparison point and the API for offline reloads
         (the overlapped path interleaves ``write_chunks`` with decode
@@ -732,18 +865,33 @@ class CrossbarExecutor:
         return {"n_tiles": len(plan.programs),
                 "n_chunks": plan.total_chunks,
                 "tenant": plan.tenant,
-                "swap_mode": "staged",
+                "swap_mode": "in_place" if plan.in_place else "staged",
                 "device_write_s": plan.device_write_time(),
                 "programmed_version": self.version(plan.tenant)}
 
     def evict_tenant(self, tenant: str) -> None:
-        """The anchor tenant cannot be evicted (reprogram it via swap);
-        evicting a second tenant comes with multi-tenant serving."""
-        if tenant == TENANT:
+        """Evict a resident tenant: its slot in every bank (and a fused
+        companion) reverts to free, and its plane generation moves.  The
+        anchor cannot be evicted (reprogram it via swap), and nothing is
+        evicted while a swap plan is in flight over the stack's weights:
+        ``promote()`` or ``abort_swap()`` first."""
+        self._check_tenant(tenant)
+        if tenant == self.anchor:
             raise ValueError(
                 f"tenant {tenant!r} anchors the plane banks; "
                 f"swap(params) to replace its weights")
-        raise _later("tenant eviction")
+        if self._swap is not None:
+            raise RuntimeError(
+                f"cannot evict tenant {tenant!r}: a swap plan is in "
+                f"flight over this stack's weights; promote() or "
+                f"abort_swap() first")
+        if tenant not in self._programmed_leaves:
+            return
+        for bank in self._cache.values():
+            if bank.has_tenant(tenant):
+                bank.evict(tenant)
+        del self._programmed_leaves[tenant]
+        self._planes_changed(tenant)
 
     # -- bookkeeping ---------------------------------------------------------
 

@@ -171,7 +171,9 @@ class PlaneBank:
 
     def assign(self, tenant: str, pw: ProgrammedLinear, fp: str) -> None:
         """Program ``pw`` as the named tenant's resident plane: rewrite
-        the tenant's own slot if resident, else claim a free slot in
+        the tenant's own slot if resident (content only — a fused pair
+        keeps its companion, so an in-place promote keeps the read mode
+        and releases the old plane tensors), else claim a free slot in
         deep-net layout."""
         s = self.slot_of(tenant) or self._first(ROLE_FREE)
         if s is None:
@@ -403,14 +405,16 @@ class SwapPlan:
 
     One write port: chunks serialize across all tiles, so total device
     time is ``total_chunks * t_write`` — the quantity the overlapped
-    schedule hides under the read stream.  A **staged** swap writes each
-    bank's reserved staging slot and retargets the tenant's read-enable
-    at promotion; the tenant keeps serving its old plane through the
-    whole window.  Written-and-verified planes are buffered in
-    ``staged`` and land on the banks only at promotion, so no read can
-    observe a partially deployed checkpoint.  (The reference's in-place
-    lifecycle, a rewrite of a non-anchor tenant's own slot, comes with
-    multi-tenant serving.)
+    schedule hides under the read stream.  A **staged** swap
+    (``in_place = False``) writes each bank's reserved staging slot and
+    retargets the tenant's read-enable at promotion; the tenant keeps
+    serving its old plane through the whole window.  ``in_place`` marks
+    the fallback when the bank has no free slot: the swap rewrites the
+    tenant's own resident slot, so that tenant's reads pause for the
+    window while every other resident tenant keeps serving.
+    Written-and-verified planes are buffered in ``staged`` and land on
+    the banks only at promotion, so no read — any tenant's — can observe
+    a partially deployed checkpoint.
     """
     programs: List[ChunkedProgram]
     leaves: Tuple[Any, ...]        # incoming tree leaves (identity check)
@@ -418,6 +422,7 @@ class SwapPlan:
     cursor: int = 0
     chunks_done: int = 0
     tenant: str = "A"
+    in_place: bool = False
     staged: Dict[str, Tuple[ProgrammedLinear, str]] = dataclasses.field(
         default_factory=dict)
 

@@ -31,6 +31,17 @@ requests.  SPEC is ``ft:<scale>`` (the serving params plus a scaled
 fine-tune delta), ``seed:<int>`` (a fresh init) or ``init`` (the serving
 params themselves).
 
+``--multiplex SPEC,SPEC[,SPEC...]`` (crossbar backend only) serves N
+checkpoints (tenants A, B, C, ...) from the plane banks of one executor:
+requests round-robin across the tenants, each tenant reads its own
+resident plane, and the physical device count is one deployment's.
+SPECs are those of ``--hot-swap``.  ``--stack-planes N`` sets the bank
+height (the paper's geometry is 2), ``--qos W,W,...`` gives per-tenant
+QoS weights (the slot and page split and the lane order) and
+``--kv-pages N`` the page budget the weights split per tenant.  Under
+``--multiplex``, ``--hot-swap`` targets the last tenant: with a full bank
+its planes are rewritten in place under the other tenants' traffic.
+
 ``--metrics-out FILE.jsonl`` writes the telemetry at exit (request and
 swap spans, then every metric sample), ``--metrics-interval N`` prints a
 stats line every N steps, ``--no-telemetry`` turns the scheduler's
@@ -49,12 +60,13 @@ import dataclasses
 import os
 import statistics
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config
+from repro_torch.core.device import DeviceConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import BatchScheduler, Request
@@ -85,8 +97,8 @@ def parse_mode_policy(spec):
 
 
 def resolve_swap_params(spec: str, model, params):
-    """``--hot-swap`` spec resolution: ``init`` | ``seed:<int>`` |
-    ``ft:<scale>``."""
+    """``--hot-swap`` / ``--multiplex`` spec resolution: ``init`` (the
+    serving params, tenant A's) | ``seed:<int>`` | ``ft:<scale>``."""
     if spec == "init":
         return params
     if spec.startswith("seed:"):
@@ -135,50 +147,58 @@ def _sync(device: torch.device) -> None:
 
 @dataclasses.dataclass
 class Setup:
-    """A parsed command line and the model and params it builds."""
+    """A parsed command line and the model and params it builds: tenant
+    A's params, and under ``--multiplex`` every tenant's ``(params,
+    weight)``."""
     args: argparse.Namespace
     model: Any
     params: Any
     mode_policy: Any
     device: torch.device
+    tenants: Optional[Dict[str, Any]] = None
+    tenant_ids: Tuple[str, ...] = ("A",)
 
     def scheduler(self, capture=None) -> BatchScheduler:
         """The command line's scheduler (programming the weights);
         ``capture`` as ``BatchScheduler`` takes it."""
         a = self.args
         return BatchScheduler(self.model, self.params, n_slots=a.slots,
-                              max_len=a.max_len, kv=a.kv,
-                              page_size=a.page_size, chunk=a.chunk,
+                              max_len=a.max_len, tenants=self.tenants,
+                              kv=a.kv, page_size=a.page_size,
+                              kv_pages=a.kv_pages, chunk=a.chunk,
                               mode_policy=self.mode_policy,
                               telemetry=not a.no_telemetry, capture=capture)
 
     def requests(self) -> List[Request]:
-        """The command line's synthetic requests (seeded prompts)."""
+        """The command line's synthetic requests (seeded prompts),
+        round-robin across the tenants."""
         a = self.args
         gen = torch.Generator()
         gen.manual_seed(1)
+        ids = self.tenant_ids
         return [Request(rid=rid,
                         prompt=torch.randint(0, self.model.cfg.vocab - 1,
                                              (a.prompt_len,), generator=gen,
                                              dtype=torch.int32),
-                        max_new=a.max_new)
+                        max_new=a.max_new, model_id=ids[rid % len(ids)])
                 for rid in range(a.requests)]
 
 
 def drive(sched: BatchScheduler, reqs: List[Request],
           device: torch.device, swap_params=None, swap_after: int = 0,
-          swap_chunks: int = 8,
+          swap_chunks: int = 8, swap_tenant: str = "A",
           on_step: Optional[Callable[[int], None]] = None
           ) -> Dict[str, Any]:
     """Submit ``reqs`` and step until all finish: the requests, tokens,
     steps, wall seconds, tokens/s and each step's wall seconds (a step
     ends with its tokens on the host).
 
-    With ``swap_params`` a hot-swap begins once ``swap_after`` requests
-    have finished; if the requests drain first, the loop steps on until
-    the swap promotes.  ``swap_phase`` labels each step: ``"window"``
-    (chunks programmed, the old planes serving), ``"flip"`` (the last
-    chunks, the promotion, and the step on the new planes) or ``"-"``."""
+    With ``swap_params`` a hot-swap of ``swap_tenant`` begins once
+    ``swap_after`` requests have finished; if the requests drain first,
+    the loop steps on until the swap promotes.  ``swap_phase`` labels
+    each step: ``"window"`` (chunks programmed, the old planes serving),
+    ``"flip"`` (the last chunks, the promotion, and the step on the new
+    planes) or ``"-"``."""
     for r in reqs:
         sched.submit(r)
     done: List[Request] = []
@@ -201,7 +221,8 @@ def drive(sched: BatchScheduler, reqs: List[Request],
         if (swap_params is not None and not sched.swap_in_flight
                 and not sched.swap_history and len(done) >= swap_after):
             hs = sched.begin_hot_swap(swap_params,
-                                      chunks_per_step=swap_chunks)
+                                      chunks_per_step=swap_chunks,
+                                      tenant=swap_tenant)
             print(f"hot-swap: staging {hs.plan.total_chunks} chunks onto "
                   f"tenant {hs.tenant}'s write planes after {len(done)} "
                   f"requests ({len(step_s)} decode steps)")
@@ -253,6 +274,11 @@ def setup(argv=None) -> Setup:
                          "cache")
     ap.add_argument("--page-size", type=int, default=8,
                     help="tokens per KV page (must divide --max-len)")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="per-tenant page-pool budget for the "
+                         "QoS-weighted split (default: slots * max_len "
+                         "/ page_size pages per lane, i.e. no "
+                         "oversubscription)")
     ap.add_argument("--chunk", type=int, default=4,
                     help="prompt tokens fed per step while a request "
                          "prefills inside the running decode batch")
@@ -273,6 +299,20 @@ def setup(argv=None) -> Setup:
                     help="second checkpoint to deploy mid-serving "
                          "(ft:<scale> | seed:<int> | init); requires "
                          "--backend crossbar")
+    ap.add_argument("--multiplex", default=None,
+                    metavar="SPEC,SPEC[,SPEC...]",
+                    help="serve N checkpoints (tenants A,B,C,...) from "
+                         "the plane bank of one executor (specs as in "
+                         "--hot-swap); requires --backend crossbar and "
+                         "stack-planes >= N")
+    ap.add_argument("--stack-planes", type=int, default=None,
+                    help="bank height: planes stacked per cell site "
+                         "(default: the device model's 2, the paper "
+                         "geometry)")
+    ap.add_argument("--qos", default=None, metavar="W,W[,W...]",
+                    help="per-tenant QoS weights for --multiplex (one "
+                         "float per spec, e.g. 2,1,1): weighted slot "
+                         "split + admission order in the scheduler")
     ap.add_argument("--swap-after", type=int, default=None,
                     help="begin the swap once this many requests finished "
                          "(default: half)")
@@ -294,6 +334,8 @@ def setup(argv=None) -> Setup:
                          "--metrics-interval")
     if args.hot_swap and args.backend != "crossbar":
         raise SystemExit("--hot-swap requires --backend crossbar")
+    if args.multiplex and args.backend != "crossbar":
+        raise SystemExit("--multiplex requires --backend crossbar")
     if args.stream_pages and args.kv != "paged":
         raise SystemExit("--stream-pages routes paged attention; it "
                          "requires --kv paged")
@@ -317,8 +359,44 @@ def setup(argv=None) -> Setup:
         cfg = dataclasses.replace(
             cfg, xbar=dataclasses.replace(cfg.xbar,
                                           tile_rows=args.tile_rows))
+    if args.stack_planes is not None:
+        cfg = dataclasses.replace(
+            cfg, xbar=dataclasses.replace(
+                cfg.xbar, device=DeviceConfig(
+                    stack_planes=args.stack_planes)))
     model = build_model(cfg, device=device)
-    return Setup(args, model, model.init(0), mode_policy, device)
+    params = model.init(0)
+    tenants = None
+    tenant_ids: Tuple[str, ...] = ("A",)
+    if args.multiplex:
+        specs = args.multiplex.split(",")
+        if len(specs) < 2:
+            raise SystemExit("--multiplex wants >= 2 comma-separated "
+                             "specs, e.g. init,ft:0.02 or "
+                             "init,ft:0.02,seed:7")
+        names = model.executor.tenant_names
+        if len(specs) > len(names):
+            raise SystemExit(
+                f"--multiplex {len(specs)} tenants > {len(names)} plane "
+                f"slots; raise --stack-planes to {len(specs)}")
+        tenant_ids = tuple(names[:len(specs)])
+        weights = [1.0] * len(specs)
+        if args.qos:
+            try:
+                weights = [float(w) for w in args.qos.split(",")]
+            except ValueError:
+                raise SystemExit(f"--qos: {args.qos!r} wants floats")
+            if len(weights) != len(specs):
+                raise SystemExit(f"--qos wants one weight per "
+                                 f"--multiplex spec ({len(specs)})")
+        tenants = {
+            t: (resolve_swap_params(s, model, params), w)
+            for t, s, w in zip(tenant_ids, specs, weights)}
+        params = tenants["A"][0]
+    elif args.qos:
+        raise SystemExit("--qos only applies under --multiplex")
+    return Setup(args, model, params, mode_policy, device, tenants,
+                 tenant_ids)
 
 
 def main(argv=None, *, capture=None):
@@ -368,27 +446,32 @@ def main(argv=None, *, capture=None):
         if not args.metrics_interval or steps % args.metrics_interval:
             return
         reg = sched.metrics
-        n = int(reg.total("serve_tokens_total", tenant="A"))
-        e = reg.total("serve_device_energy_joules_total", tenant="A")
-        pj = e / n * 1e12 if n else 0.0
+        parts = []
+        for t in sched.tenants:
+            n = int(reg.total("serve_tokens_total", tenant=t))
+            e = reg.total("serve_device_energy_joules_total", tenant=t)
+            pj = e / n * 1e12 if n else 0.0
+            parts.append(f"{t}:{n}tok/{pj:.0f}pJ")
         retr = int(obs.registry().total("serve_jit_retraces_total"))
         print(f"[obs] step {steps}: {int(reg.total('serve_tokens_total'))} "
-              f"tokens (A:{n}tok/{pj:.0f}pJ); jit retraces {retr}")
+              f"tokens ({', '.join(parts)}); jit retraces {retr}")
 
     rep = drive(sched, reqs, device, swap_params=swap_params,
                 swap_after=swap_after, swap_chunks=args.swap_chunks,
-                on_step=stats_banner)
+                swap_tenant=st.tenant_ids[-1], on_step=stats_banner)
     done = rep["requests"]
     print(f"served {len(done)} requests, {rep['tokens']} tokens in "
           f"{rep['steps']} decode steps, {rep['seconds']:.2f}s "
           f"({rep['tok_per_s']:.1f} tok/s)")
-    cap = sched.capture_report()["A"]
+    caps = sched.capture_report()
     ms = [t * 1e3 for t in rep["step_s"]]
-    if cap["capture"]:
-        print(f"window step: {cap['captures']} CUDA graph capture(s), "
-              f"{cap['replays']} replays, {cap['eager_steps']} eager "
-              f"warm-up step(s); step ms "
-              + ", ".join(f"{t:.1f}" for t in ms[:2])
+    for t, cap in caps.items():
+        if cap["capture"]:
+            print(f"window step [{t}]: {cap['captures']} CUDA graph "
+                  f"capture(s), {cap['replays']} replays, "
+                  f"{cap['eager_steps']} eager warm-up step(s)")
+    if sched.capture:
+        print("step ms " + ", ".join(f"{t:.1f}" for t in ms[:2])
               + (f", then median {statistics.median(ms[2:]):.1f}"
                  if len(ms) > 2 else ""))
     if args.stream_pages:
@@ -400,15 +483,25 @@ def main(argv=None, *, capture=None):
               f"scratch={d['paged_scratch']} "
               f"streamed={d['paged_streamed']} "
               f"fallback={d['paged_fallback']}")
+    if st.tenants:
+        qos = sched.qos_report()
+        for t in sched.tenants:
+            mine = [r for r in done if r.model_id == t]
+            q = qos[t]
+            print(f"  tenant {t}: {len(mine)} requests, "
+                  f"{sum(len(r.out) for r in mine)} tokens; qos "
+                  f"weight={q['weight']:g} slots={q['slots']} "
+                  f"share={q['token_share'] * 100:.1f}% "
+                  f"(fingerprint={ex.fingerprint(tenant=t)})")
     for r in done[:3]:
-        print(f"  req {r.rid}: {r.out[:8]}...")
+        print(f"  req {r.rid} [{r.model_id}]: {r.out[:8]}...")
     for h in sched.swap_history:
         print(f"hot-swap promoted [{h['policy']} tenant {h['tenant']}]: "
               f"version={ex.version(h['tenant'])} "
               f"fingerprint={ex.fingerprint(tenant=h['tenant'])} "
               f"wall={h['wall_swap_s']:.2f}s "
               f"({h['decode_steps_during_swap']} decode steps served "
-              f"during the swap, zero dropped)")
+              f"during the swap, zero dropped) swap_mode={h['swap_mode']}")
         print(f"  device-time: overlapped window "
               f"{h['device_swap_window_overlapped_s'] * 1e6:.1f}us vs "
               f"stop-the-world "
@@ -418,6 +511,21 @@ def main(argv=None, *, capture=None):
               f"steady-state overlap "
               f"{h['overlap_frac_steady_state'] * 100:.1f}% at "
               f"{h['in_bits']}-bit reads (paper: ~29% at 10-bit)")
+    if ex is not None and sched.metrics.enabled:
+        # traffic-weighted device figures (per emitted token; see
+        # sched.mode_report()["traffic"])
+        for t in sched.tenants:
+            n = int(sched.metrics.total("serve_tokens_total", tenant=t))
+            if not n:
+                continue
+            for mode in ("expansion", "deepnet"):
+                e = sched.metrics.total(
+                    "serve_device_energy_joules_total", tenant=t, mode=mode)
+                r = sched.metrics.total(
+                    "serve_device_read_seconds_total", tenant=t, mode=mode)
+                if e:
+                    print(f"  device [{t}/{mode}]: {r * 1e6:.1f}us read, "
+                          f"{e / n * 1e12:.0f} pJ/token over {n} tokens")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             f.write(sched.tracer.to_jsonl())
@@ -430,9 +538,12 @@ def main(argv=None, *, capture=None):
         print("# --- Prometheus snapshot (scheduler + global) ---")
         print(sched.metrics.to_prometheus(), end="")
         print(obs.registry().to_prometheus(), end="")
-    rep.update(program_s=program_s, capture=cap,
+    rep.update(program_s=program_s, capture=caps["A"], captures=caps,
                swap_history=list(sched.swap_history),
-               version=ex.version() if ex is not None else None)
+               version=ex.version() if ex is not None else None,
+               versions=({t: ex.version(t) for t in sched.tenants}
+                         if ex is not None else None),
+               qos=sched.qos_report(), kv=sched.kv_report())
     if mode_policy is not None:
         rep["mode_report"] = sched.mode_report()
     return rep

@@ -119,7 +119,11 @@ class HotSwapper:
     Call :meth:`step` between decode steps (the BatchScheduler does this
     itself); once :attr:`done`, :meth:`promote` lands every plane
     atomically and returns the new params tree for the caller to serve
-    embeddings and norms from.
+    embeddings and norms from.  ``tenant`` may name any tenant of the
+    plane bank: with a free plane the swap is staged (the tenant,
+    resident or a first-time live deploy, serves through the window);
+    with a full bank a non-anchor tenant is rewritten in place (its
+    reads pause) under the other tenants' reads.
     """
 
     def __init__(self, executor, new_params: Any, chunks_per_step: int = 8,
@@ -183,6 +187,8 @@ class HotSwapper:
             wall_swap_s=self.wall_swap_s)
         rep["policy"] = "overlapped"
         rep["tenant"] = self.tenant
-        rep["swap_mode"] = "staged"
+        # staged: the tenant served throughout; in_place: its reads
+        # paused while the other tenants' reads flowed
+        rep["swap_mode"] = "in_place" if self.plan.in_place else "staged"
         rep["stack_planes"] = self.executor.stack_planes
         return rep

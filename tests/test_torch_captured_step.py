@@ -19,7 +19,15 @@ host sync inside the capture raises.  A hot-swap replays the graph
 through its window with the live write leak in the step's leak buffer,
 and the flip drops the graph and captures once more over the promoted
 planes: two captures, no retrace, the eager streams, and an ``init``
-swap serves the streams of no swap at all.
+swap serves the streams of no swap at all.  Two tenant lanes capture
+once each and read their own planes (a dedicated scheduler's streams);
+an in-place swap of B pauses B and captures it again while A's replayed
+tokens stay those of no swap; an eviction of B on the executor beside
+the scheduler drops B's graph and makes B's lane raise, and a redeploy
+of B's checkpoint serves its streams; with B evicted, the scheduler's
+step raises before A's lane runs, and the scheduler's redeploy of B
+pauses B's lane until the flip while A serves on; ``set_weights`` adds
+no capture.
 """
 import dataclasses
 
@@ -162,7 +170,7 @@ def test_replays_see_admission_and_release(cuda, kv):
         sched = BatchScheduler(model, params, n_slots=2, max_len=32, kv=kv,
                                capture=capture)
         runs[capture], _ = _run(sched, prompts, stagger=3)
-        layers = sched._lane.cache["layers"]
+        layers = sched._lanes["A"].cache["layers"]
         if kv == "paged":
             assert int(layers["pt"].abs().sum()) == 0   # all released
         assert int(layers["len"].abs().sum()) == 0
@@ -187,7 +195,7 @@ def test_a_host_sync_in_the_capture_raises(cuda):
     sched.step()                      # the eager warm-up syncs freely
     with pytest.raises(RuntimeError):
         sched.step()                  # the capture
-    assert sched._lane.decode.graph is None
+    assert sched._lanes["A"].decode.graph is None
     torch.cuda.synchronize()
 
 
@@ -208,7 +216,7 @@ def _swap_run(sched, prompts, new_params, at_step=2, chunks=4):
         done += sched.step()
         steps += 1
         snaps.append({r.rid: list(r.out) for r in reqs})
-        leaks.append(sched._lane.decode.leak.item())
+        leaks.append(sched._lanes["A"].decode.leak.item())
         phase.append("window" if sched.swap_in_flight
                      else "flip" if was else "-")
     return {r.rid: list(r.out) for r in done}, snaps, leaks, phase
@@ -264,6 +272,179 @@ def test_an_init_swap_serves_the_streams_of_no_swap(cuda):
         BatchScheduler(model, params, n_slots=2, max_len=64), prompts, None)
     sched = BatchScheduler(model, params, n_slots=2, max_len=64)
     swapped, _, _, phase = _swap_run(sched, prompts, params)
-    assert "flip" in phase and sched._lane.params is params
+    assert "flip" in phase and sched._lanes["A"].params is params
     assert sched.capture_report()["A"]["captures"] == 2
     assert swapped == plain
+
+
+# -- two tenant lanes: one graph each, following each tenant's planes -------
+
+def _mux(model, params_a, params_b, capture=True):
+    return BatchScheduler(model, params_a, n_slots=2, max_len=64,
+                          tenants={"A": (params_a, 2.0),
+                                   "B": (params_b, 1.0)},
+                          kv_pages=14, capture=capture)
+
+
+def _mux_run(sched, prompts, event=None, at_step=3):
+    """Serve ``prompts`` round-robin over A and B; ``event(sched)`` runs
+    before step ``at_step`` (and the loop steps on while a swap is in
+    flight).  The streams, and after every step a snapshot of tenant A's
+    tokens."""
+    reqs = [Request(rid=i, prompt=p, max_new=2 * MAX_NEW,
+                    model_id="AB"[i % 2]) for i, p in enumerate(prompts)]
+    for r in reqs:
+        sched.submit(r)
+    done, snaps, steps = [], [], 0
+    while (len(done) < len(reqs) or sched.swap_in_flight) and steps < 200:
+        if event is not None and steps == at_step:
+            event(sched)
+        done += sched.step()
+        steps += 1
+        snaps.append({r.rid: list(r.out) for r in reqs if r.model_id == "A"})
+    return {r.rid: list(r.out) for r in done}, snaps
+
+
+def _traces(reg):
+    return (reg.total("serve_jit_traces_total", closure="decode"),
+            reg.total("serve_jit_retraces_total", closure="decode"))
+
+
+def test_two_lanes_capture_once_and_read_their_own_planes(cuda):
+    prompts = _mix(8, (5, 9, 3, 7, 6))
+    model = _model(cuda)
+    params_a, params_b = model.init(0), model.init(1)
+    reg = obs.registry()
+    before = _traces(reg)
+    sched = _mux(model, params_a, params_b)
+    got, _ = _mux_run(sched, prompts)
+    rep = sched.capture_report()
+    assert {t: rep[t]["captures"] for t in "AB"} == {"A": 1, "B": 1}
+    assert all(rep[t]["replays"] > 0 for t in "AB")
+    after = _traces(reg)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 0)
+    eager, _ = _mux_run(_mux(model, params_a, params_b, capture=False),
+                        prompts)
+    assert got == eager
+    # each lane replays its own tenant's planes: its streams are those of
+    # a dedicated scheduler of that checkpoint
+    for t, params in (("A", params_a), ("B", params_b)):
+        ded = BatchScheduler(_model(cuda), params, n_slots=2, max_len=64)
+        mine = [i for i in range(len(prompts)) if "AB"[i % 2] == t]
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=2 * MAX_NEW)
+                for i in mine]
+        for r in reqs:
+            ded.submit(r)
+        done = []
+        while len(done) < len(reqs):
+            done += ded.step()
+        assert {r.rid: list(r.out) for r in done} == {
+            i: got[i] for i in mine}, t
+
+
+def test_in_place_swap_pauses_b_and_captures_it_again(cuda):
+    prompts = _mix(9, (6, 8, 4, 5))
+    model = _model(cuda)
+    params_a, params_b = model.init(0), model.init(1)
+    plain, plain_snaps = _mux_run(_mux(model, params_a, params_b), prompts)
+    sched = _mux(model, params_a, params_b)
+    reg = obs.registry()
+    before = _traces(reg)
+    swapped, snaps = _mux_run(sched, prompts, lambda s: s.begin_hot_swap(
+        params_b, chunks_per_step=4, tenant="B"))
+    (hist,) = sched.swap_history
+    assert (hist["tenant"], hist["swap_mode"]) == ("B", "in_place")
+    assert hist["decode_steps_during_swap"] >= 3
+    assert not sched._lanes["B"].paused
+    assert model.executor.version("B") == 2
+    rep = sched.capture_report()
+    assert {t: rep[t]["captures"] for t in "AB"} == {"A": 1, "B": 2}
+    after = _traces(reg)
+    assert (after[0] - before[0], after[1] - before[1]) == (3, 0)
+    # A's replays through B's pause and B's capture again: every token
+    # of A at every step is that of the serve without a swap, and B's
+    # own checkpoint swapped in gives B's streams
+    assert snaps[:len(plain_snaps)] == plain_snaps
+    assert swapped == plain
+
+
+def test_eviction_beside_the_scheduler_drops_b_and_redeploy_serves(cuda):
+    prompts = _mix(10, (4, 6, 5, 3))
+    model = _model(cuda)
+    ex = model.executor
+    params_a, params_b = model.init(0), model.init(1)
+    plain, _ = _mux_run(_mux(model, params_a, params_b), prompts)
+    sched = _mux(model, params_a, params_b)
+    lanes = sched._lanes
+
+    def evict(s):
+        step = lanes["B"].decode
+        assert step.graph is not None                 # B has captured
+        ex.evict_tenant("B")
+        # B's next step (called as the scheduler calls it) raises, and
+        # drops the graph, instead of replaying freed planes
+        idle = (np.zeros(tuple(step.tokens.shape), np.int32),
+                np.zeros(tuple(step.m.shape), np.int32))
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="'B' is not resident"):
+                step(lanes["B"].params, *idle, None)
+            assert step.graph is None
+        ex.swap(lanes["B"].params, tenant="B")      # the live redeploy
+
+    got, _ = _mux_run(sched, prompts, evict, at_step=6)
+    assert got == plain
+    rep = sched.capture_report()
+    assert {t: rep[t]["captures"] for t in "AB"} == {"A": 1, "B": 2}
+    assert ex.version("B") == 2 and ex.plane_generation("A") == 1
+
+
+def test_a_step_with_b_evicted_raises_before_a_runs(cuda):
+    prompts = _mix(12, (5, 4, 6, 3))
+    model = _model(cuda)
+    ex = model.executor
+    params_a, params_b = model.init(0), model.init(1)
+    plain, plain_snaps = _mux_run(_mux(model, params_a, params_b), prompts)
+    sched = _mux(model, params_a, params_b)
+    lanes = sched._lanes
+
+    def outs():
+        return {r.rid: list(r.out) for lane in lanes.values()
+                for r in lane.slots if r is not None}
+
+    def evict(s):
+        assert lanes["B"].decode.graph is not None    # B has captured
+        ex.evict_tenant("B")
+        before = outs()
+        with pytest.raises(RuntimeError, match="'B' is not resident"):
+            s.step()
+        # the step raised before A's lane ran, and dropped B's graph
+        assert outs() == before and lanes["B"].decode.graph is None
+        # the scheduler deploys B back: B's lane pauses until the flip
+        s.begin_hot_swap(params_b, chunks_per_step=4, tenant="B")
+        assert lanes["B"].paused
+
+    got, snaps = _mux_run(sched, prompts, evict, at_step=6)
+    assert got == plain
+    assert snaps[:len(plain_snaps)] == plain_snaps
+    assert sched.swap_history[-1]["swap_mode"] == "staged"
+    rep = sched.capture_report()
+    assert {t: rep[t]["captures"] for t in "AB"} == {"A": 1, "B": 2}
+    assert ex.version("B") == 2 and ex.plane_generation("A") == 1
+
+
+def test_set_weights_adds_no_capture(cuda):
+    prompts = _mix(11, (5, 7, 6, 4))
+    model = _model(cuda)
+    params_a, params_b = model.init(0), model.init(1)
+    plain, _ = _mux_run(_mux(model, params_a, params_b), prompts)
+    sched = _mux(model, params_a, params_b)
+    reg = obs.registry()
+    before = _traces(reg)
+    got, _ = _mux_run(sched, prompts,
+                      lambda s: s.set_weights({"A": 1.0, "B": 3.0}))
+    assert got == plain
+    rep = sched.capture_report()
+    assert {t: rep[t]["captures"] for t in "AB"} == {"A": 1, "B": 1}
+    after = _traces(reg)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 0)
+    assert sched.qos_report()["B"]["weight"] == 3.0

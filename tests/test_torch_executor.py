@@ -93,10 +93,15 @@ def test_crossbar_linear_routes_by_scoped_name():
 
 
 def test_single_tenant_slice_refuses_later_features():
+    # multiplexing is ported (tests/test_torch_multiplex.py): a second
+    # tenant programs and evicts, and only names past the stack's planes
+    # are refused
     ex = CrossbarExecutor()
     w = torch.ones((8, 8))
     ex.program_params({"head": w})
-    for call in (lambda: ex.program_params({"head": w}, tenant="B"),
-                 lambda: ex.evict_tenant("B")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            call()
+    ex.program_params({"head": w}, tenant="B")
+    assert ex.tenants == ["A", "B"]
+    ex.evict_tenant("B")
+    assert ex.tenants == ["A"]
+    with pytest.raises(ValueError, match="unknown tenant 'C'"):
+        ex.program_params({"head": w}, tenant="C")

@@ -366,12 +366,12 @@ def test_promotion_drops_the_graph_even_for_the_same_tree(tiny):
     sched = BatchScheduler(model, params, n_slots=2, max_len=24)
     sched.submit(Request(rid=0, prompt=_prompts()[0], max_new=MAX_NEW))
     sched.step()
-    step = sched._lane.decode
+    step = sched._lanes["A"].decode
     graph = step.graph = _Graph()             # as if captured
     sched.begin_hot_swap(params, chunks_per_step=100)   # an init swap
     sched.step()                              # promotes, then serves
     assert graph.released and step.graph is None
-    assert sched._lane.params is params and model.executor.version() == 2
+    assert sched._lanes["A"].params is params and model.executor.version() == 2
 
 
 # -- the CLI ---------------------------------------------------------------

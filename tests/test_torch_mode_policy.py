@@ -194,6 +194,31 @@ def test_mode_is_physical_layout_conflict_on_reprogram():
             "default": "auto", "blocks.0.attn.wq": "deepnet"})
 
 
+def test_fused_residency_consumes_both_planes():
+    # stack_planes=2: one expansion-fused weight fills the whole bank, so
+    # a second tenant cannot join on it, as the reference refuses it;
+    # deep-net layout leaves the second plane to tenant B
+    jcfg, tcfg = _cfgs()
+    w = (np.random.default_rng(0).standard_normal((32, 16)) * 0.3
+         ).astype(np.float32)
+    jex, tex = JaxExecutor(jcfg), CrossbarExecutor(tcfg)
+    jex.program_params({"head": jnp.asarray(w)}, mode_policy="expansion")
+    tex.program_params({"head": torch.from_numpy(w)},
+                       mode_policy="expansion")
+    with pytest.raises(RuntimeError, match="stack is full") as ref:
+        jex.program_params({"head": jnp.asarray(w)}, tenant="B")
+    with pytest.raises(RuntimeError) as got:
+        tex.program_params({"head": torch.from_numpy(w)}, tenant="B")
+    assert str(got.value) == str(ref.value)
+    assert tex.residency() == jex.residency()
+    jex2, tex2 = JaxExecutor(jcfg), CrossbarExecutor(tcfg)
+    for e, a in ((jex2, jnp.asarray), (tex2, torch.from_numpy)):
+        e.program_params({"head": a(w)}, mode_policy="deepnet")
+        e.program_params({"head": a(w)}, tenant="B")
+    assert tex2.tenants == jex2.tenants == ["A", "B"]
+    assert tex2.residency() == jex2.residency()
+
+
 def test_invalid_policy_values_refused_and_leave_the_executor_untouched():
     ex = CrossbarExecutor(_cfgs()[1])
     tp = params_from_numpy(_params(), "cpu")

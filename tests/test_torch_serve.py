@@ -235,8 +235,8 @@ def test_scheduler_reclaims_pages_and_reports_telemetry(reference):
 def test_later_slices_raise_not_implemented(reference):
     params = params_from_numpy(reference["params"], "cpu")
     model = _port_model()
-    for kw in (dict(prefix_share=True), dict(preemption=True),
-               dict(tenants={"A": params, "B": params})):
+    # multiplexing (tenants=...) is ported: tests/test_torch_multiplex.py
+    for kw in (dict(prefix_share=True), dict(preemption=True)):
         with pytest.raises(NotImplementedError, match="later slice"):
             BatchScheduler(model, params, n_slots=2, max_len=32, **kw)
 
@@ -295,7 +295,7 @@ def test_static_buffer_step_traces_once_and_equals_the_reference(
     params = params_from_numpy(reference["params"], "cpu")
     sched = BatchScheduler(_port_model(), params, n_slots=2, max_len=32,
                            kv=kv, capture=False)
-    cache = sched._lane.cache["layers"]
+    cache = sched._lanes["A"].cache["layers"]
     storage = {k: t.data_ptr() for k, t in cache.items()}
     before = _traces()
     assert _serve(sched, Request) == reference["streams"]
@@ -307,11 +307,11 @@ def test_static_buffer_step_traces_once_and_equals_the_reference(
     assert (traces - before[0], retraces - before[1]) == (1, 0)
     assert sched.capture_report()["A"] == {
         "capture": False, "captures": 0, "replays": 0,
-        "eager_steps": sched._lane.decode.stats["eager_steps"],
+        "eager_steps": sched._lanes["A"].decode.stats["eager_steps"],
         "launches_per_replay": {}}
     # the cache is the step's static storage: written in place, never
     # replaced
-    assert sched._lane.cache["layers"] is cache
+    assert sched._lanes["A"].cache["layers"] is cache
     assert {k: t.data_ptr() for k, t in cache.items()} == storage
 
 
@@ -324,14 +324,14 @@ def test_new_params_tree_builds_a_new_closure(reference):
     before = _traces()
     first = _serve(sched, Request)
     # the same values in new tensors: a new tree, so a new closure
-    sched._lane.params = params_from_numpy(reference["params"], "cpu")
+    sched._lanes["A"].params = params_from_numpy(reference["params"], "cpu")
     assert _serve(sched, Request) == first
     traces, retraces = _traces()
     assert (traces - before[0], retraces - before[1]) == (2, 0)
     # on the crossbar backend a new tree would re-program the tiles:
     # refused (a new tree goes through begin_hot_swap)
     xsched = BatchScheduler(_port_model(), params, n_slots=2, max_len=32)
-    xsched._lane.params = params_from_numpy(reference["params"], "cpu")
+    xsched._lanes["A"].params = params_from_numpy(reference["params"], "cpu")
     xsched.submit(Request(rid=0, prompt=_prompts()[0], max_new=1))
     with pytest.raises(RuntimeError, match="different params tree"):
         xsched.step()
