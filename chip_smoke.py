@@ -21,13 +21,17 @@ Phases, each of which fails the run (exit code 1, no result line):
              up to 4096 tokens), the streamed lane also at the
              long-context serve's shape (32 query rows per KV head), and
              each carries, beside the call time, the device time of its
-             kernels alone (``torch.profiler``).
+             kernels alone (``torch.profiler``); the bf16 scratch lane
+             also holds an 8192-token window on a cluster of 8 CTAs
+             (past one CTA's capacity), its capacity and the float32
+             lane's logged.
              The deep-net streaming kernel is driven through its entry
              point ``stream_linear`` at every qwen3-4b projection and
              held bitwise against the programmed read (``engine.linear``
              on the crossbar-MAC kernel) and against the popcount kernel
              (its independent integer witness), float32 and bfloat16
-             weights, both kernels timed (call and device ms); the
+             weights, both kernels timed (call and device ms), and wq at
+             8 weight bits also bitwise against the exact code sums; the
              Jacobi kernel is held bitwise against its plain version at
              10, 64, 128, 256 and 512 squared, traced (one device kernel
              per call), timed (call and device ms, device µs per sweep),
@@ -70,12 +74,23 @@ Phases, each of which fails the run (exit code 1, no result line):
              no-swap streams; A's replay ms before, inside and after B's
              window, per-tenant tokens/s and peak memory logged), and a
              dedicated single-tenant serve of B's checkpoint (B's
-             streams); last the 36-layer serve on one programmed model: eager (its step time, streams
-             equal to the captured serve's), then captured and eager with
-             steps 4 on in a ``torch.profiler`` trace of the card (step
-             3 is the profiler's warm-up; a serve whose trace lost device
-             records is served and traced again, at most three times) (the MAC's device ms per step and the device's
-             idle share), then one eager step in a trace with CPU
+             streams); then the prefix-sharing and preemption serves at
+             full width and 8 layers (``PP_SHARE``, ``PP_PREEMPT``): the
+             CLI's shared serve captured, on one programmed model the
+             same eager and unshared (equal streams), a preempting serve
+             under 8 pages against ample pages (equal streams), and on a
+             model reading through the streamed lane both policies under
+             24 pages against the plain serve (equal streams), every
+             count of shared pages, skipped tokens, COW copies and
+             evictions equal to the CPU's on the same arguments; last
+             the 36-layer serve on one programmed model: eager (its
+             step time, streams equal to the captured serve's), then
+             captured and eager with steps 4 on in a ``torch.profiler``
+             trace of the card (step 3 is the profiler's warm-up; a
+             serve whose trace lost device records is served and traced
+             again, at most three times) (the MAC's device ms per step
+             and the device's idle share), then one eager step in a
+             trace with CPU
              activity (the host ops that cost most).  Every serve traces
              its window step once (``serve_jit_traces_total``) and never
              again; every kernel of each path must have run (a captured
@@ -93,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -325,6 +341,9 @@ PAGED_KERNELS = {"scratch": ("paged_scratch_kernel",
 #: the long-context shape: windows up to 4096 tokens, 8,336 attended
 LONG_CASE = dict(max_len=4096, kv_len=[4096, 3000, 1200, 40],
                  block_pages=16)
+#: past one CTA's capacity (~6,064 tokens at 8 query rows per KV head):
+#: the bf16 scratch lane on a cluster of 8 CTAs, qwen3-4b's heads, B 4
+CLUSTER_CASE = dict(max_len=8192, kv_len=[8192, 6100, 3000, 17])
 #: the long-context serve's attention shape (phase 4): chunk 16, so each
 #: KV head serves g * sq = 32 query rows, two 16-row groups of the split
 #: kernel; windows up to its 2048-token table
@@ -333,7 +352,11 @@ SERVE_LONG_CASE = dict(sq=16, max_len=2048, kv_len=[2048, 1500, 1030, 17],
 
 
 def _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv, hd, kv_len,
-                dtype):
+                dtype, shared_pages=0):
+    """Each row's pages in order from one pool, row 1's first page aliased
+    to row 0's; with ``shared_pages``, every later row reads row 0's first
+    ``shared_pages`` pages (as far as its own fill reaches) through its
+    table instead, as the followers of a shared prefix do."""
     p_seq = max_len // ps
     n_pages = b * p_seq
     q = torch.randn((b, sq, hq, hd), generator=gen, device=dev).to(dtype)
@@ -350,6 +373,9 @@ def _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv, hd, kv_len,
             pt[r, i] = nxt
             nxt += 1
     pt[1, 0] = pt[0, 0]                       # an aliased first page
+    for r, length in enumerate(kv_len[1:], 1):
+        n = min(shared_pages, -(-length // ps))
+        pt[r, :n] = pt[0, :n]
     kv_len_t = torch.tensor(kv_len, dtype=torch.int32)
     q_off = torch.clamp(kv_len_t - sq, min=0)
     q_off[-1] = 0                             # a row at the start of prefill
@@ -408,7 +434,13 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
     b, sq, hq, hd = q.shape
     kv = args[1].shape[2]
     attended = sum(min(n, max_len) for n in kv_len)
-    nbytes = (2 * attended * kv * hd * 2 + 2 * y.numel() * 2
+    # K/V bytes: each cached position read once, an aliased page once
+    ps = args[1].shape[1]
+    pt = args[3].cpu().long()
+    held = torch.cat([pt[r, torch.arange(min(n, max_len)) // ps] * ps
+                      + torch.arange(min(n, max_len)) % ps
+                      for r, n in enumerate(kv_len)]).unique().numel()
+    nbytes = (2 * held * kv * hd * 2 + 2 * y.numel() * 2
               + args[3].numel() * 4 + 2 * b * 4)
     ops = 4 * sq * hq * hd * attended
     bnd, by = bound(nbytes, ops, "bf16")
@@ -417,7 +449,7 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
     lib_dms, _ = device_ms(torch, sdpa, 20, flush)
     r = {"max_len": max_len, "kv_len": kv_len, "block_pages": bp,
          "b": b, "sq": sq, "hq": hq, "kv": kv, "hd": hd,
-         "page_size": args[1].shape[1], "max_abs_err": err,
+         "page_size": ps, "held_tokens": held, "max_abs_err": err,
          "max_rel_err": rel, "tol": tol, "ms": timed(torch, run, 20, flush),
          "device_ms": dms, "device_ms_source": src,
          "plain_ms": timed(torch, plain, 5, flush),
@@ -434,15 +466,23 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
 
 #: the multiplexed serve's scratch lanes: (rows, fill of each row)
 MUX_PAGED_CASES = ((5, [64, 37, 12, 5, 31]), (3, [31, 20, 5]))
+#: the prefix-sharing serves' attention (phase 4d, ``PP_SHARE``): B 4,
+#: chunk 4, qwen3-4b's 16 KV heads over a 128-token table, the followers
+#: reading the owner's first 7 pages; the streamed serve's 16-page block
+#: covers the whole table (one split, a combine of one partial)
+PP_PAGED_CASE = dict(max_len=128, kv_len=[107, 76, 60, 16], shared_pages=7,
+                     block_pages=16)
 
 
 def phase_paged_attention(torch, dev, flush):
     """Both lanes at their serving shapes (a 64-token table for the
     scratch lane, 512 tokens in 4-page blocks for the streamed lane), then
-    both at the long-context shape (``LONG_CASE``), then the streamed lane
+    both at the long-context shape (``LONG_CASE``), then the scratch lane
+    past one CTA's capacity on a cluster (``CLUSTER_CASE``), the streamed lane
     at the long-context serve's shape (``SERVE_LONG_CASE``), past the
     scratch lane's capacity, then the scratch lane at the multiplexed
-    serve's two lanes (``MUX_PAGED_CASES``)."""
+    serve's two lanes (``MUX_PAGED_CASES``) and both lanes at the
+    prefix-sharing serves' shape (``PP_PAGED_CASE``)."""
     from repro_torch.kernels.paged_attention import kernel, ref
 
     gen = torch.Generator(device=dev)
@@ -462,6 +502,22 @@ def phase_paged_attention(torch, dev, flush):
         out[lane]["long"] = _paged_measure(
             torch, kernel, ref, lane, long_args, LONG_CASE["block_pages"],
             LONG_CASE["max_len"], LONG_CASE["kv_len"], flush)
+    cap = {dt: kernel.scratch_capacity(b, sq, hq, kv, hd, ps, eb)
+           for dt, eb in (("bf16", 2), ("f32", 4))}
+    c = CLUSTER_CASE
+    check(cap["bf16"] >= c["max_len"] > cap["f32"],
+          f"scratch lane capacity at B {b}, hq {hq}, kv {kv}: {cap} "
+          f"(want bf16 >= {c['max_len']} > f32)")
+    args = _paged_case(torch, dev, gen, b, sq, c["max_len"], ps, hq, kv, hd,
+                       c["kv_len"], torch.bfloat16)
+    out["scratch"]["cluster"] = _paged_measure(
+        torch, kernel, ref, "scratch", args, 0, c["max_len"], c["kv_len"],
+        flush)
+    out["scratch"]["capacity"] = cap
+    log(f"  scratch lane capacity at B {b}, {hq // kv * sq} query rows per "
+        f"KV head: bf16 {cap['bf16']} tokens (a cluster of up to 8 CTAs), "
+        f"float32 {cap['f32']} (one CTA)")
+    del args
     c = SERVE_LONG_CASE
     serve_args = _paged_case(torch, dev, gen, b, c["sq"], c["max_len"], ps,
                              hq, kv, hd, c["kv_len"], torch.bfloat16)
@@ -469,12 +525,26 @@ def phase_paged_attention(torch, dev, flush):
         torch, kernel, ref, "streamed", serve_args, c["block_pages"],
         c["max_len"], c["kv_len"], flush)
     # the multiplexed serve's scratch lanes (``MUX_ARGV``): A's 5 rows and
-    # B's 3 at chunk 4 over a 64-token table, qwen3-4b's 8 KV heads
+    # B's 3 at chunk 4 over a 64-token table, qwen3-4b's 16 cached KV heads
+    # (8 x kv_repeat 2)
     for b_mux, kv_len in MUX_PAGED_CASES:
-        args = _paged_case(torch, dev, gen, b_mux, sq, 64, ps, hq, 8, hd,
+        args = _paged_case(torch, dev, gen, b_mux, sq, 64, ps, hq, kv, hd,
                            kv_len, torch.bfloat16)
         out["scratch"][f"mux_b{b_mux}"] = _paged_measure(
             torch, kernel, ref, "scratch", args, 0, 64, kv_len, flush)
+    c = PP_PAGED_CASE
+    args = _paged_case(torch, dev, gen, b, sq, c["max_len"], ps, hq, kv, hd,
+                       c["kv_len"], torch.bfloat16,
+                       shared_pages=c["shared_pages"])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = kernel.choose_n_split(b, kv, hq // kv * sq, c["max_len"] // ps,
+                                    c["block_pages"], ps, sms)
+    check(n_split == 1, f"the prefix-sharing serve's streamed lane plans "
+          f"{n_split} splits (want 1: one 16-page block)")
+    for lane, bp in (("scratch", 0), ("streamed", c["block_pages"])):
+        out[lane]["prefix_share"] = _paged_measure(
+            torch, kernel, ref, lane, args, bp, c["max_len"], c["kv_len"],
+            flush)
     # a head dim off the streamed lane's compiled widths: 40 runs on
     # kernel.streamed_width(40) = 64, its extra columns zero
     kv_len = [512, 300, 77, 9]
@@ -499,24 +569,26 @@ def phase_deepnet_stream(torch, dev, flush):
     """``stream_linear`` (the entry point) at every qwen3-4b projection,
     B 16, float32 weights: its launches are counted over that run alone,
     and it must reach neither the popcount kernel nor the plain version.
-    Then each output is held BITWISE against ``engine.linear`` on the
-    crossbar-MAC kernel (program, then read: the same integer codes and
-    the same final conversion), for float32 and bfloat16 weights; the
-    tensor-core kernel BITWISE against the popcount kernel (an independent
-    integer MAC) on the same operands, for both weight types; and against
-    its plain version (1e-5 x max|y|: the plain version shift-adds in
-    f32).  Both kernels are timed at every projection, call ms (CUDA
-    events) and device ms (``torch.profiler``: the zeroing, the kernel and
-    the conversion), for both weight types."""
-    import dataclasses
-
+    Then, at 4 weight bits for every projection and at 8 (codes up to
+    +-255, the widest the kernels take) for wq, each output is held
+    BITWISE against ``engine.linear`` on the crossbar-MAC kernel (program,
+    then read: the same integer codes and the same final conversion), for
+    float32 and bfloat16 weights; the tensor-core kernel BITWISE against
+    the popcount kernel (an independent integer MAC) on the same operands,
+    for both weight types, and against the exact code sums of the plain
+    integer MAC (``crossbar_mac_codes_ref`` on ``quantize_codes``,
+    converted as the kernel converts) and its plain version (1e-5 x
+    max|y|: the plain version shift-adds in f32) for float32 weights.
+    Both kernels are timed at every case, call ms (CUDA events) and device
+    ms (``torch.profiler``: the zeroing, the kernel and the conversion),
+    for both weight types."""
     from repro_torch.core import engine
     from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.crossbar_mac import ref as mac_ref
     from repro_torch.kernels.deepnet_stream import kernel, ops, ref
 
     b = 16
     cfg = engine.EngineConfig(mode="deepnet", quant=QuantConfig())
-    q = cfg.quant
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     geoms = {name: (k, n) for name, k, n in GEOMS}
@@ -540,44 +612,68 @@ def phase_deepnet_stream(torch, dev, flush):
           and ref.CALLS["deepnet_stream_ref"] == 0,
           "stream_linear reached the popcount kernel or the plain version")
 
+    cfg8 = dataclasses.replace(cfg, quant=QuantConfig(w_bits=8))
+    cases = [(cfg, name) for name in geoms] + [(cfg8, GEOMS[0][0])]
     rows, max_abs = [], 0.0
-    kcfg = dataclasses.replace(cfg, use_kernel=True)
-    kw = dict(w_bits=q.w_bits, in_bits=q.in_bits, adc_bits=q.adc_bits,
-              bits_per_cell=q.bits_per_cell, rows_per_adc=cfg.rows_per_adc)
-    ops_n = 2 * 2 * b * q.in_bits * q.n_slices   # x K x N: AND-accumulate
-    for name, (k, n) in geoms.items():
-        x, w = xs[name], ws[name]
+    for c, name in cases:
+        q = c.quant
+        k, n = geoms[name]
+        if c is cfg:
+            x, w, y = xs[name], ws[name], outs[name]
+        else:
+            x = torch.randn((b, k), generator=gen, device=dev)
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.05
+            y = ops.stream_linear(x, w, c)
+        at = f"{name} at w_bits {q.w_bits}"
+        kcfg = dataclasses.replace(c, use_kernel=True)
+        kw = dict(w_bits=q.w_bits, in_bits=q.in_bits, adc_bits=q.adc_bits,
+                  bits_per_cell=q.bits_per_cell, rows_per_adc=c.rows_per_adc)
+        full_scale = float(c.rows_per_adc * (2 ** q.bits_per_cell - 1))
+        ops_n = 2 * 2 * b * q.in_bits * q.n_slices   # x K x N: AND-add
         wb = w.to(torch.bfloat16)
         prog = engine.linear(x, w, kcfg)
         prog_b = engine.linear(x, wb.float(), kcfg)
-        y = outs[name]
-        y_b = ops.stream_linear(x, wb, cfg)
+        y_b = ops.stream_linear(x, wb, c)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(y).all()) and y.shape == (b, n),
-              f"stream_linear {name}: bad output")
+              f"stream_linear {at}: bad output")
         prog_err = max((y - prog).abs().max().item(),
                        (y_b - prog_b).abs().max().item())
-        check(prog_err == 0.0, f"stream_linear {name} differs from the "
+        check(prog_err == 0.0, f"stream_linear {at} differs from the "
               f"programmed read by {prog_err:.3e}")
         del prog, prog_b, y_b
         x_int = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
                               dtype=torch.int32)
-        row = {"geometry": name, "k": k, "n": n, "b": b,
-               "prog_max_abs_err": prog_err, "popcount_bitwise": True}
+        row = {"geometry": name, "w_bits": q.w_bits, "k": k, "n": n, "b": b,
+               "prog_max_abs_err": prog_err, "popcount_bitwise": True,
+               "bitwise_codes": True}
         for tag, wt in (("", w), ("_bf16", wb)):
             scale = ops.weight_scales(wt, q)
             yk = kernel.deepnet_stream(x_int, wt, scale, **kw)
             yp = kernel.deepnet_stream_popcount(x_int, wt, scale, **kw)
             torch.cuda.synchronize()
-            check(torch.equal(yk, yp), f"deepnet_stream {name}{tag}: not "
+            check(torch.equal(yk, yp), f"deepnet_stream {at}{tag}: not "
                   f"bitwise equal to the popcount kernel (max|diff| "
                   f"{(yk - yp).abs().max().item():.3e})")
             if not tag:
+                pos, neg = ref.quantize_codes(wt, scale, w_bits=q.w_bits,
+                                              bits_per_cell=q.bits_per_cell)
+                codes = mac_ref.crossbar_mac_codes_ref(
+                    x_int, pos, neg, in_bits=q.in_bits, adc_bits=q.adc_bits,
+                    bits_per_cell=q.bits_per_cell,
+                    rows_per_adc=c.rows_per_adc)
+                want = mac_ref.codes_to_float(codes, q.adc_bits, full_scale)
+                torch.cuda.synchronize()
+                check(torch.equal(yk, want), f"deepnet_stream {at}: not "
+                      f"bitwise equal to the exact code sums (max|diff| "
+                      f"{(yk - want).abs().max().item():.3e})")
+                row["max_code_sum"] = int(codes.abs().max())
+                del pos, neg, codes, want
                 yr = ref.deepnet_stream_ref(x_int, wt, scale, **kw)
                 torch.cuda.synchronize()
                 err, rel = rel_err(torch, yk, yr)
                 tol = 1e-5
-                check(rel <= tol, f"deepnet_stream {name}: max rel err "
+                check(rel <= tol, f"deepnet_stream {at}: max rel err "
                       f"{rel:.3e} > {tol:g}")
                 max_abs = max(max_abs, err)
                 row.update(max_abs_err=err, max_rel_err=rel, tol=tol)
@@ -605,12 +701,13 @@ def phase_deepnet_stream(torch, dev, flush):
                 x_int, w, scale, **kw), 2, flush)
             row["library_ms"] = None
         rows.append(row)
-        log(f"  deepnet_stream {name:8s} K={k:5d} N={n:6d}: programmed "
-            f"read max|diff| {prog_err:.1e}; bitwise = popcount kernel; vs "
-            f"plain max|err| {row['max_abs_err']:.3e} (rel "
-            f"{row['max_rel_err']:.2e} <= {row['tol']:g}); f32 call "
-            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms "
-            f"(popcount {row['popcount_ms']:.4f}, "
+        log(f"  deepnet_stream {name:8s} K={k:5d} N={n:6d} w_bits "
+            f"{q.w_bits} ({q.n_slices} slices): programmed read max|diff| "
+            f"{prog_err:.1e}; bitwise = popcount kernel and exact code sums "
+            f"(largest {row['max_code_sum']}); vs plain max|err| "
+            f"{row['max_abs_err']:.3e} (rel {row['max_rel_err']:.2e} <= "
+            f"{row['tol']:g}); f32 call {row['ms']:.4f} ms, device "
+            f"{row['device_ms']:.4f} ms (popcount {row['popcount_ms']:.4f}, "
             f"{row['popcount_device_ms']:.4f}); bf16 call "
             f"{row['ms_bf16']:.4f}, device {row['device_ms_bf16']:.4f} "
             f"(popcount {row['popcount_ms_bf16']:.4f}, "
@@ -619,8 +716,9 @@ def phase_deepnet_stream(torch, dev, flush):
             f"{row['bound_ms_bf16']:.4f})" + (
                 f"; plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
                 else ""))
-        del x_int, w, wb
-        ws[name] = None
+        del x_int, x, w, wb, y
+        if c is cfg:
+            xs[name] = ws[name] = outs[name] = None
         torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "max_abs_err": max_abs}
 
@@ -753,8 +851,6 @@ def phase_parity(torch, dev, mode_policy=None):
     the plain versions (captured), and the CUDA kernels captured and
     eager (``capture=False``, the witness), paged and dense, must all be
     identical; each serve must trace its window step once."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import BatchScheduler, Request
@@ -917,7 +1013,10 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    vocab = get_config(ARCH).vocab
+    # greedy decoding takes the argmax over the head's padded vocab (as
+    # the reference does), so any id below padded_vocab is one the model
+    # can emit and embed; random weights do emit ids past vocab
+    vocab = get_config(ARCH).padded_vocab
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -954,7 +1053,8 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
     check(len(rep["requests"]) == n_req
           and all(len(r.out) == max_new for r in rep["requests"]),
           "serve did not complete every request")
-    check(all(0 <= t < vocab for t in toks), "token outside the vocab")
+    check(all(0 <= t < vocab for t in toks),
+          "token outside the head's padded vocab")
     for name in must_launch:
         check(kernels[name] > 0, f"{name} never launched on this path")
     for rows in rows_per_adc:
@@ -976,6 +1076,8 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
             "swap_history": rep["swap_history"], "version": rep["version"],
             "versions": rep.get("versions"), "qos": rep.get("qos"),
             "kv": rep.get("kv"), "lane_ms": rep.get("lane_ms"),
+            "kv_counts": rep.get("kv_counts"), "host": rep.get("host"),
+            "peak_pages": rep.get("peak_pages"),
             "in_flight": {r.rid: [r.t_admit, r.t_done]
                           for r in rep["requests"]}}
 
@@ -1684,6 +1786,208 @@ def phase_multiplex(torch, dev):
     return out
 
 
+# -- phase 4d: prefix sharing and preemption at full width --------------------
+
+#: the prefix-sharing and preemption serves: qwen3-4b at full width, 8
+#: layers (the multiplex cell's depth), bf16, the CUDA kernels, paged KV
+PP_ARGV = ["--arch", ARCH, "--layers", "8", "--backend", "crossbar",
+           "--use-kernel", "--kv", "paged", "--requests", "8", "--slots",
+           "4", "--prompt-len", "16", "--chunk", "4"]
+#: sharing: a 60-token common head before each 16-token prompt, request i
+#: submitted at step 20 i, each claiming 107 tokens (14 pages of 8)
+PP_SHARE = PP_ARGV + ["--common-prefix", "60", "--max-new", "32",
+                      "--max-len", "128", "--stagger", "20"]
+#: preemption: every request claims 31 tokens (4 pages), 8 pages hold two;
+#: the later four arrive at QoS 2
+PP_PREEMPT = PP_ARGV + ["--max-new", "16", "--max-len", "64"]
+PP_PREEMPT_PAGES = ["--kv-pages", "8", "--preemption"]
+#: both, through the streamed lane: a 24-page budget holds a 14-page owner
+#: and one follower's 7 fresh pages, so a QoS-2 arrival evicts
+PP_STREAM = ["--stream-pages", "4"]
+PP_BOTH = ["--prefix-share", "--preemption", "--kv-pages", "24"]
+
+
+def _pp_drive(st, dev, argv, capture=None):
+    """A serve of ``argv``'s scheduler and requests on ``st``'s model (the
+    model's own flags must match ``argv``'s), as ``launch/serve.main``
+    serves them: the host seconds spent in ``_admit`` and, within it, in
+    the pool's ``plan_shared``, and the most pages in use after any step,
+    are added to what ``main`` returns."""
+    from repro_torch.launch import serve
+
+    st = dataclasses.replace(st, args=serve.parse_args(argv))
+    sched = st.scheduler(capture)
+    host = {"admit_s": 0.0, "plan_shared_s": 0.0}
+    peak = [0]
+
+    def timer(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key] += time.perf_counter() - t0
+        return run
+
+    sched._admit = timer("admit_s", sched._admit)
+    pool = sched._lanes["A"].pool
+    pool.plan_shared = timer("plan_shared_s", pool.plan_shared)
+
+    def on_step(n):
+        peak[0] = max(peak[0], pool.pages_in_use)
+
+    rep = serve.drive(sched, st.requests(), dev, on_step=on_step,
+                      stagger=st.args.stagger)
+    ex = st.model.executor
+    caps = sched.capture_report()
+    rep.update(program_s=0.0, capture=caps["A"], captures=caps,
+               swap_history=[], version=ex.version() if ex else None,
+               kv=sched.kv_report(), kv_counts=serve.kv_counts(sched),
+               host=host, peak_pages=peak[0])
+    return rep
+
+
+def _cpu_counts(torch, argv):
+    """The page-pool counters that ``argv``'s scheduler and requests give
+    on the CPU.  The pool decides from lengths and from which feed tokens
+    are equal, never from the model's values (a re-admission's emitted
+    tokens reach the index only past a prompt no other request shares),
+    so a 2-layer digital model at the SMOKE widths with the full vocab
+    (the same prompts) stands in for the card's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    args = serve.parse_args(argv)
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True),
+                              vocab=get_config(ARCH).vocab)
+    model = build_model(cfg, device="cpu")
+    st = serve.Setup(args, model, model.init(0), None, torch.device("cpu"))
+    t0 = time.perf_counter()
+    sched = st.scheduler()
+    rep = serve.drive(sched, st.requests(), torch.device("cpu"),
+                      stagger=args.stagger)
+    check(len(rep["requests"]) == args.requests,
+          f"the CPU serve of {argv} dropped requests")
+    return serve.kv_counts(sched), time.perf_counter() - t0
+
+
+def _pp_log(key, sv):
+    line = (f"  {key}: {sv['steps']} steps, {sv['seconds']:.3f} s wall, "
+            f"step ms first two {sv['first_steps_ms'][0]:.2f} / "
+            f"{sv['first_steps_ms'][1]:.2f}, then median "
+            f"{sv['later_step_ms']:.2f}; counts {sv['kv_counts']}")
+    h = sv.get("host")
+    if h:
+        admit = 100 * h["admit_s"] / sv["seconds"]
+        plan = 100 * h["plan_shared_s"] / sv["seconds"]
+        line += (f"; host in _admit {h['admit_s']:.4f} s ({admit:.2f}% of "
+                 f"the wall), plan_shared {h['plan_shared_s']:.4f} s "
+                 f"({plan:.2f}%); peak pages {sv['peak_pages']}")
+    log(line)
+
+
+def phase_prefix_preempt(torch, dev):
+    """Prefix sharing and preemption at full width, 8 layers: the CLI's
+    shared serve captured; on one programmed model the same serve eager
+    and captured without ``--prefix-share`` (all three streams equal), a
+    preempting serve under an 8-page budget and a serve with ample pages
+    (equal streams); on a model reading through the streamed lane, both
+    policies under a 24-page budget and the plain serve (equal streams).
+    Each run's sharing, copy-on-write and preemption counts must equal
+    the CPU's on the same arguments (``_cpu_counts``), every request is
+    served, each lane captures once and nothing retraces."""
+    from repro_torch.launch import serve
+
+    scratch = ["crossbar_mac", "paged_attention_scratch"]
+    streamed = ["crossbar_mac", "paged_attention_streamed",
+                "paged_attention_combine"]
+    t_phase = time.perf_counter()
+    out = {}
+    want, cpu_s = {}, 0.0
+    for key, argv in (("share", PP_SHARE + ["--prefix-share"]),
+                      ("preempt", PP_PREEMPT + PP_PREEMPT_PAGES),
+                      ("both", PP_SHARE + PP_STREAM + PP_BOTH)):
+        want[key], secs = _cpu_counts(torch, argv)
+        cpu_s += secs
+    log(f"  the CPU's counts on the same arguments ({cpu_s:.1f} s): {want}")
+    check(want["share"]["serve_kv_shared_tokens_total"] > 0
+          and want["preempt"]["serve_preemptions_total"] > 0
+          and want["both"]["serve_preemptions_total"] > 0
+          and want["both"]["serve_kv_shared_tokens_total"] > 0,
+          f"the arguments do not exercise both policies: {want}")
+    argv = PP_SHARE + ["--prefix-share"]
+    log(f"  {' '.join(argv)}; captured, through the CLI")
+    cli = out["share_cli"] = phase_serve(torch, dev, argv, scratch)
+    check(cli["kv_counts"] == want["share"],
+          f"CLI sharing counts {cli['kv_counts']} != the CPU's "
+          f"{want['share']}")
+    _pp_log("share_cli", cli)
+
+    def on_model(st, key, argv, must, want_counts=None, capture=None):
+        sv = out[key] = phase_serve(
+            torch, dev, argv, must, capture=capture,
+            run=lambda: _pp_drive(st, dev, argv, capture))
+        if want_counts is not None:
+            check(sv["kv_counts"] == want_counts,
+                  f"{key}: counts {sv['kv_counts']} != the CPU's "
+                  f"{want_counts}")
+        _pp_log(key, sv)
+        return sv
+
+    log("  one programmed model: the shared serve eager, the unshared "
+        "serve, a preempting serve and one with ample pages, captured")
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = serve.setup(PP_SHARE)
+    t0 = time.perf_counter()
+    st.model.executor.program_params(st.params)
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+    eager = on_model(st, "share_eager", argv, scratch, want["share"],
+                     capture=False)
+    plain = on_model(st, "unshared", PP_SHARE, scratch)
+    check(cli["streams"] == eager["streams"] == plain["streams"],
+          "captured shared, eager shared and unshared streams differ")
+    check(plain["kv_counts"] == dict.fromkeys(serve.KV_COUNTERS, 0),
+          f"the unshared serve counted {plain['kv_counts']}")
+    pre = on_model(st, "preempt", PP_PREEMPT + PP_PREEMPT_PAGES, scratch,
+                   want["preempt"])
+    ample = on_model(st, "ample", PP_PREEMPT, scratch)
+    check(pre["streams"] == ample["streams"],
+          "preempted and unpreempted streams differ")
+    del st
+    log("  a model reading through the streamed lane (--stream-pages 4): "
+        "both policies under a 24-page budget, and the plain serve")
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = serve.setup(PP_SHARE + PP_STREAM)
+    t0 = time.perf_counter()
+    st.model.executor.program_params(st.params)
+    torch.cuda.synchronize()
+    out["program_streamed_s"] = time.perf_counter() - t0
+    both = on_model(st, "both_streamed", PP_SHARE + PP_STREAM + PP_BOTH,
+                    streamed, want["both"])
+    base = on_model(st, "unshared_streamed", PP_SHARE + PP_STREAM, streamed)
+    check(both["streams"] == base["streams"],
+          "streamed lane: shared and preempted streams differ from the "
+          "plain serve's")
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cpu_counts"], out["cpu_s"] = want, cpu_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  prefix/preemption phase: {out['seconds']:.1f} s (programming "
+        f"{out['program_s']:.2f} s and {out['program_streamed_s']:.2f} s; "
+        f"peak pages shared {eager['peak_pages']} against unshared "
+        f"{plain['peak_pages']}; through the streamed lane "
+        f"{both['peak_pages']} against {base['peak_pages']})")
+    for sv in out.values():
+        if isinstance(sv, dict):
+            sv.pop("step_s", None)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -1799,6 +2103,9 @@ def main() -> int:
         phase = "multiplex"
         log("  multiplexing two tenants at full width, 8 layers")
         report["multiplex"] = phase_multiplex(torch, dev)
+        phase = "prefix_preempt"
+        log("  prefix sharing and preemption at full width, 8 layers")
+        report["prefix_preempt"] = phase_prefix_preempt(torch, dev)
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
@@ -1871,7 +2178,8 @@ def main() -> int:
             "launches": launches,
             "max_abs_err": max([r["max_abs_err"]] + [
                 r[k]["max_abs_err"] for k in (
-                    "long", "serve_long", "hd40", "mux_b5", "mux_b3")
+                    "long", "serve_long", "hd40", "mux_b5", "mux_b3",
+                    "prefix_share")
                 if k in r]),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
@@ -1882,11 +2190,23 @@ def main() -> int:
             "mux_serve_launches": mux_l.get(f"paged_attention_{lane}", 0),
             **{f"mux_b{b}_device_ms": r[f"mux_b{b}"]["device_ms"]
                for b, _ in MUX_PAGED_CASES if f"mux_b{b}" in r},
+            "prefix_share_ms": r["prefix_share"]["ms"],
+            "prefix_share_device_ms": r["prefix_share"]["device_ms"],
+            "prefix_share_bound_ms": r["prefix_share"]["bound_ms"],
             "long_ms": lg["ms"], "long_device_ms": lg["device_ms"],
             "long_library_ms": lg["library_ms"],
             "long_bound_ms": lg["bound_ms"],
             "long_shape": f"B={lg['b']} sq={lg['sq']} "
                           f"max_len={lg['max_len']}"})
+        if "cluster" in r:        # the bf16 scratch lane on a cluster
+            cl = r["cluster"]
+            kernels[-1].update({
+                "cluster_ms": cl["ms"], "cluster_device_ms": cl["device_ms"],
+                "cluster_library_ms": cl["library_ms"],
+                "cluster_bound_ms": cl["bound_ms"],
+                "cluster_shape": f"B={cl['b']} sq={cl['sq']} "
+                                 f"max_len={cl['max_len']}",
+                "capacity_tokens": r["capacity"]})
         if "serve_long" in r:     # the streamed lane at the long serve's
             sl = r["serve_long"]  # shape: two 16-row groups
             kernels[-1].update({
@@ -1896,8 +2216,9 @@ def main() -> int:
                 "serve_long_bound_ms": sl["bound_ms"],
                 "serve_long_shape": f"B={sl['b']} sq={sl['sq']} "
                                     f"max_len={sl['max_len']}"})
-    ds_head = next(r for r in report["deepnet_stream"]["rows"]
-                   if r["geometry"] == "head")
+    ds_head, ds_w8 = (next(r for r in report["deepnet_stream"]["rows"]
+                           if r["geometry"] == g and r["w_bits"] == wb)
+                      for g, wb in (("head", 4), (GEOMS[0][0], 8)))
     kernels.append({
         "name": "deepnet_stream", "route": "cuda",
         "source": "src/repro_torch/csrc/deepnet_stream.cu",
@@ -1915,7 +2236,10 @@ def main() -> int:
         "popcount_ms": ds_head["popcount_ms"],
         "popcount_device_ms": ds_head["popcount_device_ms"],
         "popcount_bf16_ms": ds_head["popcount_ms_bf16"],
-        "popcount_bf16_device_ms": ds_head["popcount_device_ms_bf16"]})
+        "popcount_bf16_device_ms": ds_head["popcount_device_ms_bf16"],
+        **{f"w8_{k}": ds_w8[k] for k in (
+            "ms", "device_ms", "bound_ms", "popcount_ms",
+            "popcount_device_ms")}})
     ir_rows = {r["n"]: r for r in report["ir_solve"]["rows"]}
     tile = ir_rows[128]
     kernels.append({

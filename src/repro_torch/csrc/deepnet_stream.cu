@@ -31,7 +31,7 @@
 //   * per row group a block reads its weight tile once from device memory
 //     (float4 / 4 x bf16 loads, a warp's lanes on 4 rows x 128 contiguous
 //     bytes), quantizes every weight once, and writes the magnitudes
-//     max(+-w_int, 0) (< 128) as bytes into two code tiles in shared
+//     max(+-w_int, 0) (< 256) as bytes into two code tiles in shared
 //     memory, one per side, K-contiguous per column (stride rows + 4
 //     bytes, so both the writes and the fragment reads are free of bank
 //     conflicts).  No transpose is needed: a fragment word is four k of
@@ -61,7 +61,7 @@
 
 namespace {
 
-constexpr int kMaxWBits = 7;   // code magnitudes fit in a signed byte
+constexpr int kMaxWBits = 8;   // code magnitudes fit in an unsigned byte
 constexpr int kSmemLimit = 232448;   // dynamic shared memory per block
 
 __device__ __forceinline__ float load_w(const float* p) { return *p; }
@@ -295,7 +295,7 @@ struct StreamCells {
   int col;
   float scale;
   float qmax;
-  int8_t (*tile)[xbar::kNT];   // [32 * WORDS][kNT] signed codes
+  int16_t (*tile)[xbar::kNT];  // [32 * WORDS][kNT] signed codes
 
   // the "program" step of the row group: quantize this column's rows
   __device__ __forceinline__ void begin_group(int k0, int kvalid) {
@@ -305,7 +305,7 @@ struct StreamCells {
       const float v = load_w(wc + static_cast<size_t>(row) * N);
       float q = rintf(__fdiv_rn(v, scale));
       q = fminf(fmaxf(q, -qmax), qmax);
-      tile[row][threadIdx.x] = static_cast<int8_t>(q);
+      tile[row][threadIdx.x] = static_cast<int16_t>(q);
     }
   }
 
@@ -313,7 +313,7 @@ struct StreamCells {
                                         uint32_t* mp, uint32_t* mn) const {
     const int shift = BPC * s;
     const int digit = (1 << BPC) - 1;
-    int8_t (*t)[xbar::kNT] = tile;
+    int16_t (*t)[xbar::kNT] = tile;
     const int c = threadIdx.x;
     xbar::build_masks<BPC, WORDS>(
         [t, c, shift, digit](int row, uint32_t& pv, uint32_t& nv) {
@@ -325,6 +325,14 @@ struct StreamCells {
   }
 };
 
+// the popcount kernel's code tile: a 16-bit code per (row, column), since
+// codes reach +-255 at 8 weight bits (64 KB at 256 rows: dynamic shared
+// memory)
+template <int WORDS>
+constexpr size_t popcount_tile_bytes() {
+  return static_cast<size_t>(32 * WORDS) * xbar::kNT * sizeof(int16_t);
+}
+
 // One thread per column: the column's codes of a group become 32-row bit
 // masks, AND-popcounted against every input bit plane (xbar_mac.cuh)
 template <typename T, int BPC, int WORDS>
@@ -335,7 +343,8 @@ __global__ void __launch_bounds__(xbar::kNT) deepnet_stream_kernel(
     int in_bits, int rows, int groups_per_split, float lsb, float levels,
     float qmax) {
   __shared__ xbar::Shared<WORDS> sm;
-  __shared__ int8_t tile[32 * WORDS][xbar::kNT];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  int16_t (*tile)[xbar::kNT] = reinterpret_cast<int16_t (*)[xbar::kNT]>(dyn);
   const int n_groups = (K + rows - 1) / rows;
   const int g_begin = blockIdx.y * groups_per_split;
   const int g_end = min(n_groups, g_begin + groups_per_split);
@@ -350,7 +359,12 @@ __global__ void __launch_bounds__(xbar::kNT) deepnet_stream_kernel(
 
 template <typename T, int BPC, int WORDS>
 cudaError_t launch_variant(dim3 grid, cudaStream_t st, const StreamArgs& a) {
-  deepnet_stream_kernel<T, BPC, WORDS><<<grid, xbar::kNT, 0, st>>>(
+  auto kernel = deepnet_stream_kernel<T, BPC, WORDS>;
+  constexpr size_t smem = popcount_tile_bytes<WORDS>();
+  static smem::SmemGrant grant;
+  const cudaError_t err = grant.allow(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, xbar::kNT, smem, st>>>(
       a.x, static_cast<const T*>(a.w), a.scale, a.acc, a.B, a.K, a.N, a.S,
       a.in_bits, a.rows, a.gps, a.lsb, a.levels, a.qmax);
   return cudaGetLastError();

@@ -1332,17 +1332,42 @@ extern "C" {
 
 // Shared-memory bytes each lane needs per block (the wrapper checks them
 // against the card's per-block limit before launching).  depth is the
-// table's token depth P_seq * ps.  At bf16 this is the least the lane
-// takes (a two-stage ring); the launch deepens the ring where room is left.
+// table's token depth P_seq * ps, blocks the launch's B * kv.  At bf16
+// each CTA of the cluster the launch splits the window over
+// (scratch_cluster) holds its share of the logits, and this is the least
+// it takes (a two-stage ring; the launch deepens the ring where room is
+// left); the float32 lane is one CTA per (row, KV head).
 size_t paged_scratch_smem(int sq, int hq, int kv, int hd, int depth,
-                          int ps, int elem_bytes) {
+                          int ps, int elem_bytes, int blocks) {
   const size_t rows = static_cast<size_t>(hq / kv) * sq;
-  if (elem_bytes == 2)  // one CTA, a two-stage ring: what the lane holds
-    return scratch_layout(static_cast<int>(rows), hd, depth, ps, 2, 1).total;
+  if (elem_bytes == 2)
+    return scratch_layout(static_cast<int>(rows), hd, depth, ps, 2,
+                          scratch_cluster(depth, blocks, sm_count()))
+        .total;
   return 2 * static_cast<size_t>(scratch_tile(hd, elem_bytes)) * hd *
              elem_bytes +
          rows * (hd + 4) * 4 + rows * ((depth + 3) & ~3) * 4 +
          static_cast<size_t>((depth + ps - 1) / ps) * 4;
+}
+
+// The deepest table (whole pages, in tokens) the scratch lane holds at
+// this shape: the largest depth whose paged_scratch_smem fits a block.
+// The bytes grow with depth between the cluster's steps and fall at each
+// step, so every depth from the largest a cluster of 8 could hold down is
+// tried.
+int paged_scratch_capacity(int sq, int hq, int kv, int hd, int ps,
+                           int elem_bytes, int blocks) {
+  const long long rows = static_cast<long long>(hq / kv) * sq;
+  if (rows <= 0 || ps <= 0) return 0;
+  // each CTA holds at least depth / 8 tokens of f32 logits per row
+  for (long long pages = 8LL * kSmemLimit / (4 * rows * ps) + 1; pages > 0;
+       --pages) {
+    if (paged_scratch_smem(sq, hq, kv, hd, static_cast<int>(pages * ps), ps,
+                           elem_bytes, blocks) <=
+        static_cast<size_t>(kSmemLimit))
+      return static_cast<int>(pages * ps);
+  }
+  return 0;
 }
 
 // split_pages: ceil(blocks / n_split) * block_pages; hd is the pools'
@@ -1402,7 +1427,8 @@ int paged_scratch_launch(const void* q, const void* kp, const void* vp,
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps, 4);
+  const size_t smem =
+      paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps, 4, B * kv);
   static smem::SmemGrant grant;
   err = grant.allow(paged_scratch_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -27,7 +27,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_W_BITS = 7      # the kernels keep code magnitudes in bytes
+MAX_W_BITS = 8      # the tensor-core kernel keeps code magnitudes in bytes
 
 
 def _entry(name: str):

@@ -55,8 +55,10 @@ def _lib() -> ctypes.CDLL:
         lib.paged_split_launch.restype = _I
         lib.paged_combine_launch.argtypes = [_P] * 3 + [_I] * 7 + [_P]
         lib.paged_combine_launch.restype = _I
-        lib.paged_scratch_smem.argtypes = [_I] * 7
+        lib.paged_scratch_smem.argtypes = [_I] * 8
         lib.paged_scratch_smem.restype = ctypes.c_size_t
+        lib.paged_scratch_capacity.argtypes = [_I] * 7
+        lib.paged_scratch_capacity.restype = _I
         lib.paged_streamed_smem.argtypes = [_I] * 3
         lib.paged_streamed_smem.restype = ctypes.c_size_t
     return lib
@@ -121,20 +123,15 @@ def _check(q, k_pages, v_pages, page_table, kv_len, q_offset):
     return b, sq, hq, kv, hd, ps, p_seq
 
 
-def scratch_capacity(sq: int, hq: int, kv: int, hd: int, page_size: int,
-                     elem_bytes: int) -> int:
+def scratch_capacity(b: int, sq: int, hq: int, kv: int, hd: int,
+                     page_size: int, elem_bytes: int) -> int:
     """Most tokens of table depth (whole pages) the scratch lane holds at
-    this shape: per page, its f32 logits take 4 * g * sq * page_size bytes
-    of shared memory and the page-table entry 4."""
-    lib = _lib()
-    fixed = lib.paged_scratch_smem(sq, hq, kv, hd, 0, page_size, elem_bytes)
-    pages = max(0, (SMEM_LIMIT - fixed)
-                // (4 * (hq // kv) * sq * page_size + 4))
-    while pages and lib.paged_scratch_smem(
-            sq, hq, kv, hd, pages * page_size, page_size,
-            elem_bytes) > SMEM_LIMIT:
-        pages -= 1          # rows of logits are padded to 4 tokens
-    return pages * page_size
+    this shape.  At bfloat16 the launch splits a window of 512 tokens or
+    more over a cluster of up to 8 CTAs (fewer once B x kv fills the
+    card), each holding the f32 logits of its share; the float32 lane is
+    one CTA."""
+    return _lib().paged_scratch_capacity(sq, hq, kv, hd, page_size,
+                                         elem_bytes, b * kv)
 
 
 def _scratch(q, k_pages, v_pages, page_table, kv_len, q_offset, causal):
@@ -143,13 +140,14 @@ def _scratch(q, k_pages, v_pages, page_table, kv_len, q_offset, causal):
     lib = _lib()
     eb = q.element_size()
     depth = p_seq * ps
-    if lib.paged_scratch_smem(sq, hq, kv, hd, depth, ps, eb) > SMEM_LIMIT:
-        cap = scratch_capacity(sq, hq, kv, hd, ps, eb)
+    if lib.paged_scratch_smem(sq, hq, kv, hd, depth, ps, eb,
+                              b * kv) > SMEM_LIMIT:
+        cap = scratch_capacity(b, sq, hq, kv, hd, ps, eb)
         raise ValueError(
             f"paged attention scratch lane holds at most {cap} tokens of "
-            f"table at g*sq={hq // kv * sq}, head_dim {hd}, {q.dtype} "
-            f"(227 KB of shared memory per block); this table is {depth} "
-            f"deep: use the streamed lane")
+            f"table at B={b}, g*sq={hq // kv * sq}, head_dim {hd}, "
+            f"{q.dtype} (227 KB of shared memory per block); this table is "
+            f"{depth} deep: use the streamed lane")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -42,6 +42,14 @@ QoS weights (the slot and page split and the lane order) and
 ``--multiplex``, ``--hot-swap`` targets the last tenant: with a full bank
 its planes are rewritten in place under the other tenants' traffic.
 
+``--prefix-share`` aliases the KV pages of a prefilled head that a new
+request repeats (copy-on-write where it diverges inside a page), and
+``--preemption`` lets a higher-QoS request evict a lower one when the
+pool saturates (the later half of the requests arrive at QoS 2); both
+need ``--kv paged`` and print a summary line.  ``--common-prefix N``
+puts one N-token head before every synthetic prompt, and ``--stagger
+N`` submits request i at step i * N.
+
 ``--metrics-out FILE.jsonl`` writes the telemetry at exit (request and
 swap spans, then every metric sample), ``--metrics-interval N`` prints a
 stats line every N steps, ``--no-telemetry`` turns the scheduler's
@@ -166,32 +174,46 @@ class Setup:
                               max_len=a.max_len, tenants=self.tenants,
                               kv=a.kv, page_size=a.page_size,
                               kv_pages=a.kv_pages, chunk=a.chunk,
+                              prefix_share=a.prefix_share,
+                              preemption=a.preemption,
                               mode_policy=self.mode_policy,
                               telemetry=not a.no_telemetry, capture=capture)
 
     def requests(self) -> List[Request]:
-        """The command line's synthetic requests (seeded prompts),
-        round-robin across the tenants."""
+        """The command line's synthetic requests (seeded prompts, behind
+        one ``--common-prefix`` head from a second seeded generator),
+        round-robin across the tenants; under ``--preemption`` the later
+        half at QoS 2."""
         a = self.args
+        vocab = self.model.cfg.vocab
         gen = torch.Generator()
         gen.manual_seed(1)
+        head_gen = torch.Generator()
+        head_gen.manual_seed(2)
+        head = torch.randint(0, vocab - 1, (a.common_prefix,),
+                             generator=head_gen, dtype=torch.int32)
         ids = self.tenant_ids
-        return [Request(rid=rid,
-                        prompt=torch.randint(0, self.model.cfg.vocab - 1,
-                                             (a.prompt_len,), generator=gen,
-                                             dtype=torch.int32),
-                        max_new=a.max_new, model_id=ids[rid % len(ids)])
-                for rid in range(a.requests)]
+        reqs = []
+        for rid in range(a.requests):
+            prompt = torch.randint(0, vocab - 1, (a.prompt_len,),
+                                   generator=gen, dtype=torch.int32)
+            if a.common_prefix:
+                prompt = torch.cat([head, prompt])
+            qos = 2.0 if a.preemption and rid >= a.requests // 2 else 1.0
+            reqs.append(Request(rid=rid, prompt=prompt, max_new=a.max_new,
+                                model_id=ids[rid % len(ids)], qos=qos))
+        return reqs
 
 
 def drive(sched: BatchScheduler, reqs: List[Request],
           device: torch.device, swap_params=None, swap_after: int = 0,
           swap_chunks: int = 8, swap_tenant: str = "A",
-          on_step: Optional[Callable[[int], None]] = None
-          ) -> Dict[str, Any]:
-    """Submit ``reqs`` and step until all finish: the requests, tokens,
-    steps, wall seconds, tokens/s and each step's wall seconds (a step
-    ends with its tokens on the host).
+          on_step: Optional[Callable[[int], None]] = None,
+          stagger: int = 0) -> Dict[str, Any]:
+    """Submit ``reqs`` (request i before step ``i * stagger``) and step
+    until all finish: the requests, tokens, steps, wall seconds, tokens/s
+    and each step's wall seconds (a step ends with its tokens on the
+    host).
 
     With ``swap_params`` a hot-swap of ``swap_tenant`` begins once
     ``swap_after`` requests have finished; if the requests drain first,
@@ -199,8 +221,7 @@ def drive(sched: BatchScheduler, reqs: List[Request],
     each step: ``"window"`` (chunks programmed, the old planes serving),
     ``"flip"`` (the last chunks, the promotion, and the step on the new
     planes) or ``"-"``."""
-    for r in reqs:
-        sched.submit(r)
+    n_submitted = 0
     done: List[Request] = []
     step_s: List[float] = []
     phase: List[str] = []
@@ -218,6 +239,10 @@ def drive(sched: BatchScheduler, reqs: List[Request],
 
     t0 = time.perf_counter()
     while len(done) < len(reqs) and len(step_s) < 10_000:
+        while (n_submitted < len(reqs)
+               and len(step_s) >= n_submitted * stagger):
+            sched.submit(reqs[n_submitted])
+            n_submitted += 1
         if (swap_params is not None and not sched.swap_in_flight
                 and not sched.swap_history and len(done) >= swap_after):
             hs = sched.begin_hot_swap(swap_params,
@@ -243,8 +268,19 @@ def drive(sched: BatchScheduler, reqs: List[Request],
             "step_s": step_s, "swap_phase": phase}
 
 
-def setup(argv=None) -> Setup:
-    """Parse ``argv`` and build the model and its random params."""
+#: the scheduler's page-pool policy counters (prefix sharing, preemption)
+KV_COUNTERS = ("serve_kv_pages_shared_total", "serve_kv_shared_tokens_total",
+               "serve_kv_cow_total", "serve_preemptions_total")
+
+
+def kv_counts(sched: BatchScheduler) -> Dict[str, int]:
+    """Each of ``KV_COUNTERS`` summed over the tenants (0 with telemetry
+    off)."""
+    return {name: int(sched.metrics.total(name)) for name in KV_COUNTERS}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line ``argv``, checked (a contradiction exits)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true")
@@ -290,6 +326,27 @@ def setup(argv=None) -> Setup:
     ap.add_argument("--block-pages", type=int, default=16, metavar="N",
                     help="pages per streamed attention block (clamped to "
                          "a divisor of the table width)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="refcounted prefix sharing: requests whose "
+                         "prompt head matches fully-written pages of a "
+                         "resident request alias those pages instead of "
+                         "re-filling them (copy-on-write on sub-page "
+                         "divergence); requires --kv paged")
+    ap.add_argument("--preemption", action="store_true",
+                    help="QoS preemption: when the page pool or a "
+                         "tenant budget saturates, evict the lowest-QoS "
+                         "in-flight request (its pages reclaim; the "
+                         "request re-admits via chunked prefill with a "
+                         "bit-identical stream); requires --kv paged")
+    ap.add_argument("--common-prefix", type=int, default=0, metavar="N",
+                    help="prepend the same N-token head to every "
+                         "synthetic prompt (a shared system prompt) so "
+                         "--prefix-share has aliasable pages to find")
+    ap.add_argument("--stagger", type=int, default=0, metavar="N",
+                    help="submit request i at decode step i*N instead "
+                         "of all upfront; sharing needs the head "
+                         "request's prompt pages written (and still "
+                         "resident) before a follower admits")
     ap.add_argument("--tile-rows", type=int, default=None,
                     help="override crossbar tile rows (wordlines per "
                          "plane); expansion fusing pairs row tiles "
@@ -341,6 +398,15 @@ def setup(argv=None) -> Setup:
                          "requires --kv paged")
     if args.mode_policy and args.backend != "crossbar":
         raise SystemExit("--mode-policy requires --backend crossbar")
+    if (args.prefix_share or args.preemption) and args.kv != "paged":
+        raise SystemExit("--prefix-share/--preemption operate on the "
+                         "page pool; they require --kv paged")
+    return args
+
+
+def setup(argv=None) -> Setup:
+    """Parse ``argv`` and build the model and its random params."""
+    args = parse_args(argv)
     mode_policy = parse_mode_policy(args.mode_policy)
     device = resolve_device(args.device)
 
@@ -458,7 +524,8 @@ def main(argv=None, *, capture=None):
 
     rep = drive(sched, reqs, device, swap_params=swap_params,
                 swap_after=swap_after, swap_chunks=args.swap_chunks,
-                swap_tenant=st.tenant_ids[-1], on_step=stats_banner)
+                swap_tenant=st.tenant_ids[-1], on_step=stats_banner,
+                stagger=args.stagger)
     done = rep["requests"]
     print(f"served {len(done)} requests, {rep['tokens']} tokens in "
           f"{rep['steps']} decode steps, {rep['seconds']:.2f}s "
@@ -483,6 +550,21 @@ def main(argv=None, *, capture=None):
               f"scratch={d['paged_scratch']} "
               f"streamed={d['paged_streamed']} "
               f"fallback={d['paged_fallback']}")
+    if (args.prefix_share or args.preemption) and sched.metrics.enabled:
+        reg = sched.metrics
+        if args.prefix_share:
+            print(f"prefix sharing: "
+                  f"{int(reg.total('serve_kv_pages_shared_total'))} pages "
+                  f"aliased, "
+                  f"{int(reg.total('serve_kv_shared_tokens_total'))} "
+                  f"prompt tokens skipped, "
+                  f"{int(reg.total('serve_kv_cow_total'))} copy-on-write "
+                  f"page copies")
+        if args.preemption:
+            n_evict = int(reg.total("serve_preemptions_total"))
+            print(f"preemption: {n_evict} evictions, "
+                  f"{sum(r.preemptions for r in done)} re-admissions, "
+                  f"zero dropped requests")
     if st.tenants:
         qos = sched.qos_report()
         for t in sched.tenants:
@@ -543,7 +625,8 @@ def main(argv=None, *, capture=None):
                version=ex.version() if ex is not None else None,
                versions=({t: ex.version(t) for t in sched.tenants}
                          if ex is not None else None),
-               qos=sched.qos_report(), kv=sched.kv_report())
+               qos=sched.qos_report(), kv=sched.kv_report(),
+               kv_counts=kv_counts(sched))
     if mode_policy is not None:
         rep["mode_report"] = sched.mode_report()
     return rep

@@ -30,8 +30,15 @@ planes through the window; with a full bank a non-anchor tenant is
 rewritten in place and its lane pauses while the others serve.  A lane's
 captured graph holds plane addresses, so the step compares its tenant's
 plane generation before each replay and captures anew once it moved.
-Prefix sharing and preemption are later slices of the port and raise
-``NotImplementedError``.
+
+Two opt-in policies act on the page pool (``kv="paged"``):
+``prefix_share`` aliases the pages of a prefilled head that a new
+request's feed repeats, copy-on-write where the new row would write into
+one, and ``preemption`` evicts a resident of strictly lower
+``Request.qos`` when the pool, a page budget or the slots are full.  Both
+are host bookkeeping plus in-place writes of the cache between steps
+(the COW page copy, the row's page table and fill marker), so they add
+no capture and no trace.
 """
 from __future__ import annotations
 
@@ -51,11 +58,6 @@ from repro_torch.serve.hotswap import HotSwapper, overlap_report
 from repro_torch.serve.kv_pool import PagedKVPool, default_pool_pages
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is a later slice of the PyTorch port (ROADMAP.md)")
-
-
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -64,11 +66,22 @@ class Request:
     model_id: str = "A"        # tenant whose checkpoint serves this request
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
-    # chunked-prefill progress: prompt tokens already fed to the window
+    # preemption priority: under pool saturation the scheduler may evict
+    # a resident request of strictly lower qos to admit a waiting one
+    qos: float = 1.0
+    # chunked-prefill progress: feed tokens already fed to the window
     # step (scheduler-owned; the first token emits once fed == len)
     fed: int = 0
-    # the admission feed (scheduler-owned): the prompt tokens
+    # the admission feed (scheduler-owned): the prompt tokens, plus after
+    # a preemption the tokens already emitted, so re-admission replays the
+    # whole recomputable state through chunked prefill (prompt + out fix
+    # the greedy continuation; no device state is saved)
     feed: Optional[np.ndarray] = None
+    # times this request was evicted (pages reclaimed) and re-queued
+    preemptions: int = 0
+    # feed positions whose K/V arrived through aliased prefix pages
+    # instead of prefill (cumulative across re-admissions)
+    shared_tokens: int = 0
     # pages the pool allocated at admission (None on the dense path)
     bucket: Optional[int] = None
     # lifecycle timestamps (scheduler tracer clock): queue_wait
@@ -311,7 +324,21 @@ class BatchScheduler:
     positions are causally masked, so the streams equal an unpadded
     per-request reference.  ``kv="paged"`` (default) stores K/V in a
     block-paged pool per lane; ``kv="dense"`` keeps a per-slot dense
-    cache — same step, same streams.
+    cache — same step, same streams.  Two opt-in paged policies:
+
+    * ``prefix_share=True`` — a request whose feed begins with a
+      prefilled row's indexed pages aliases them (refcounted) and skips
+      those prefill positions; a page the new row would write its own
+      tokens into is privatized copy-on-write first.
+    * ``preemption=True`` — when the pool, the lane's page budget or its
+      slots are full, a waiting request of strictly higher
+      ``Request.qos`` evicts the lowest-QoS resident (pages reclaimed,
+      the request re-queued); the victim re-admits through chunked
+      prefill of its prompt and emitted tokens and continues its stream.
+
+    Both are host bookkeeping plus in-place writes between steps (the
+    COW page copy, the row's page table and fill marker), so a lane's
+    captured graph replays on: no capture and no trace is added.
 
     ``tenants={"A": params_a, "B": params_b, ...}`` multiplexes up to
     ``stack_planes`` checkpoints from the plane banks of one crossbar
@@ -339,12 +366,12 @@ class BatchScheduler:
                  kv_pages: Optional[int] = None, chunk: int = 4,
                  prefix_share: bool = False, preemption: bool = False,
                  capture: Optional[bool] = None):
-        if prefix_share:
-            raise _later("prefix sharing (prefix_share=True)")
-        if preemption:
-            raise _later("QoS preemption (preemption=True)")
         if kv not in ("paged", "dense"):
             raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
+        if (prefix_share or preemption) and kv != "paged":
+            raise ValueError(
+                "prefix_share/preemption operate on the page pool; "
+                "they require kv='paged'")
         if kv == "paged" and max_len % page_size:
             raise ValueError(f"page_size {page_size} must divide max_len "
                              f"{max_len}")
@@ -391,6 +418,8 @@ class BatchScheduler:
         self.n_slots, self.max_len = n_slots, max_len
         self.kv, self.page_size, self.chunk = kv, page_size, int(chunk)
         self.kv_pages = kv_pages
+        self.prefix_share = bool(prefix_share)
+        self.preemption = bool(preemption)
         self.pages_per_seq = (max_len // page_size if kv == "paged"
                               else 0)
         # per-scheduler telemetry: request lifecycle, token latency, QoS
@@ -622,7 +651,10 @@ class BatchScheduler:
         promotes the same tree object), warms up and captures a new
         closure: one trace, no retrace, zero dropped requests.  A tenant
         deployed live (``begin_hot_swap(..., tenant=...)`` with no lane)
-        gets a new lane here, in the QoS split at weight 1."""
+        gets a new lane here, in the QoS split at weight 1.  The lane's
+        page pool, prefix index included, is kept as the reference keeps
+        it: pages prefilled under the old planes stay aliasable while a
+        row still holds them."""
         lane = self._lanes.get(tenant)
         if lane is None:
             if tenant not in self._weights:
@@ -723,13 +755,24 @@ class BatchScheduler:
         slot quota.  When the pool (or its QoS page budget) cannot cover
         a request's whole lifetime (``min(prompt + max_new - 1,
         max_len)`` tokens, claimed up front) the request waits in FIFO
-        order."""
+        order, unless ``preemption`` is on and a strictly lower-QoS
+        resident can be evicted (:meth:`_preempt_for`).
+
+        The feed is the prompt plus the tokens already emitted (a
+        re-admission after a preemption replays them).  With
+        ``prefix_share`` the pool aliases indexed pages that the feed's
+        head matches; the fill marker and the prefill cursor start past
+        the shared positions, and each copy-on-write pair is copied on
+        the device here, before the row's first write.  The page-table
+        row, the fill marker and the COW copies are in-place writes of
+        the lane's cache (which a captured graph holds), made between
+        steps."""
         while lane.queue:
             req = lane.queue[0]
-            feed = np.asarray(
+            prompt = np.asarray(
                 req.prompt.cpu() if torch.is_tensor(req.prompt)
                 else req.prompt, dtype=np.int32).reshape(-1)
-            plen = int(feed.shape[0])
+            plen = int(prompt.shape[0])
             if plen - 1 >= self.max_len:
                 # the last real token's K/V lands at position plen - 1
                 raise ValueError(f"prompt length {plen} exceeds the "
@@ -737,22 +780,63 @@ class BatchScheduler:
             free = [i for i, s in enumerate(lane.slots) if s is None]
             active = len(lane.slots) - len(free)
             if active >= lane.n_slots or not free:
-                return
+                if not (self.preemption and self._preempt_for(lane, req)):
+                    return
+                continue
             row = free[0]
+            feed = prompt
+            if req.out:
+                feed = np.concatenate([prompt,
+                                       np.asarray(req.out, np.int32)])
+            shared = 0
+            cow_pairs: List[Tuple[int, int]] = []
             layers = lane.cache["layers"]
             if lane.pool is not None:
                 need = min(plen + req.max_new - 1, self.max_len)
-                if not lane.pool.can_alloc(need):
-                    return                        # backpressure: wait, FIFO
-                pages = lane.pool.alloc(row, need)
+                fits = (lane.pool.can_alloc_shared(need, feed)
+                        if self.prefix_share else lane.pool.can_alloc(need))
+                if not fits:
+                    if not (self.preemption
+                            and self._preempt_for(lane, req)):
+                        return                    # backpressure: wait, FIFO
+                    continue
+                if self.prefix_share:
+                    pages, shared, cow_pairs = lane.pool.alloc_shared(
+                        row, need, feed)
+                else:
+                    pages = lane.pool.alloc(row, need)
                 req.bucket = len(pages)
+                for src, dst in cow_pairs:
+                    self.model.copy_paged_page(lane.cache, src, dst)
                 tab = torch.from_numpy(lane.pool.table_row(row))
                 layers["pt"][:, row] = tab.to(self.device)[None]
-            layers["len"][:, row] = 0
+            # shared positions are written already: the fill marker starts
+            # past them and prefill resumes at the divergence
+            layers["len"][:, row] = shared
             lane.queue.pop(0)
             req.feed = feed
-            req.fed = 0
+            req.fed = shared
+            req.shared_tokens += shared
+            if shared and self.metrics.enabled:
+                self.metrics.counter(
+                    "serve_kv_pages_shared_total",
+                    help="KV pages aliased from the prefix index at "
+                         "admission instead of freshly written").inc(
+                    lane.pool.row_shared_pages(row), tenant=lane.tenant)
+                self.metrics.counter(
+                    "serve_kv_shared_tokens_total",
+                    help="prefill token positions skipped because their "
+                         "K/V arrived via shared pages").inc(
+                    shared, tenant=lane.tenant)
+            if cow_pairs and self.metrics.enabled:
+                self.metrics.counter(
+                    "serve_kv_cow_total",
+                    help="shared pages privatized copy-on-write at "
+                         "admission").inc(len(cow_pairs),
+                                          tenant=lane.tenant)
             if req.t_admit is None:
+                # first admission only: a re-admission keeps the span set
+                # over the request's whole wall time
                 req.t_admit = self.tracer.now()
                 if self.metrics.enabled and req.t_submit is not None:
                     self.metrics.histogram(
@@ -760,6 +844,36 @@ class BatchScheduler:
                         help="submit-to-admission wait").observe(
                         req.t_admit - req.t_submit, tenant=lane.tenant)
             lane.slots[row] = req
+
+    def _preempt_for(self, lane: _Lane, head: Request) -> bool:
+        """Evict one resident so ``head`` can admit; False if none may go.
+
+        Victims sit at strictly lower ``qos`` than ``head`` (so equal
+        priorities stay FIFO and eviction chains end); the lowest QoS
+        goes first, ties the least progress (``fed`` + emitted), then the
+        highest row.  Eviction reclaims the victim's pages (pages shared
+        with other rows survive for them) and nulls its table row in
+        place; the request itself is the spilled state (prompt + out).
+        It re-queues right behind ``head`` and later re-admits through
+        the same window step, so no capture and no trace follows."""
+        cands = [(i, r) for i, r in enumerate(lane.slots)
+                 if r is not None and r.qos < head.qos]
+        if not cands:
+            return False
+        row, victim = min(
+            cands,
+            key=lambda ir: (ir[1].qos, ir[1].fed + len(ir[1].out), -ir[0]))
+        victim.preemptions += 1
+        victim.fed = 0
+        victim.feed = None
+        self._release_slot(lane, row)
+        lane.queue.insert(min(1, len(lane.queue)), victim)
+        self.metrics.counter(
+            "serve_preemptions_total",
+            help="resident requests evicted (pages reclaimed, state "
+                 "spilled to host) to admit higher-QoS work").inc(
+            tenant=lane.tenant)
+        return True
 
     def _release_slot(self, lane: _Lane, row: int) -> None:
         """Return a completed slot: reclaim its pages and null its table
@@ -798,9 +912,10 @@ class BatchScheduler:
         boundary, so every step reads one consistent plane set.  A lane
         whose planes are the write target stays paused for the window;
         the other lanes step through it.  Each occupied row contributes
-        its next prompt chunk or its last generated token; empty rows
-        ride along at ``m = 0``.  One fixed-shape call per lane serves
-        them all.
+        its next feed chunk or its last generated token; empty rows ride
+        along at ``m = 0``.  One fixed-shape call per lane serves them
+        all.  With ``prefix_share``, each row whose feed completed in the
+        step indexes its whole pages once the step has run.
 
         A lane with work whose tenant is no longer resident (evicted, and
         not being deployed back) raises before any lane runs or a swap
@@ -821,6 +936,7 @@ class BatchScheduler:
             toks = np.zeros((lane.width, c), np.int32)
             m = np.zeros((lane.width,), np.int32)
             emit: List[Optional[str]] = [None] * lane.width
+            reg_rows: List[int] = []
             for i, req in enumerate(lane.slots):
                 if req is None:
                     continue
@@ -830,7 +946,10 @@ class BatchScheduler:
                     toks[i, :piece.shape[0]] = piece
                     m[i] = piece.shape[0]
                     if req.fed + m[i] >= flen:
-                        emit[i] = "admission"  # final chunk: first token
+                        # final chunk: the request's first token, or after
+                        # a re-admission the next token of its stream
+                        emit[i] = "admission" if not req.out else "decode"
+                        reg_rows.append(i)
                 else:
                     toks[i, 0] = req.out[-1]
                     m[i] = 1
@@ -839,12 +958,19 @@ class BatchScheduler:
             tok = lane.decode(lane.params, toks, m, leak)
             decoded = True
             tok_host = tok.cpu().numpy()
-            n_admit = n_dec = 0
             for i, req in enumerate(lane.slots):
                 if req is not None and req.fed < int(req.feed.shape[0]):
                     # the chunk is fed once the step ran (a step that
-                    # raises leaves its requests as they were)
+                    # raises leaves its requests and the index as they
+                    # were)
                     req.fed += int(m[i])
+            if self.prefix_share and lane.pool is not None:
+                # these rows' feeds are on the device now: index their
+                # whole pages so later common-head admissions alias them
+                for i in reg_rows:
+                    lane.pool.register_prefix(i, lane.slots[i].feed.tolist())
+            n_admit = n_dec = 0
+            for i, req in enumerate(lane.slots):
                 if req is None or emit[i] is None:
                     continue
                 req.out.append(int(tok_host[i]))

@@ -27,7 +27,10 @@ the scheduler drops B's graph and makes B's lane raise, and a redeploy
 of B's checkpoint serves its streams; with B evicted, the scheduler's
 step raises before A's lane runs, and the scheduler's redeploy of B
 pauses B's lane until the flip while A serves on; ``set_weights`` adds
-no capture.
+no capture.  Prefix sharing and preemption write the cache in place
+between replays (the COW page copy, the page-table row, the fill marker,
+the evicted row nulled): one capture, the eager logits bitwise, and the
+streams of a serve without either, through both attention lanes.
 """
 import dataclasses
 
@@ -448,3 +451,56 @@ def test_set_weights_adds_no_capture(cuda):
     after = _traces(reg)
     assert (after[0] - before[0], after[1] - before[1]) == (2, 0)
     assert sched.qos_report()["B"]["weight"] == 3.0
+
+
+@pytest.mark.parametrize("stream_pages", [0, 2])
+def test_sharing_and_preemption_replay_without_a_capture(cuda,
+                                                         stream_pages):
+    """A 12-token common head, requests 0 and 1 at QoS 1, 2 and 3 at QoS 4
+    arriving at step 8, a 5-page budget: followers alias the head (one
+    COW copy each) and the QoS-4 arrivals evict, all between replays of
+    one graph (the scratch lane, or the streamed lane at 2 pages)."""
+    rng = np.random.default_rng(5)
+    head = rng.integers(0, 383, 12).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(0, 383, 5).astype(
+        np.int32)]) for _ in range(4)]
+    qos, at = (1.0, 1.0, 4.0, 4.0), (0, 5, 8, 8)
+    model = _model(cuda)
+    if stream_pages:
+        model = build_model(dataclasses.replace(
+            model.cfg, paged_stream_pages=stream_pages, paged_block_pages=2),
+            device=cuda)
+    params = model.init(0)
+
+    def serve(capture, **kw):
+        tap = []
+        sched = BatchScheduler(_tapped(model, tap), params, n_slots=3,
+                               max_len=32, capture=capture, **kw)
+        reqs = [Request(rid=i, prompt=p, max_new=6, qos=q)
+                for i, (p, q) in enumerate(zip(prompts, qos))]
+        done, logits, steps = {}, [], 0
+        while len(done) < len(reqs) and steps < 200:
+            for i, r in enumerate(reqs):
+                if at[i] == steps:
+                    sched.submit(r)
+            done.update({r.rid: list(r.out) for r in sched.step()})
+            logits.append(tap[-1]["logits"].cpu())
+            steps += 1
+        counts = [int(sched.metrics.total(n)) for n in (
+            "serve_kv_pages_shared_total", "serve_kv_shared_tokens_total",
+            "serve_kv_cow_total", "serve_preemptions_total")]
+        return done, logits, counts, sched.capture_report()["A"]
+
+    reg = obs.registry()
+    before = reg.total("serve_jit_retraces_total", closure="decode")
+    kw = dict(kv_pages=5, prefix_share=True, preemption=True)
+    s_eager, l_eager, c_eager, _ = serve(False, **kw)
+    s_cap, l_cap, c_cap, rep = serve(True, **kw)
+    plain, _, c_plain, _ = serve(True)
+    assert rep["captures"] == 1 and rep["replays"] == len(l_cap) - 1
+    assert reg.total("serve_jit_retraces_total", closure="decode") == before
+    assert c_cap == c_eager == [5, 52, 3, 2] and c_plain == [0, 0, 0, 0]
+    assert s_cap == s_eager == plain
+    assert len(l_cap) == len(l_eager)
+    for a, b in zip(l_eager, l_cap):
+        assert torch.equal(a, b)

@@ -215,11 +215,13 @@ def test_paged_attention_row_without_valid_positions(cuda):
 
 
 def _long_case(seed, dtype, kv_len, max_len=2048, b=4, sq=4, hq=8, kv=4,
-               hd=128, ps=8):
+               hd=128, ps=8, shared_pages=0):
     """Long windows: each row's valid pages in order from a shared pool,
     the rest of its table random pages of the pool (read only at kv_len
     0), row 1's first page aliased to row 0's, the window at the end of
-    the fill."""
+    the fill.  With ``shared_pages`` every later row reads row 0's first
+    ``shared_pages`` pages (as far as its fill reaches), as the followers
+    of a shared prefix do."""
     rng = np.random.default_rng(seed)
     p_seq = max_len // ps
     n_pages = b * p_seq
@@ -234,6 +236,9 @@ def _long_case(seed, dtype, kv_len, max_len=2048, b=4, sq=4, hq=8, kv=4,
         pt[r, :pages] = np.arange(nxt, nxt + pages)
         nxt += pages
     pt[1, 0] = pt[0, 0]
+    for r, n in enumerate(kv_len[1:], 1):
+        pages = min(shared_pages, -(-n // ps))
+        pt[r, :pages] = pt[0, :pages]
     lens = np.array(kv_len, np.int32)
     q_off = np.maximum(lens - sq, 0).astype(np.int32)
     args = [torch.from_numpy(a).cuda() for a in
@@ -403,15 +408,58 @@ def test_scratch_lane_long_depth(cuda, dtype, rtol):
                     out.float()) <= rtol
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_paged_lanes_at_the_prefix_sharing_serves_shape(cuda, dtype, rtol):
+    """The prefix-sharing serve's attention: B 4, chunk 4, qwen3-4b's heads
+    (hq 32, 16 cached KV heads: 8 x kv_repeat 2) over a 128-token table,
+    each follower reading the owner's first 7 pages through its own
+    table; the streamed lane's 16-page block is the whole table, so it
+    runs one split and a combine of one partial."""
+    args = _long_case(17, dtype, [107, 76, 60, 16], max_len=128, hq=32,
+                      kv=16, shared_pages=7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pa.choose_n_split(4, 16, 8, 16, 16, 8, sms) == 1
+    for fn, plain, kw in (
+            (pa.paged_attention_scratch, pa_ref.paged_attention_ref, {}),
+            (pa.paged_attention_streamed,
+             pa_ref.paged_attention_streamed_ref, {"block_pages": 16})):
+        out = fn(*args, **kw)
+        ref = plain(*args, **kw)
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert _rel_err(ref.float(), out.float()) <= rtol, fn.__name__
+
+
 def test_scratch_lane_raises_past_its_capacity(cuda):
-    cap = pa.scratch_capacity(4, 8, 4, 128, 8, 2)
-    assert 4096 < cap < 8192          # 8 rows at bf16: about 6,100 tokens
-    args = _long_case(14, torch.bfloat16, [8192, 100, 10, 1],
-                      max_len=8192)
+    """The float32 lane is one CTA per (row, KV head): about 6,000 tokens
+    at 8 query rows.  The bf16 lane splits a long window over a cluster of
+    up to 8 CTAs, so at B x kv = 16 it holds eight times that; past it
+    both raise, launching nothing."""
+    cap32 = pa.scratch_capacity(4, 4, 8, 4, 128, 8, 4)
+    cap16 = pa.scratch_capacity(4, 4, 8, 4, 128, 8, 2)
+    assert 4096 < cap32 < 8192 < 40000 < cap16
     before = pa.LAUNCHES["paged_attention_scratch"]
-    with pytest.raises(ValueError, match=f"at most {cap} tokens"):
-        pa.paged_attention_scratch(*args)
+    for dtype, cap, depth in ((torch.float32, cap32, 8192),
+                              (torch.bfloat16, cap16, cap16 + 1024)):
+        args = _long_case(14, dtype, [depth, 100, 10, 1], max_len=depth)
+        with pytest.raises(ValueError, match=f"at most {cap} tokens"):
+            pa.paged_attention_scratch(*args)
     assert pa.LAUNCHES["paged_attention_scratch"] == before
+
+
+def test_scratch_lane_holds_an_8192_token_window_on_a_cluster(cuda):
+    """qwen3-4b's heads at bf16 (hq 32, 16 KV heads, hd 128), B 4, chunk
+    4: an 8192-token window, past one CTA's ~6,064, served by a cluster of
+    8 CTAs and held against the plain version."""
+    assert pa.scratch_capacity(4, 4, 32, 16, 128, 8, 2) >= 8192
+    args = _long_case(16, torch.bfloat16, [8192, 6100, 3000, 17],
+                      max_len=8192, hq=32, kv=16)
+    before = pa.LAUNCHES["paged_attention_scratch"]
+    out = pa.paged_attention_scratch(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention_scratch"] == before + 1
+    assert _rel_err(pa_ref.paged_attention_ref(*args).float(),
+                    out.float()) <= 2e-2
 
 
 @pytest.mark.parametrize("b,k,n,w_bits,bpc,rows,dtype", [
@@ -424,7 +472,9 @@ def test_scratch_lane_raises_past_its_capacity(cuda):
     (9, 640, 264, 6, 2, 128, torch.bfloat16),       # bpc 2, 128 rows
     (4, 1000, 136, 4, 1, 128, torch.float32),       # K % 32 != 0
     (33, 512, 300, 4, 1, 128, torch.float32),       # three batch tiles
-    (33, 200, 98, 7, 2, 64, torch.bfloat16)])      # ragged N, bf16
+    (33, 200, 98, 7, 2, 64, torch.bfloat16),       # ragged N, bf16
+    (16, 640, 256, 8, 1, 256, torch.float32),       # w_bits 8: codes +-255
+    (9, 640, 264, 8, 2, 128, torch.bfloat16)])     # w_bits 8, bpc 2
 def test_deepnet_stream_matches_plain_and_programmed_mac(
         cuda, b, k, n, w_bits, bpc, rows, dtype):
     rng = np.random.default_rng(k + n)

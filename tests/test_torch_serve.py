@@ -232,15 +232,6 @@ def test_scheduler_reclaims_pages_and_reports_telemetry(reference):
     assert len(sched.tracer.spans("request")) == len(PROMPT_LENS)
 
 
-def test_later_slices_raise_not_implemented(reference):
-    params = params_from_numpy(reference["params"], "cpu")
-    model = _port_model()
-    # multiplexing (tenants=...) is ported: tests/test_torch_multiplex.py
-    for kw in (dict(prefix_share=True), dict(preemption=True)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            BatchScheduler(model, params, n_slots=2, max_len=32, **kw)
-
-
 @pytest.mark.parametrize("extra", [
     [], ["--use-kernel", "--stream-pages", "2", "--block-pages", "2"],
     ["--use-kernel", "--mode-policy", "auto"]])
