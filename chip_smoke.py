@@ -24,14 +24,22 @@ Phases, each of which fails the run (exit code 1, no result line):
              kernels alone (``torch.profiler``); the bf16 scratch lane
              also holds an 8192-token window on a cluster of 8 CTAs
              (past one CTA's capacity), its capacity and the float32
-             lane's logged.
+             lane's logged.  With fp8 (float8_e4m3fn) K/V pools, q at
+             bf16 and at float32, both lanes at their serving shapes and
+             the long shape, and at q bf16 the prefix-sharing serve's
+             aliased 128-token table, must equal the same lane on the
+             pages upcast to q's type bit for bit; past the on-chip capacity (float32
+             at 8192 tokens, bf16 at 65,536 at B 1) the scratch lane keeps
+             its logits in a global workspace, one launch through the
+             dispatcher and none of the streamed lane's.
              The deep-net streaming kernel is driven through its entry
              point ``stream_linear`` at every qwen3-4b projection and
              held bitwise against the programmed read (``engine.linear``
              on the crossbar-MAC kernel) and against the popcount kernel
              (its independent integer witness), float32 and bfloat16
              weights, both kernels timed (call and device ms), and wq at
-             8 weight bits also bitwise against the exact code sums; the
+             8, 16 and 24 weight bits (codes past a byte run in passes of
+             one byte) also bitwise against the exact code sums; the
              Jacobi kernel is held bitwise against its plain version at
              10, 64, 128, 256 and 512 squared, traced (one device kernel
              per call), timed (call and device ms, device µs per sweep),
@@ -43,7 +51,14 @@ Phases, each of which fails the run (exit code 1, no result line):
              default on the card) and eager (``capture=False``, the
              witness), paged and dense KV, must all be identical, with
              every weight in deep-net layout and under
-             ``--mode-policy auto``;
+             ``--mode-policy auto``; then with an fp8 cache
+             (``kv_dtype=float8_e4m3fn``): identical with the attention
+             kernels on and off at the MAC kernel, and across paged and
+             dense, captured and eager; the plain MAC's streams are
+             logged beside the kernel's, and in their place the first
+             step's layer-0 K/V under both MACs must cast to the same
+             fp8 bytes except where the two float32 inputs lie on either
+             side of an e4m3 rounding midpoint (a neighbouring step);
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
              with ``--backend crossbar --use-kernel --kv paged``, captured
              (its step time: the warm-up, the capture and the replays),
@@ -52,7 +67,7 @@ Phases, each of which fails the run (exit code 1, no result line):
              4-layer serves through the streamed attention lane (the
              second with 1024-token prompts in a 2048-token window), each
              captured and eager with identical streams; then the hot-swap
-             serves at full width and 16 layers (``SWAP_ARGV``): without
+             serves at full width and 8 layers (``SWAP_ARGV``): without
              a swap, with ``--hot-swap ft:0.02`` captured and eager
              (identical streams), with ``--hot-swap init`` captured (the
              no-swap streams), each swap at version 2 with one
@@ -62,7 +77,7 @@ Phases, each of which fails the run (exit code 1, no result line):
              window and 2 replays after the flip (the window's steps,
              wall seconds, step ms against the replays before and after
              it, and peak memory logged), and one timed
-             ``stop_the_world_swap`` on a 16-layer scheduler; then the
+             ``stop_the_world_swap`` on an 8-layer scheduler; then the
              multiplex serves at full width and 8 layers (``MUX_ARGV``:
              tenants A and B at QoS 2:1 from one 2-plane bank, B's page
              budget binding): the CLI's serve captured; on one programmed
@@ -82,7 +97,15 @@ Phases, each of which fails the run (exit code 1, no result line):
              model reading through the streamed lane both policies under
              24 pages against the plain serve (equal streams), every
              count of shared pages, skipped tokens, COW copies and
-             evictions equal to the CPU's on the same arguments; last
+             evictions equal to the CPU's on the same arguments; then the
+             fp8 cache at full width and 8 layers on one programmed model
+             (``kv_dtype=float8_e4m3fn``, bf16 compute): the scratch lane
+             at ``PP_PREEMPT`` captured and eager, the streamed lane at
+             ``PP_SHARE`` shared captured and eager and unshared (equal
+             streams, the CPU's sharing counts, one capture, no
+             retrace), the K/V pool half the bf16 serve's bytes at equal
+             pages, the token agreement with the bf16-cache serves
+             logged; last
              the 36-layer serve on one programmed model: eager (its
              step time, streams equal to the captured serve's), then
              captured and eager with steps 4 on in a ``torch.profiler``
@@ -372,13 +395,15 @@ def _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv, hd, kv_len,
         for i in range(-(-length // ps)):
             pt[r, i] = nxt
             nxt += 1
-    pt[1, 0] = pt[0, 0]                       # an aliased first page
+    if b > 1:
+        pt[1, 0] = pt[0, 0]                   # an aliased first page
     for r, length in enumerate(kv_len[1:], 1):
         n = min(shared_pages, -(-length // ps))
         pt[r, :n] = pt[0, :n]
     kv_len_t = torch.tensor(kv_len, dtype=torch.int32)
     q_off = torch.clamp(kv_len_t - sq, min=0)
-    q_off[-1] = 0                             # a row at the start of prefill
+    if b > 1:
+        q_off[-1] = 0                         # a row at the start of prefill
     return (q, kp, vp, pt.to(dev), kv_len_t.to(dev), q_off.to(dev))
 
 
@@ -414,23 +439,33 @@ def _paged_run(kernel, ref, lane, args, bp):
 
 
 def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
-                   flush):
+                   flush, up=None):
     """Hold one lane against its plain version and time it: the call
     (wrapper and launches, CUDA events), the kernels' device time alone,
-    the plain version and one SDPA call over the gathered view."""
+    the plain version and one SDPA call over the gathered view.  With
+    ``up`` (the same case with fp8 K/V upcast to q's type) the lane on
+    ``args`` must equal the lane on ``up`` bit for bit, and SDPA runs on
+    ``up``."""
     run, plain = _paged_run(kernel, ref, lane, args, bp)
     y = run()
     y_ref = plain()
     torch.cuda.synchronize()
     err, rel = rel_err(torch, y, y_ref)
-    # bf16 values: the weights (scratch) and outputs round to bf16,
-    # whose unit roundoff is 2^-8 = 3.9e-3
-    tol = 1e-2
-    check(bool(torch.isfinite(y.float()).all()),
-          f"paged_attention_{lane} max_len={max_len}: non-finite output")
-    check(rel <= tol, f"paged_attention_{lane} max_len={max_len}: max rel "
-          f"err {rel:.3e} > {tol:g}")
     q = args[0]
+    what = (f"paged_attention_{lane} max_len={max_len} q {q.dtype} K/V "
+            f"{args[1].dtype}")
+    # bf16 values: the weights (scratch) and outputs round to bf16,
+    # whose unit roundoff is 2^-8 = 3.9e-3; float32: exp and the f32 sums
+    # in another order
+    tol = 1e-2 if q.dtype == torch.bfloat16 else 1e-5
+    check(bool(torch.isfinite(y.float()).all()),
+          f"{what}: non-finite output")
+    check(rel <= tol, f"{what}: max rel err {rel:.3e} > {tol:g}")
+    if up is not None:
+        y_up = _paged_run(kernel, ref, lane, up, bp)[0]()
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_up), f"{what}: not bitwise equal to the "
+              f"lane on the pages upcast to {q.dtype}")
     b, sq, hq, hd = q.shape
     kv = args[1].shape[2]
     attended = sum(min(n, max_len) for n in kv_len)
@@ -440,15 +475,19 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
     held = torch.cat([pt[r, torch.arange(min(n, max_len)) // ps] * ps
                       + torch.arange(min(n, max_len)) % ps
                       for r, n in enumerate(kv_len)]).unique().numel()
-    nbytes = (2 * held * kv * hd * 2 + 2 * y.numel() * 2
+    nbytes = (2 * held * kv * hd * args[1].element_size()
+              + 2 * y.numel() * y.element_size()
               + args[3].numel() * 4 + 2 * b * 4)
     ops = 4 * sq * hq * hd * attended
-    bnd, by = bound(nbytes, ops, "bf16")
+    bnd, by = bound(nbytes, ops,
+                    "bf16" if q.dtype == torch.bfloat16 else "fp32")
     dms, src = device_ms(torch, run, 20, flush, PAGED_KERNELS[lane])
-    sdpa = _sdpa_yardstick(torch, args)
+    sdpa = _sdpa_yardstick(torch, args if up is None else up)
     lib_dms, _ = device_ms(torch, sdpa, 20, flush)
     r = {"max_len": max_len, "kv_len": kv_len, "block_pages": bp,
          "b": b, "sq": sq, "hq": hq, "kv": kv, "hd": hd,
+         "q_dtype": str(q.dtype), "kv_dtype": str(args[1].dtype),
+         "bitwise_upcast": up is not None,
          "page_size": ps, "held_tokens": held, "max_abs_err": err,
          "max_rel_err": rel, "tol": tol, "ms": timed(torch, run, 20, flush),
          "device_ms": dms, "device_ms_source": src,
@@ -456,7 +495,8 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
          "library_ms": timed(torch, sdpa, 20, flush),
          "library_device_ms": lib_dms,
          "bound_ms": bnd, "bound_by": by}
-    log(f"  paged_attention_{lane:8s} max_len={max_len} kv_len={kv_len}: "
+    log(f"  {what} kv_len={kv_len}"
+        f"{' (bitwise = the lane on upcast pages)' if up else ''}: "
         f"max|err| {err:.3e} (rel {rel:.2e} <= {tol:g}); call "
         f"{r['ms']:.4f} ms, device {dms:.4f} ms ({src}), plain "
         f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms (device "
@@ -464,14 +504,36 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
     return r
 
 
-#: the multiplexed serve's scratch lanes: (rows, fill of each row)
-MUX_PAGED_CASES = ((5, [64, 37, 12, 5, 31]), (3, [31, 20, 5]))
 #: the prefix-sharing serves' attention (phase 4d, ``PP_SHARE``): B 4,
 #: chunk 4, qwen3-4b's 16 KV heads over a 128-token table, the followers
 #: reading the owner's first 7 pages; the streamed serve's 16-page block
 #: covers the whole table (one split, a combine of one partial)
 PP_PAGED_CASE = dict(max_len=128, kv_len=[107, 76, 60, 16], shared_pages=7,
                      block_pages=16)
+#: fp8 K/V at each lane's serving shape, at the long shape and at the
+#: prefix-sharing serve's shape (what the ``kv_fp8`` phase's sharing serve
+#: gives both lanes: one 16-page block, one split): (shape, lane, table,
+#: fills, block pages, shared pages, q types)
+FP8_CASES = (
+    ("serve", "scratch", 64, [64, 37, 12, 5], 0, 0, ("bf16", "f32")),
+    ("serve", "streamed", 512, [512, 300, 77, 9], 4, 0, ("bf16", "f32")),
+    ("long", "scratch", LONG_CASE["max_len"], LONG_CASE["kv_len"], 0, 0,
+     ("bf16", "f32")),
+    ("long", "streamed", LONG_CASE["max_len"], LONG_CASE["kv_len"],
+     LONG_CASE["block_pages"], 0, ("bf16", "f32")),
+    ("prefix_share", "scratch", PP_PAGED_CASE["max_len"],
+     PP_PAGED_CASE["kv_len"], 0, PP_PAGED_CASE["shared_pages"], ("bf16",)),
+    ("prefix_share", "streamed", PP_PAGED_CASE["max_len"],
+     PP_PAGED_CASE["kv_len"], PP_PAGED_CASE["block_pages"],
+     PP_PAGED_CASE["shared_pages"], ("bf16",)))
+#: past the scratch lane's on-chip capacity, the logits in the global
+#: workspace: (tag, q and K/V type, B, table, fills); the bf16 window's
+#: K/V is 0.54 GB (65,536 tokens x 16 KV heads x 128 x 2 bytes x 2)
+GLOBAL_CASES = (("f32_8192", "float32", 4, CLUSTER_CASE["max_len"],
+                 CLUSTER_CASE["kv_len"]),
+                ("bf16_65536", "bfloat16", 1, 65536, [65536]))
+#: the multiplexed serve's scratch lanes: (rows, fill of each row)
+MUX_PAGED_CASES = ((5, [64, 37, 12, 5, 31]), (3, [31, 20, 5]))
 
 
 def phase_paged_attention(torch, dev, flush):
@@ -562,15 +624,97 @@ def phase_paged_attention(torch, dev, flush):
     log(f"  paged_attention_streamed head dim 40 (on width "
         f"{kernel.streamed_width(40)}), max_len=512: max|err| {err:.3e} "
         f"(rel {rel:.2e} <= 0.01)")
+    phase_paged_fp8(torch, dev, flush, out)
+    phase_scratch_global(torch, dev, flush, out)
     return out
+
+
+def phase_paged_fp8(torch, dev, flush, out):
+    """Both lanes with float8_e4m3fn K/V pools (``FP8_CASES``): q at
+    bfloat16 and at float32 at their serving shapes and at the long
+    shape, and q at bfloat16 at the prefix-sharing serve's aliased
+    128-token table; each BITWISE equal to the same lane on the pages
+    upcast to q's type, within the lane's bound of the plain version,
+    and timed as the other cases (the byte bound counts K/V at 1 byte;
+    SDPA runs on the upcast pages)."""
+    from repro_torch.kernels.paged_attention import kernel, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    hq, kv, hd, ps, b, sq = 32, 16, 128, 8, 4, 4
+    for qdt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for shape, lane, max_len, kv_len, bp, shared, q_types in FP8_CASES:
+            if tag not in q_types:
+                continue
+            args = _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv,
+                               hd, kv_len, qdt, shared_pages=shared)
+            k8, v8 = (t.to(torch.float8_e4m3fn) for t in args[1:3])
+            fp8 = (args[0], k8, v8, *args[3:])
+            up = (args[0], k8.to(qdt), v8.to(qdt), *args[3:])
+            out[lane].setdefault("fp8", {}).setdefault(tag, {})[shape] = \
+                _paged_measure(torch, kernel, ref, lane, fp8, bp, max_len,
+                               kv_len, flush, up=up)
+            del args, fp8, up, k8, v8
+    torch.cuda.empty_cache()
+
+
+def phase_scratch_global(torch, dev, flush, out):
+    """The scratch lane past its on-chip capacity (``GLOBAL_CASES``):
+    through the dispatcher (no streamed threshold), one scratch launch and
+    none of the streamed lane's (nothing rerouted), the logits in the
+    global workspace, within the lane's bound of the plain version, and
+    timed."""
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    hq, kv, hd, ps, sq = 32, 16, 128, 8, 4
+    for tag, dt, b, max_len, kv_len in GLOBAL_CASES:
+        dtype = getattr(torch, dt)
+        args = _paged_case(torch, dev, gen, b, sq, max_len, ps, hq, kv, hd,
+                           kv_len, dtype)
+        eb = args[0].element_size()
+        cap = kernel.scratch_capacity(b, sq, hq, kv, hd, ps, eb)
+        ws = kernel.scratch_workspace(b, sq, hq, kv, hd, max_len, ps, eb, eb)
+        check(max_len > cap and ws > 0, f"scratch lane {tag}: capacity "
+              f"{cap}, workspace {ws} B (want past the on-chip layout)")
+        launches = dict(kernel.LAUNCHES)
+        calls = dict(ops.paged_path_calls)
+        y = ops.paged_attention(*args)
+        torch.cuda.synchronize()
+        ran = {k: kernel.LAUNCHES[k] - n for k, n in launches.items()}
+        routed = {k: ops.paged_path_calls[k] - n for k, n in calls.items()}
+        check(ran == {"paged_attention_scratch": 1,
+                      "paged_attention_streamed": 0,
+                      "paged_attention_combine": 0}
+              and routed["paged_scratch"] == 1
+              and routed["paged_streamed"] == 0,
+              f"scratch lane {tag}: launches {ran}, dispatches {routed}")
+        check(bool(torch.isfinite(y.float()).all()),
+              f"scratch lane {tag}: non-finite output")
+        del y
+        r = _paged_measure(torch, kernel, ref, "scratch", args, 0, max_len,
+                           kv_len, flush)
+        r.update(capacity=cap, workspace_bytes=ws)
+        out["scratch"][f"global_{tag}"] = r
+        log(f"  scratch lane {tag}: past its on-chip capacity ({cap} "
+            f"tokens), {ws / 2**20:.1f} MiB of global logits, no reroute")
+        del args
+        torch.cuda.empty_cache()
+
+
+#: weight bits past the serve's 4 that phase 2 drives at wq: one byte of
+#: codes, two passes of one byte, three
+WIDE_W_BITS = (8, 16, 24)
 
 
 def phase_deepnet_stream(torch, dev, flush):
     """``stream_linear`` (the entry point) at every qwen3-4b projection,
     B 16, float32 weights: its launches are counted over that run alone,
     and it must reach neither the popcount kernel nor the plain version.
-    Then, at 4 weight bits for every projection and at 8 (codes up to
-    +-255, the widest the kernels take) for wq, each output is held
+    Then, at 4 weight bits for every projection and at 8, 16 and 24
+    (``WIDE_W_BITS``: codes up to 2^24 - 1, the widest the kernels take,
+    past 8 bits in passes of one byte) for wq, each output is held
     BITWISE against ``engine.linear`` on the crossbar-MAC kernel (program,
     then read: the same integer codes and the same final conversion), for
     float32 and bfloat16 weights; the tensor-core kernel BITWISE against
@@ -612,8 +756,9 @@ def phase_deepnet_stream(torch, dev, flush):
           and ref.CALLS["deepnet_stream_ref"] == 0,
           "stream_linear reached the popcount kernel or the plain version")
 
-    cfg8 = dataclasses.replace(cfg, quant=QuantConfig(w_bits=8))
-    cases = [(cfg, name) for name in geoms] + [(cfg8, GEOMS[0][0])]
+    cases = [(cfg, name) for name in geoms] + [
+        (dataclasses.replace(cfg, quant=QuantConfig(w_bits=wb)), GEOMS[0][0])
+        for wb in WIDE_W_BITS]
     rows, max_abs = [], 0.0
     for c, name in cases:
         q = c.quant
@@ -846,27 +991,111 @@ def phase_ir_solve(torch, dev, flush, out_dir):
 
 # -- phase 3: token parity with and without the kernels -------------------------
 
-def phase_parity(torch, dev, mode_policy=None):
+#: the MAC-toggle probe's first step at fp8: slots x chunk query rows,
+#: each row's K and V cast into the cache by every layer
+PROBE_SLOTS, PROBE_CHUNK = 8, 16
+
+
+def _first_step_cache_inputs(torch, model, params, gen, vocab):
+    """The float32 K and V that each layer casts into the cache (its
+    ``cache_cast`` inputs, in call order: layer 0's K, layer 0's V, layer
+    1's K, ...) in an eager paged serve's first step over
+    ``PROBE_SLOTS`` prompts, one ``PROBE_CHUNK``-token chunk each."""
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import BatchScheduler, Request
+
+    sched = BatchScheduler(model, params, n_slots=PROBE_SLOTS, max_len=64,
+                           kv="paged", capture=False, chunk=PROBE_CHUNK)
+    for i in range(PROBE_SLOTS):
+        sched.submit(Request(rid=i, prompt=torch.randint(
+            0, vocab - 1, (PROBE_CHUNK + 8,), generator=gen,
+            dtype=torch.int32), max_new=1))
+    seen, cast = [], layers.cache_cast
+
+    def record(x, dtype):
+        seen.append(x.detach().float().cpu())
+        return cast(x, dtype)
+
+    layers.cache_cast = record
+    try:
+        sched.step()
+    finally:
+        layers.cache_cast = cast
+    return seen
+
+
+def _fp8_flips(torch, a, b):
+    """Where the float32 tensors ``a`` and ``b`` (one cache write computed
+    twice) cast to different e4m3 bytes: the count, and how many of them
+    are explained by rounding, that is, the two fp8 values are neighbours
+    on the e4m3 grid and the rounding midpoint between them lies between
+    ``a`` and ``b`` (inclusive).  Also the gap |a - b| over every entry:
+    its largest value against the tensor's largest magnitude, and in
+    e4m3 steps at the larger of the two values."""
+    from repro_torch.models.layers import FP8, cache_cast
+
+    fa, fb = (cache_cast(t, FP8) for t in (a, b))
+    flip = fa.view(torch.uint8) != fb.view(torch.uint8)
+    grid = torch.arange(256, dtype=torch.uint8).view(FP8).double()
+    grid = grid[torch.isfinite(grid)].unique()        # sorted, one zero
+    va, vb = fa[flip].double(), fb[flip].double()
+    x, y = a[flip].double(), b[flip].double()
+    mid = (va + vb) / 2
+    step = (torch.searchsorted(grid, va) - torch.searchsorted(grid, vb))
+    explained = (torch.isfinite(va) & torch.isfinite(vb)
+                 & (step.abs() <= 1)                  # 0 only for -0 / +0
+                 & (torch.minimum(x, y) <= mid) & (mid <= torch.maximum(x, y)))
+    gap = (a.double() - b.double()).abs()
+    big = torch.maximum(a.abs(), b.abs()).double()
+    # e4m3's spacing: 2^-9 below 2^-6 (subnormals), else 2^(e - 3)
+    e4m3_step = torch.ldexp(torch.ones_like(big),
+                            torch.frexp(big).exponent.clamp(min=-5) - 4)
+    return {"values": a.numel(), "f32_differ": int((a != b).sum()),
+            "flips": int(flip.sum()), "explained": int(explained.sum()),
+            "max_gap_of_scale": float(gap.max() / big.max()),
+            "max_gap_steps": float((gap / e4m3_step).max())}
+
+
+def phase_parity(torch, dev, mode_policy=None, kv_dtype=None):
     """Greedy streams at full width, 2 layers, float32, crossbar backend:
     the plain versions (captured), and the CUDA kernels captured and
     eager (``capture=False``, the witness), paged and dense, must all be
-    identical; each serve must trace its window step once."""
+    identical; each serve must trace its window step once.  ``kv_dtype``:
+    the cache's dtype.  With the fp8 cache (``torch.float8_e4m3fn``) the
+    MAC kernel runs with the attention kernels on and off, and the plain
+    MAC with neither: the MAC's plain version shift-adds its codes in
+    float32 and its kernel sums them exactly, so K and V differ in the
+    last float32 bits before the cache cast, and the cast to e4m3 (3
+    mantissa bits) turns the values that lie within that gap of a
+    rounding midpoint into a whole fp8 step.  So at fp8 the streams must
+    be identical with the attention kernels on and off at the MAC kernel,
+    and across paged and dense, captured and eager; in place of the plain
+    MAC's streams equalling the kernel's, the first step's cache inputs
+    of both MACs (``_first_step_cache_inputs``) must cast to the same
+    bytes except where the rounding explains the flip
+    (``_fp8_flips``), at layer 0, whose input is the same token
+    embeddings under both; if the streams differ, layer 0's inputs must
+    differ (float32 caches hold the streams equal, above)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import BatchScheduler, Request
 
     base = dataclasses.replace(get_config(ARCH), n_layers=2,
-                               backend="crossbar", dtype=torch.float32)
+                               backend="crossbar", dtype=torch.float32,
+                               kv_dtype=kv_dtype)
     gen = torch.Generator()
     gen.manual_seed(2)
     prompts = [torch.randint(0, base.vocab - 1, (n,), generator=gen,
                              dtype=torch.int32) for n in (5, 11, 3)]
     params = None
-    streams = {}
-    for use_kernel in (False, True):
+    streams, probe = {}, {}
+    pairs = ([(False, False), (True, True)] if kv_dtype is None else
+             [(False, False), (True, False), (True, True)])
+    for mac, attn in pairs:
+        use_kernel = mac and attn
         cfg = dataclasses.replace(
-            base, paged_kernel=use_kernel,
-            xbar=dataclasses.replace(base.xbar, use_kernel=use_kernel))
+            base, paged_kernel=attn,
+            xbar=dataclasses.replace(base.xbar, use_kernel=mac))
         model = build_model(cfg, device=dev)
         if params is None:
             params = model.init(0)
@@ -877,6 +1106,10 @@ def phase_parity(torch, dev, mode_policy=None):
             sched = BatchScheduler(model, params, n_slots=2, max_len=64,
                                    kv=kv, mode_policy=mode_policy,
                                    capture=capture)
+            cache = sched._lanes["A"].cache["layers"]
+            check(cache["k"].dtype == cache["v"].dtype
+                  == (kv_dtype or torch.float32),
+                  f"the cache is {cache['k'].dtype} (want {kv_dtype})")
             for i, p in enumerate(prompts):
                 sched.submit(Request(rid=i, prompt=p, max_new=4))
             done, steps = [], 0
@@ -891,34 +1124,74 @@ def phase_parity(torch, dev, mode_policy=None):
             n_mac = ran["crossbar_mac"]
             n_pa = ran["paged_attention_scratch"]
             _check_traced_once(caps, capture)
-            run = (use_kernel, kv, capture)
+            run = (mac, attn, kv, capture)
             streams[run] = {r.rid: r.out for r in done}
-            check((n_mac > 0 and (n_pa > 0) == (kv == "paged"))
-                  if use_kernel else (n_mac == 0 and n_pa == 0),
-                  f"use_kernel={use_kernel} kv={kv}: launches mac={n_mac} "
-                  f"paged={n_pa}")
+            check((n_mac > 0) == mac
+                  and (n_pa > 0) == (attn and kv == "paged"),
+                  f"mac kernel={mac} attention kernels={attn} kv={kv}: "
+                  f"launches mac={n_mac} paged={n_pa}")
             if use_kernel and mode_policy == "auto":
                 check(by_rows.get(256, 0) > 0 and by_rows.get(128, 0) > 0,
                       f"auto policy: crossbar_mac launches by rows "
                       f"{by_rows}")
-            log(f"  policy={mode_policy} use_kernel={use_kernel} kv={kv} "
+            log(f"  policy={mode_policy} kv_dtype={kv_dtype} mac kernel="
+                f"{mac} attention kernels={attn} kv={kv} "
                 f"{'captured' if capture else 'eager'}: streams "
                 f"{streams[run]} (kernel launches run: crossbar_mac {n_mac}"
                 f" {by_rows}, paged scratch {n_pa}; {cap['captures']} "
                 f"capture, {cap['replays']} replays)")
             del sched
+        if kv_dtype is not None and mac == attn:
+            probe_gen = torch.Generator()
+            probe_gen.manual_seed(3)
+            probe[mac] = _first_step_cache_inputs(torch, model, params,
+                                                  probe_gen, base.vocab)
         del model
         gc.collect()
         torch.cuda.empty_cache()
-    first = next(iter(streams.values()))
-    check(all(v == first for v in streams.values()),
+    # the runs that must agree: all of them, or at fp8 the MAC kernel's
+    group = [r for r in streams if kv_dtype is None or r[0]]
+    first = streams[group[0]]
+    check(all(streams[r] == first for r in group),
           f"greedy streams differ across plain/kernel, paged/dense, "
-          f"captured/eager (mode_policy={mode_policy}): {streams}")
-    return {"streams": {str(k): v for k, v in first.items()},
-            "identical": True, "layers": 2, "dtype": "float32",
-            "mode_policy": mode_policy,
-            "runs": [f"use_kernel={k} kv={kv} capture={c}"
-                     for k, kv, c in streams]}
+          f"captured/eager (mode_policy={mode_policy}, kv_dtype="
+          f"{kv_dtype}): { {r: streams[r] for r in group} }")
+    plain, kern = (streams[(m, m, "paged", True)] for m in (False, True))
+    mac_equal = plain == kern
+    out = {"streams": {str(k): v for k, v in kern.items()},
+           "identical": True, "layers": 2, "dtype": "float32",
+           "kv_dtype": str(kv_dtype), "mode_policy": mode_policy,
+           "plain_mac_streams_equal": mac_equal,
+           "plain_mac_agreement": _agreement(plain, kern),
+           "runs": [f"mac_kernel={m} attention_kernels={a} kv={kv} "
+                    f"capture={c}" for m, a, kv, c in streams]}
+    if kv_dtype is None:
+        return out
+    names = [f"layer{i // 2}_{'kv'[i % 2]}" for i in range(len(probe[True]))]
+    flips = {n: _fp8_flips(torch, a, b)
+             for n, a, b in zip(names, probe[False], probe[True])}
+    for n, f in flips.items():
+        log(f"  MAC toggle, first step ({PROBE_SLOTS} x {PROBE_CHUNK} "
+            f"tokens) {n}: {f['f32_differ']} of {f['values']} float32 "
+            f"inputs differ, by at most {f['max_gap_of_scale']:.2e} of the "
+            f"largest magnitude and {f['max_gap_steps']:.3f} e4m3 steps; "
+            f"{f['flips']} fp8 bytes flip, {f['explained']} of them a "
+            f"neighbour across a rounding midpoint that lies between the "
+            f"two inputs")
+    layer0 = [flips[n] for n in names[:2]]
+    check(all(f["flips"] == f["explained"] for f in layer0),
+          f"kv_dtype={kv_dtype}: layer 0's fp8 bytes under the plain MAC "
+          f"and the MAC kernel differ where rounding does not explain "
+          f"it: {layer0}")
+    check(mac_equal or any(f["f32_differ"] for f in layer0),
+          f"kv_dtype={kv_dtype}: the plain MAC's streams differ from the "
+          f"MAC kernel's, but layer 0's cache inputs are equal: {layer0}")
+    log(f"  kv_dtype={kv_dtype}: the plain MAC's streams "
+        f"{'equal' if mac_equal else 'differ from'} the MAC kernel's "
+        f"(token agreement {out['plain_mac_agreement']:.3f}); every "
+        f"flipped fp8 byte of layer 0 is rounding across a midpoint")
+    out["mac_toggle"] = flips
+    return out
 
 
 # -- phase 4: serve through the port's CLI ---------------------------------------
@@ -1078,6 +1351,8 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
             "kv": rep.get("kv"), "lane_ms": rep.get("lane_ms"),
             "kv_counts": rep.get("kv_counts"), "host": rep.get("host"),
             "peak_pages": rep.get("peak_pages"),
+            "kv_dtype": rep.get("kv_dtype"),
+            "pool_bytes": rep.get("pool_bytes"),
             "in_flight": {r.rid: [r.t_admit, r.t_done]
                           for r in rep["requests"]}}
 
@@ -1332,16 +1607,15 @@ def check_mode_report(rep):
 
 # -- phase 4b: hot-swap at full width ----------------------------------------
 
-#: the hot-swap serves: qwen3-4b at full width, 16 layers (a staged swap
-#: holds two plane sets and two params trees: ~53 GB at 16 layers, more
-#: than the card's 80 GB at 36), 8 requests on 4 slots, 16 new tokens
-SWAP_ARGV = ["--arch", ARCH, "--layers", "16", "--backend", "crossbar",
+#: the hot-swap serves: qwen3-4b at full width, 8 layers (a staged swap
+#: holds two plane sets and two params trees: 64.45 GB at 16 layers, more
+#: than the card's 80 GB at 36; cut from 16 to 8 to keep the run inside
+#: its time limit), 8 requests on 4 slots, 16 new tokens
+SWAP_ARGV = ["--arch", ARCH, "--layers", "8", "--backend", "crossbar",
              "--use-kernel", "--kv", "paged", "--requests", "8", "--slots",
              "4", "--prompt-len", "16", "--max-new", "16", "--max-len", "64",
              "--chunk", "4"]
 SWAP_FLAGS = ["--swap-after", "2", "--swap-chunks", "256"]
-#: the memory a swap at 16 layers was reckoned to peak at (GB)
-SWAP_RECKONED_GB = (55, 65)
 
 
 def _window(sv):
@@ -1418,7 +1692,7 @@ def _drive(st, dev, swap_params=None):
 
 
 def phase_hotswap(torch, dev):
-    """The 16-layer serve with an ``ft:0.02`` swap through the CLI,
+    """The 8-layer serve with an ``ft:0.02`` swap through the CLI,
     captured and eager (equal streams); then on one programmed model the
     serve without a swap and with an ``init`` swap, captured (equal
     streams: the graph captured after the flip reads the promoted
@@ -1475,8 +1749,7 @@ def phase_hotswap(torch, dev):
             f"{w['flip_ms'][0]:.1f}, {w['flip_ms'][1]:.1f}); MAC launches "
             f"in the window {sv['window_mac_launches']} (replays x "
             f"{lpr}); max_memory_allocated "
-            f"{sv['max_memory_allocated'] / 1e9:.2f} GB (reckoned "
-            f"{SWAP_RECKONED_GB[0]}-{SWAP_RECKONED_GB[1]} GB)")
+            f"{sv['max_memory_allocated'] / 1e9:.2f} GB")
     check(cap["window"]["flip_step"] == eager["window"]["flip_step"]
           and cap["swap_history"][0]["decode_steps_during_swap"]
           == eager["swap_history"][0]["decode_steps_during_swap"],
@@ -1840,10 +2113,14 @@ def _pp_drive(st, dev, argv, capture=None):
                       stagger=st.args.stagger)
     ex = st.model.executor
     caps = sched.capture_report()
+    cache = sched._lanes["A"].cache["layers"]
     rep.update(program_s=0.0, capture=caps["A"], captures=caps,
                swap_history=[], version=ex.version() if ex else None,
                kv=sched.kv_report(), kv_counts=serve.kv_counts(sched),
-               host=host, peak_pages=peak[0])
+               host=host, peak_pages=peak[0],
+               kv_dtype=str(cache["k"].dtype),
+               pool_bytes=sum(cache[k].numel() * cache[k].element_size()
+                              for k in ("k", "v")))
     return rep
 
 
@@ -1988,6 +2265,110 @@ def phase_prefix_preempt(torch, dev):
     return out
 
 
+#: the fp8-cache serves' model reads tables of 16 pages and more (the
+#: 128-token window of ``PP_SHARE``) through the streamed lane and
+#: shorter ones (the 64-token window of ``PP_PREEMPT``) through the
+#: scratch lane, so one programmed model serves both lanes
+FP8_STREAM_PAGES = 16
+
+
+def _agreement(a, b):
+    """The share of positions at which two serves' streams agree."""
+    pairs = [(x, y) for rid in a for x, y in zip(a[rid], b[rid])]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def phase_kv_fp8(torch, dev, pp):
+    """The fp8 KV cache at full width, 8 layers, bfloat16 compute, through
+    ``BatchScheduler`` (the reference reaches fp8 through ``ModelConfig``,
+    not its CLI): one programmed model with
+    ``kv_dtype=torch.float8_e4m3fn``, the scratch lane at ``PP_PREEMPT``'s
+    64-token window captured and eager, the streamed lane at ``PP_SHARE``
+    shared captured and eager and unshared captured.  Streams equal per
+    lane, one capture and no retrace per serve, the sharing counts equal
+    to the CPU's (``pp``: the prefix/preemption phase's report, whose
+    bf16-cache serves use the same params), and the K/V pool's bytes
+    exactly half of the bf16 serve's at equal pages.  The token agreement
+    with the bf16-cache serves is logged, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+
+    scratch = ["crossbar_mac", "paged_attention_scratch"]
+    streamed = ["crossbar_mac", "paged_attention_streamed",
+                "paged_attention_combine"]
+    t_phase = time.perf_counter()
+    out = {}
+    base = get_config(ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=8, backend="crossbar", paged_kernel=True,
+        xbar=dataclasses.replace(base.xbar, use_kernel=True),
+        paged_stream_pages=FP8_STREAM_PAGES, paged_block_pages=16,
+        kv_dtype=torch.float8_e4m3fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device=dev)
+    st = serve.Setup(serve.parse_args(PP_SHARE), model, model.init(0), None,
+                     dev)
+    t0 = time.perf_counter()
+    model.executor.program_params(st.params)
+    torch.cuda.synchronize()
+    out["program_s"] = time.perf_counter() - t0
+
+    def on_model(key, argv, must, capture=None):
+        sv = out[key] = phase_serve(
+            torch, dev, argv, must, capture=capture,
+            run=lambda: _pp_drive(st, dev, argv, capture))
+        check(sv["kv_dtype"] == "torch.float8_e4m3fn",
+              f"{key}: the cache is {sv['kv_dtype']}")
+        _pp_log(key, sv)
+        return sv
+
+    log(f"  scratch lane: {' '.join(PP_PREEMPT)}; captured, then eager")
+    sc = on_model("scratch", PP_PREEMPT, scratch)
+    sc_eager = on_model("scratch_eager", PP_PREEMPT, scratch, capture=False)
+    check(sc["streams"] == sc_eager["streams"],
+          "fp8 cache, scratch lane: captured and eager streams differ")
+    argv = PP_SHARE + ["--prefix-share"]
+    log(f"  streamed lane: {' '.join(argv)} captured and eager, and the "
+        f"unshared serve")
+    sh = on_model("share", argv, streamed)
+    check(sh["kv_counts"] == pp["cpu_counts"]["share"],
+          f"fp8 sharing counts {sh['kv_counts']} != the CPU's "
+          f"{pp['cpu_counts']['share']}")
+    sh_eager = on_model("share_eager", argv, streamed, capture=False)
+    plain = on_model("unshared", PP_SHARE, streamed)
+    check(sh["streams"] == sh_eager["streams"] == plain["streams"],
+          "fp8 cache, streamed lane: captured shared, eager shared and "
+          "unshared streams differ")
+    check(plain["kv_counts"] == dict.fromkeys(serve.KV_COUNTERS, 0),
+          f"the unshared fp8 serve counted {plain['kv_counts']}")
+    bf16 = pp["unshared"]
+    n8, n16 = (x["kv"]["A"]["n_pages"] for x in (plain, bf16))
+    check(n8 == n16 and 2 * plain["pool_bytes"] == bf16["pool_bytes"],
+          f"fp8 pool {plain['pool_bytes']} B at {n8} pages against the "
+          f"bf16 pool's {bf16['pool_bytes']} B at {n16} pages (want half)")
+    out["pool_bytes"] = {"fp8": plain["pool_bytes"],
+                         "bf16": bf16["pool_bytes"], "n_pages": n8}
+    out["agreement_with_bf16_cache"] = {
+        "scratch": _agreement(sc["streams"], pp["ample"]["streams"]),
+        "streamed": _agreement(plain["streams"],
+                               pp["unshared_streamed"]["streams"])}
+    del st, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  fp8 cache phase: {out['seconds']:.1f} s (programming "
+        f"{out['program_s']:.2f} s); K/V pool {plain['pool_bytes']} B "
+        f"against bf16's {bf16['pool_bytes']} B at {n8} pages; token "
+        f"agreement with the bf16-cache serves (not gated) "
+        f"{out['agreement_with_bf16_cache']}")
+    for sv in out.values():
+        if isinstance(sv, dict):
+            sv.pop("step_s", None)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "chip_smoke",
@@ -2044,6 +2425,9 @@ def main() -> int:
             "paged KV, with and without the kernels")
         report["parity"] = phase_parity(torch, dev)
         report["parity_auto"] = phase_parity(torch, dev, "auto")
+        log("  the same with an fp8 cache (kv_dtype=float8_e4m3fn)")
+        report["parity_fp8"] = phase_parity(
+            torch, dev, kv_dtype=torch.float8_e4m3fn)
 
         phase = "serve"
         log(f"[4/4] serve {ARCH} at full width through launch/serve.py "
@@ -2098,7 +2482,7 @@ def main() -> int:
                 "tok_per_s", "steps", "seconds", "step_ms",
                 "later_step_ms", "launches")}
         phase = "hotswap"
-        log("  hot-swap at full width, 16 layers")
+        log("  hot-swap at full width, 8 layers")
         report["hotswap"] = phase_hotswap(torch, dev)
         phase = "multiplex"
         log("  multiplexing two tenants at full width, 8 layers")
@@ -2106,6 +2490,10 @@ def main() -> int:
         phase = "prefix_preempt"
         log("  prefix sharing and preemption at full width, 8 layers")
         report["prefix_preempt"] = phase_prefix_preempt(torch, dev)
+        phase = "kv_fp8"
+        log("  the fp8 KV cache at full width, 8 layers, both lanes")
+        report["kv_fp8"] = phase_kv_fp8(torch, dev,
+                                        report["prefix_preempt"])
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
@@ -2179,8 +2567,10 @@ def main() -> int:
             "max_abs_err": max([r["max_abs_err"]] + [
                 r[k]["max_abs_err"] for k in (
                     "long", "serve_long", "hd40", "mux_b5", "mux_b3",
-                    "prefix_share")
-                if k in r]),
+                    "prefix_share", "global_f32_8192", "global_bf16_65536")
+                if k in r] + [
+                    c["max_abs_err"] for by_q in r["fp8"].values()
+                    for c in by_q.values()]),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2198,6 +2588,25 @@ def main() -> int:
             "long_bound_ms": lg["bound_ms"],
             "long_shape": f"B={lg['b']} sq={lg['sq']} "
                           f"max_len={lg['max_len']}"})
+        for qt, by_shape in r["fp8"].items():   # fp8 K/V, q at qt
+            for shape, c in by_shape.items():
+                pre = f"fp8_{qt}_" + ("" if shape == "serve" else
+                                       f"{shape}_")
+                kernels[-1].update({
+                    pre + "ms": c["ms"], pre + "device_ms": c["device_ms"],
+                    pre + "plain_ms": c["plain_ms"],
+                    pre + "bound_ms": c["bound_ms"],
+                    pre + "library_ms": c["library_ms"],
+                    pre + "library_device_ms": c["library_device_ms"],
+                    pre + "shape": f"B={c['b']} sq={c['sq']} "
+                                   f"max_len={c['max_len']}"})
+        for tag, *_ in GLOBAL_CASES:  # past the scratch lane's capacity
+            if f"global_{tag}" in r:
+                g = r[f"global_{tag}"]
+                kernels[-1].update({
+                    f"global_{tag}_{k}": g[k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms", "workspace_bytes")})
         if "cluster" in r:        # the bf16 scratch lane on a cluster
             cl = r["cluster"]
             kernels[-1].update({
@@ -2216,9 +2625,10 @@ def main() -> int:
                 "serve_long_bound_ms": sl["bound_ms"],
                 "serve_long_shape": f"B={sl['b']} sq={sl['sq']} "
                                     f"max_len={sl['max_len']}"})
-    ds_head, ds_w8 = (next(r for r in report["deepnet_stream"]["rows"]
-                           if r["geometry"] == g and r["w_bits"] == wb)
-                      for g, wb in (("head", 4), (GEOMS[0][0], 8)))
+    ds_head = next(r for r in report["deepnet_stream"]["rows"]
+                   if r["geometry"] == "head" and r["w_bits"] == 4)
+    ds_wide = {r["w_bits"]: r for r in report["deepnet_stream"]["rows"]
+               if r["geometry"] == GEOMS[0][0] and r["w_bits"] > 4}
     kernels.append({
         "name": "deepnet_stream", "route": "cuda",
         "source": "src/repro_torch/csrc/deepnet_stream.cu",
@@ -2237,7 +2647,7 @@ def main() -> int:
         "popcount_device_ms": ds_head["popcount_device_ms"],
         "popcount_bf16_ms": ds_head["popcount_ms_bf16"],
         "popcount_bf16_device_ms": ds_head["popcount_device_ms_bf16"],
-        **{f"w8_{k}": ds_w8[k] for k in (
+        **{f"w{wb}_{k}": ds_wide[wb][k] for wb in WIDE_W_BITS for k in (
             "ms", "device_ms", "bound_ms", "popcount_ms",
             "popcount_device_ms")}})
     ir_rows = {r["n"]: r for r in report["ir_solve"]["rows"]}

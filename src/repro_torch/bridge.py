@@ -5,8 +5,11 @@ numpy arrays — what ``jax.device_get`` returns for the
 reference's params — and returns the same tree of torch tensors on
 ``device``.  Layouts are unchanged (``wq`` stays ``(d, h, hd)``, ``wo``
 ``(h, hd, d)``, layer stacks keep their leading axis), so both packages
-program and compute from identical weights.  bfloat16 arrays (numpy's
-``ml_dtypes`` extension type) arrive bit for bit.
+program and compute from identical weights.  bfloat16 and
+float8_e4m3fn arrays (numpy's ``ml_dtypes`` extension types, which this
+module does not import) arrive bit for bit: they cross as their raw
+bytes.  ``torch_dtype`` maps a reference dtype (``jnp.float8_e4m3fn``,
+by its numpy name) to the port's.
 """
 from __future__ import annotations
 
@@ -17,12 +20,24 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
+#: numpy dtype names of the reference's float types -> torch dtypes
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float8_e4m3fn": torch.float8_e4m3fn}
+#: extension types numpy cannot hand to torch: carried as raw bits
+_RAW = {"bfloat16": np.int16, "float8_e4m3fn": np.uint8}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a reference (numpy or JAX) float dtype."""
+    return _TORCH_DTYPES[np.dtype(dtype).name]
+
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.array(a, copy=True, order="C")   # the port owns its copy
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(
-            torch.bfloat16).to(device)
+    raw = _RAW.get(a.dtype.name)
+    if raw is not None:
+        return torch.from_numpy(a.view(raw)).view(
+            torch_dtype(a.dtype)).to(device)
     return torch.from_numpy(a).to(device)
 
 

@@ -31,12 +31,16 @@
 //   * per row group a block reads its weight tile once from device memory
 //     (float4 / 4 x bf16 loads, a warp's lanes on 4 rows x 128 contiguous
 //     bytes), quantizes every weight once, and writes the magnitudes
-//     max(+-w_int, 0) (< 256) as bytes into two code tiles in shared
-//     memory, one per side, K-contiguous per column (stride rows + 4
-//     bytes, so both the writes and the fragment reads are free of bank
-//     conflicts).  No transpose is needed: a fragment word is four k of
-//     one column, and slice s of a side is (word >> bpc s) & digit in
-//     every byte at once;
+//     max(+-w_int, 0) as bytes into two code tiles in shared memory, one
+//     per side, K-contiguous per column (stride rows + 4 bytes, so both
+//     the writes and the fragment reads are free of bank conflicts).  No
+//     transpose is needed: a fragment word is four k of one column, and
+//     slice s of a side is (word >> bpc s) & digit in every byte at once;
+//   * a byte holds 8 / bpc whole digits.  Past 8 weight bits (up to 24,
+//     where rint(w / scale) is still an exact integer in float32) the
+//     group runs in passes: pass p quantizes the tile again and keeps the
+//     byte (magnitude >> 8 p) & 0xff, whose digits are slices 8 p / bpc
+//     on; through 8 bits there is one pass, as before;
 //   * there is no copy ring: a block's weight loads wait on device memory
 //     while the other blocks on its SM (three at 128 rows) run their math;
 //   * ragged K, N and B are masked here (rows past K and columns past N
@@ -61,7 +65,9 @@
 
 namespace {
 
-constexpr int kMaxWBits = 8;   // code magnitudes fit in an unsigned byte
+// rint(w / scale) is an exact integer in float32 through 24 bits; the
+// tensor-core kernel keeps one byte of each magnitude per pass
+constexpr int kMaxWBits = 24;
 constexpr int kSmemLimit = 232448;   // dynamic shared memory per block
 
 __device__ __forceinline__ float load_w(const float* p) { return *p; }
@@ -174,6 +180,7 @@ __global__ void __launch_bounds__(32 * WARPS) deepnet_stream_tc_kernel(
   for (int j = 0; j < 4; ++j) sc[j] = j < left ? a.scale[col0 + qc + j] : 1.0f;
   const T* wcol = static_cast<const T*>(a.w) + col0 + qc;
   const uint32_t digit = ((1u << a.bpc) - 1u) * 0x01010101u;
+  const int per_pass = 8 / a.bpc;   // slices whose digits one byte holds
 
   long long out[2][8];
   int part[2][8];
@@ -187,67 +194,74 @@ __global__ void __launch_bounds__(32 * WARPS) deepnet_stream_tc_kernel(
     const int kvalid = min(a.rows, a.K - k0);
     __syncthreads();   // every warp is past the last group's A and tiles
     xbar::build_a<KS, kThreads>(A, a.x, a.K, b0, nb, k0, kvalid, a.in_bits);
-    // program: quantize the group's weights into the code tiles
 #pragma unroll 1
-    for (int i0 = 0; i0 < kItems; i0 += kBatch) {
-      typename Raw4<T>::type raw[kBatch][4];
+    for (int s0 = 0; s0 < a.S; s0 += per_pass) {
+      const int lo = a.bpc * s0;        // the pass's byte: magnitude bits
+      if (s0 > 0) __syncthreads();      // every warp is past the last pass
+      // program: quantize the group's weights into the code tiles
+#pragma unroll 1
+      for (int i0 = 0; i0 < kItems; i0 += kBatch) {
+        typename Raw4<T>::type raw[kBatch][4];
 #pragma unroll
-      for (int i = 0; i < kBatch; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 4 * (4 * (i0 + i) + kl) + e;
-          if (r < kvalid && left > 0)
-            load_raw(wcol + static_cast<size_t>(k0 + r) * a.N, vec, left,
-                     raw[i][e]);
-          else
-            zero_raw(raw[i][e]);
-        }
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const int kq = 4 * (i0 + i) + kl;
-        float v[4][4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) to_float(raw[i][e], v[e]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t pw = 0u, nw = 0u;
+        for (int i = 0; i < kBatch; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float q = rintf(__fdiv_rn(v[e][j], sc[j]));
-            q = fminf(fmaxf(q, -a.qmax), a.qmax);
-            const int c = static_cast<int>(q);
-            pw |= static_cast<uint32_t>(c > 0 ? c : 0) << (8 * e);
-            nw |= static_cast<uint32_t>(c < 0 ? -c : 0) << (8 * e);
+            const int r = 4 * (4 * (i0 + i) + kl) + e;
+            if (r < kvalid && left > 0)
+              load_raw(wcol + static_cast<size_t>(k0 + r) * a.N, vec, left,
+                       raw[i][e]);
+            else
+              zero_raw(raw[i][e]);
           }
-          tile[(qc + j) * kWords + kq] = pw;
-          tile[(kCols + qc + j) * kWords + kq] = nw;
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int kq = 4 * (i0 + i) + kl;
+          float v[4][4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) to_float(raw[i][e], v[e]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            uint32_t pw = 0u, nw = 0u;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float q = rintf(__fdiv_rn(v[e][j], sc[j]));
+              q = fminf(fmaxf(q, -a.qmax), a.qmax);
+              const int c = static_cast<int>(q);
+              pw |= ((static_cast<uint32_t>(c > 0 ? c : 0) >> lo) & 0xffu)
+                    << (8 * e);
+              nw |= ((static_cast<uint32_t>(c < 0 ? -c : 0) >> lo) & 0xffu)
+                    << (8 * e);
+            }
+            tile[(qc + j) * kWords + kq] = pw;
+            tile[(kCols + qc + j) * kWords + kq] = nw;
+          }
         }
       }
-    }
-    __syncthreads();
-    // read: every (slice, side) of the group against the same A
+      __syncthreads();
+      // read: every (slice, side) of the pass against the same A
 #pragma unroll 1
-    for (int slice = 0; slice < a.S; ++slice) {
-      const int shift = a.bpc * slice;
+      for (int slice = s0; slice < min(a.S, s0 + per_pass); ++slice) {
+        const int shift = a.bpc * slice - lo;
 #pragma unroll 1
-      for (int side = 0; side < 2; ++side) {
-        const uint32_t* t =
-            tile + (side * kCols + 32 * warp + 4 * gr) * kWords + t4;
-        // bf[kk][j][h]: rows kk * 32 + 16 h + 4 t4 + 0..3 of column
-        // 32 warp + 4 gr + j, the slice's digit in every byte
-        uint32_t bf[KS][4][2];
+        for (int side = 0; side < 2; ++side) {
+          const uint32_t* t =
+              tile + (side * kCols + 32 * warp + 4 * gr) * kWords + t4;
+          // bf[kk][j][h]: rows kk * 32 + 16 h + 4 t4 + 0..3 of column
+          // 32 warp + 4 gr + j, the slice's digit in every byte
+          uint32_t bf[KS][4][2];
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
+          for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int h = 0; h < 2; ++h)
-              bf[kk][j][h] =
-                  (t[j * kWords + kk * 8 + 4 * h] >> shift) & digit;
-        xbar::adc_stage<KS>(bf, A, lut, side ? -1 : 1, nch, a.in_bits,
-                            part);
+              for (int h = 0; h < 2; ++h)
+                bf[kk][j][h] =
+                    (t[j * kWords + kk * 8 + 4 * h] >> shift) & digit;
+          xbar::adc_stage<KS>(bf, A, lut, side ? -1 : 1, nch, a.in_bits,
+                              part);
+        }
+        xbar::shift_add(out, part, a.bpc, slice);
       }
-      xbar::shift_add(out, part, a.bpc, slice);
     }
   }
   xbar::add_codes(a.acc, out, b0, nb, a.N, col0);
@@ -288,14 +302,14 @@ cudaError_t launch_typed(StreamArgs a, cudaStream_t st) {
 
 // -- the witness: the popcount kernel ----------------------------------------
 
-template <typename T, int BPC, int WORDS>
+template <typename T, typename C, int BPC, int WORDS>
 struct StreamCells {
   const T* __restrict__ w;
   int N;
   int col;
   float scale;
   float qmax;
-  int16_t (*tile)[xbar::kNT];  // [32 * WORDS][kNT] signed codes
+  C (*tile)[xbar::kNT];  // [32 * WORDS][kNT] signed codes
 
   // the "program" step of the row group: quantize this column's rows
   __device__ __forceinline__ void begin_group(int k0, int kvalid) {
@@ -305,7 +319,7 @@ struct StreamCells {
       const float v = load_w(wc + static_cast<size_t>(row) * N);
       float q = rintf(__fdiv_rn(v, scale));
       q = fminf(fmaxf(q, -qmax), qmax);
-      tile[row][threadIdx.x] = static_cast<int16_t>(q);
+      tile[row][threadIdx.x] = static_cast<C>(q);
     }
   }
 
@@ -313,7 +327,7 @@ struct StreamCells {
                                         uint32_t* mp, uint32_t* mn) const {
     const int shift = BPC * s;
     const int digit = (1 << BPC) - 1;
-    int16_t (*t)[xbar::kNT] = tile;
+    C (*t)[xbar::kNT] = tile;
     const int c = threadIdx.x;
     xbar::build_masks<BPC, WORDS>(
         [t, c, shift, digit](int row, uint32_t& pv, uint32_t& nv) {
@@ -325,17 +339,17 @@ struct StreamCells {
   }
 };
 
-// the popcount kernel's code tile: a 16-bit code per (row, column), since
-// codes reach +-255 at 8 weight bits (64 KB at 256 rows: dynamic shared
-// memory)
-template <int WORDS>
+// the popcount kernel's code tile: a signed code C per (row, column),
+// 16-bit through 15 weight bits (64 KB at 256 rows: dynamic shared
+// memory), 32-bit past that (128 KB at 256 rows)
+template <typename C, int WORDS>
 constexpr size_t popcount_tile_bytes() {
-  return static_cast<size_t>(32 * WORDS) * xbar::kNT * sizeof(int16_t);
+  return static_cast<size_t>(32 * WORDS) * xbar::kNT * sizeof(C);
 }
 
 // One thread per column: the column's codes of a group become 32-row bit
 // masks, AND-popcounted against every input bit plane (xbar_mac.cuh)
-template <typename T, int BPC, int WORDS>
+template <typename T, typename C, int BPC, int WORDS>
 __global__ void __launch_bounds__(xbar::kNT) deepnet_stream_kernel(
     const int32_t* __restrict__ x, const T* __restrict__ w,
     const float* __restrict__ w_scale,
@@ -344,23 +358,23 @@ __global__ void __launch_bounds__(xbar::kNT) deepnet_stream_kernel(
     float qmax) {
   __shared__ xbar::Shared<WORDS> sm;
   extern __shared__ __align__(16) unsigned char dyn[];
-  int16_t (*tile)[xbar::kNT] = reinterpret_cast<int16_t (*)[xbar::kNT]>(dyn);
+  C (*tile)[xbar::kNT] = reinterpret_cast<C (*)[xbar::kNT]>(dyn);
   const int n_groups = (K + rows - 1) / rows;
   const int g_begin = blockIdx.y * groups_per_split;
   const int g_end = min(n_groups, g_begin + groups_per_split);
   const int col = static_cast<int>(blockIdx.x) * xbar::kNT +
                   static_cast<int>(threadIdx.x);
-  StreamCells<T, BPC, WORDS> cells{w, N, col,
+  StreamCells<T, C, BPC, WORDS> cells{w, N, col,
                                    col < N ? w_scale[col] : 1.0f, qmax,
                                    tile};
   xbar::mac_groups<BPC, WORDS>(cells, sm, x, 0.0f, acc_out, B, K, N, S,
                                in_bits, rows, g_begin, g_end, lsb, levels);
 }
 
-template <typename T, int BPC, int WORDS>
+template <typename T, typename C, int BPC, int WORDS>
 cudaError_t launch_variant(dim3 grid, cudaStream_t st, const StreamArgs& a) {
-  auto kernel = deepnet_stream_kernel<T, BPC, WORDS>;
-  constexpr size_t smem = popcount_tile_bytes<WORDS>();
+  auto kernel = deepnet_stream_kernel<T, C, BPC, WORDS>;
+  constexpr size_t smem = popcount_tile_bytes<C, WORDS>();
   static smem::SmemGrant grant;
   const cudaError_t err = grant.allow(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -370,7 +384,7 @@ cudaError_t launch_variant(dim3 grid, cudaStream_t st, const StreamArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t launch_popcount(StreamArgs a, cudaStream_t st) {
   int gps = 0;
   const dim3 grid =
@@ -378,14 +392,21 @@ cudaError_t launch_popcount(StreamArgs a, cudaStream_t st) {
   a.gps = gps;
   const int words = (a.rows + 31) / 32;
   if (a.bpc == 1) {
-    if (words <= 1) return launch_variant<T, 1, 1>(grid, st, a);
-    if (words <= 2) return launch_variant<T, 1, 2>(grid, st, a);
-    if (words <= 4) return launch_variant<T, 1, 4>(grid, st, a);
-    return launch_variant<T, 1, 8>(grid, st, a);
+    if (words <= 1) return launch_variant<T, C, 1, 1>(grid, st, a);
+    if (words <= 2) return launch_variant<T, C, 1, 2>(grid, st, a);
+    if (words <= 4) return launch_variant<T, C, 1, 4>(grid, st, a);
+    return launch_variant<T, C, 1, 8>(grid, st, a);
   }
-  if (words <= 1) return launch_variant<T, 2, 1>(grid, st, a);
-  if (words <= 2) return launch_variant<T, 2, 2>(grid, st, a);
-  return launch_variant<T, 2, 4>(grid, st, a);
+  if (words <= 1) return launch_variant<T, C, 2, 1>(grid, st, a);
+  if (words <= 2) return launch_variant<T, C, 2, 2>(grid, st, a);
+  return launch_variant<T, C, 2, 4>(grid, st, a);
+}
+
+template <typename T>
+cudaError_t launch_popcount(const StreamArgs& a, int w_bits,
+                            cudaStream_t st) {
+  return w_bits <= 15 ? launch_popcount<T, int16_t>(a, st)
+                      : launch_popcount<T, int32_t>(a, st);
 }
 
 // Checks the arguments, zeroes the code buffer, launches the tensor-core
@@ -412,8 +433,8 @@ int launch_checked(const void* x, const void* w, const void* w_scale,
   cudaError_t err = xbar::zero_codes(acc, B, N, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (witness)
-    err = w_dtype == 0 ? launch_popcount<float>(a, st)
-                       : launch_popcount<__nv_bfloat16>(a, st);
+    err = w_dtype == 0 ? launch_popcount<float>(a, w_bits, st)
+                       : launch_popcount<__nv_bfloat16>(a, w_bits, st);
   else
     err = w_dtype == 0 ? launch_typed<float>(a, st)
                        : launch_typed<__nv_bfloat16>(a, st);

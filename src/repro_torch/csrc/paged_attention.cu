@@ -73,10 +73,30 @@
 // 64, 80, 96, 128, 192 and 256 and runs any head dim up to 256 on the next
 // width up, the extra columns zero in shared memory.
 //
+// Past the on-chip layout's capacity (the window's f32 logits no longer
+// fit beside the ring and Q), each scratch kernel keeps the logits in a
+// global workspace the wrapper allocates, one region per (row, KV head,
+// cluster rank), and reads the row's page table from device memory;
+// ring, Q and the cluster's row sums stay on chip, and the softmax is the
+// same exact max, exp, sum and divide over the whole window.  The lane
+// never reroutes to the streamed lane.
+//
+// fp8 K/V (float8_e4m3fn pages, q in float32 or bf16): every kernel
+// copies the e4m3 tiles (16 values per 16-byte cp.async) into a staging
+// ring of half the bytes, then widens each landed tile once in shared
+// memory into the q-type tile its math already reads; products, sums and
+// their order are those of the same lane at q's type.  An e4m3 value is
+// exact in bf16 and in f32, so each lane at fp8 equals the same lane on
+// the pages upcast to q's type bit for bit.  The reference upcasts K/V to
+// q's type inside the dot and never rounds q to fp8, so fp8 tensor-core
+// instructions (which take both operands in fp8) do not apply.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: expf and the divides are exact).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -282,6 +302,67 @@ __device__ __forceinline__ void issue_tile(
   }
 }
 
+// -- fp8 (e4m3) K/V ------------------------------------------------------------
+
+// K/V element type of the pools: the q type T, or e4m3 bytes
+using Fp8 = uint8_t;
+
+// two e4m3 values (the low byte first) as floats, exactly
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+// 16 bytes of T values from 16 / sizeof(T) floats (exact: e4m3 values)
+__device__ __forceinline__ uint4 pack_chunk(const float* f, float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack_chunk(const float* f, __nv_bfloat16) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = pack_bf16(__float2bfloat16_rn(f[2 * i]),
+                     __float2bfloat16_rn(f[2 * i + 1]));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Widen a landed tile of `tt` token rows x `hd` e4m3 values (16-byte
+// chunks at swz<Fp8>, as issue_tile<Fp8> wrote them) into the T tile the
+// math reads (chunks at swz<T>).  Rows issue_tile zero-filled widen to
+// zeros.  hd is a multiple of 16.
+template <typename T>
+__device__ __forceinline__ void widen_tile(const Fp8* src, T* dst, int tt,
+                                           int hd) {
+  constexpr int kVec = 16 / sizeof(T);   // T values per 16-byte chunk
+  const int cpr8 = hd / 16;
+  const int mask8 = swz_mask(cpr8);
+  const int mask = swz_mask(hd / kVec);
+  for (int i = threadIdx.x; i < tt * cpr8; i += kThreads) {
+    const int t = i / cpr8;
+    const int c = i - t * cpr8;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(src + swz<Fp8>(t, c, hd, mask8));
+    const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+    float f[16];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 lo = e4m3x2_to_float2(words[j]);
+      const float2 hi = e4m3x2_to_float2(words[j] >> 16);
+      f[4 * j] = lo.x;
+      f[4 * j + 1] = lo.y;
+      f[4 * j + 2] = hi.x;
+      f[4 * j + 3] = hi.y;
+    }
+    // values 16 c .. 16 c + 15 are T chunks 16 c / kVec ..
+#pragma unroll
+    for (int k = 0; k < 16 / kVec; ++k)
+      *reinterpret_cast<uint4*>(dst + swz<T>(t, 16 * c / kVec + k, hd,
+                                             mask)) =
+          pack_chunk(f + k * kVec, T());
+  }
+}
+
 // Q rows r = j * sq + s of the group, as f32, qst floats apart
 template <typename T>
 __device__ void load_q(const T* __restrict__ q, int b, int h, const Geom& gm,
@@ -322,35 +403,50 @@ __host__ __device__ inline int scratch_tile(int hd, int elem_bytes) {
 // count) runs on each tile once every thread's copies have landed.  The
 // last iteration issues tile 0 of `next` (if any) into the following
 // slot, so its copies fly while the caller works between two streams.
-template <typename T, typename F>
-__device__ void scratch_ring(const T* __restrict__ pool, const T* next,
+// With e4m3 pools (KV = Fp8) each landed tile is first widened into
+// `wide`, the one T tile the body reads.
+template <typename T, typename KV, typename F>
+__device__ void scratch_ring(const KV* __restrict__ pool, const KV* next,
                              const int* pages, int h, const Geom& gm, int n,
-                             int tt, T* ring, int s0, F&& body) {
+                             int tt, KV* ring, T* wide, int s0, F&& body) {
   const int n_tiles = (n + tt - 1) / tt;
   const int stage = tt * gm.hd;
   for (int it = 0; it < n_tiles; ++it) {
-    T* following = ring + ((s0 + it + 1) & 1) * stage;
+    KV* following = ring + ((s0 + it + 1) & 1) * stage;
     if (it + 1 < n_tiles)
-      issue_tile<T>(pool, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd,
-                    (it + 1) * tt, tt, n, following, nullptr);
+      issue_tile<KV>(pool, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd,
+                     (it + 1) * tt, tt, n, following, nullptr);
     else if (next != nullptr)
-      issue_tile<T>(next, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd, 0, tt,
-                    n, following, nullptr);
+      issue_tile<KV>(next, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd, 0, tt,
+                     n, following, nullptr);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    body(ring + ((s0 + it) & 1) * stage, it * tt, min(tt, n - it * tt));
+    const KV* cur = ring + ((s0 + it) & 1) * stage;
+    if constexpr (sizeof(KV) != sizeof(T)) {
+      widen_tile<T>(cur, wide, tt, gm.hd);
+      __syncthreads();
+      body(static_cast<const T*>(wide), it * tt, min(tt, n - it * tt));
+    } else {
+      body(cur, it * tt, min(tt, n - it * tt));
+    }
     __syncthreads();  // the slot is refilled by the next iteration
   }
 }
 
-// The float32 scratch lane (bf16 runs paged_scratch_mma_kernel).
+// The float32 scratch lane (bf16 runs paged_scratch_mma_kernel).  KV: the
+// pools' element type (float, or e4m3 widened in shared memory);
+// kGlobalL: the logits live in the global workspace `logits` (B x kv
+// regions of rows x depth rounded up to 4 floats) and the page table is
+// read from device memory, past the on-chip layout's capacity.
+template <typename KV, bool kGlobalL>
 __global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
-    const float* __restrict__ q, const float* __restrict__ kp,
-    const float* __restrict__ vp, const int32_t* __restrict__ pt,
+    const float* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const int32_t* __restrict__ pt,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    float* __restrict__ out, Geom gm) {
+    float* __restrict__ out, float* __restrict__ logits, Geom gm) {
   using T = float;
+  constexpr bool kWiden = sizeof(KV) != sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kVec = 16 / sizeof(T);
   const int b = blockIdx.x;
@@ -364,27 +460,38 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
   const int n = tokens_needed(len, depth);
   const int tt = scratch_tile(hd, sizeof(T));
   const int mask = swz_mask(hd / kVec);
-  // layout: ring (2 tiles) | Qs (rows x (hd + 4): 16-byte rows, four
-  // banks apart) | L (rows x lst, lst = n rounded up to 4) | the row's
-  // page table
+  // layout: ring (2 tiles of KV) | the widened T tile (e4m3 pools) | Qs
+  // (rows x (hd + 4): 16-byte rows, four banks apart) | on chip: L (rows x
+  // lst, lst = n rounded up to 4) and the row's page table
   const int qst = hd + 4;
   const int lst = (n + 3) & ~3;
-  T* ring = reinterpret_cast<T*>(smem);
-  float* Qs = reinterpret_cast<float*>(ring + 2 * tt * hd);
-  float* L = Qs + rows * qst;
-  int* pages = reinterpret_cast<int*>(L + rows * ((depth + 3) & ~3));
-  load_pages(pt + static_cast<size_t>(b) * gm.p_seq, 0, n, gm.ps, pages);
+  KV* ring = reinterpret_cast<KV*>(smem);
+  T* wide = reinterpret_cast<T*>(ring + 2 * tt * hd);
+  float* Qs = reinterpret_cast<float*>(wide + (kWiden ? tt * hd : 0));
+  float* L;
+  const int* pages;
+  if constexpr (kGlobalL) {
+    L = logits + (static_cast<size_t>(b) * gm.kv + h) * rows *
+                     ((depth + 3) & ~3);
+    pages = pt + static_cast<size_t>(b) * gm.p_seq;
+  } else {
+    L = Qs + rows * qst;
+    int* row_pages = reinterpret_cast<int*>(L + rows * ((depth + 3) & ~3));
+    load_pages(pt + static_cast<size_t>(b) * gm.p_seq, 0, n, gm.ps,
+               row_pages);
+    pages = row_pages;
+  }
   load_q(q, b, h, gm, qst, Qs);
   __syncthreads();
-  issue_tile<T>(kp, nullptr, pages, 0, h, gm.ps, gm.kv, hd, 0, tt, n, ring,
-                nullptr);
+  issue_tile<KV>(kp, nullptr, pages, 0, h, gm.ps, gm.kv, hd, 0, tt, n, ring,
+                 nullptr);
   cp_async_commit();
   const int n_tiles = (n + tt - 1) / tt;
   // logits L[r][t] of every row against each K tile.  A thread runs four
   // dots at once (independent fmaf chains, each over d in order) from
   // 16-byte loads; the rows of one token are neighbouring threads, so a
   // warp reads few K rows.
-  scratch_ring(kp, vp, pages, h, gm, n, tt, ring, 0,
+  scratch_ring(kp, vp, pages, h, gm, n, tt, ring, wide, 0,
                [&](const T* Ks, int t0, int cnt) {
                  const int total = rows * cnt;
                  for (int i0 = threadIdx.x; i0 < total; i0 += 4 * kThreads) {
@@ -462,7 +569,8 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
       acc[k] = 0.0f;
     }
     const bool more = base + kThreads * kScratchAcc < rows * hd;
-    scratch_ring(vp, more ? vp : nullptr, pages, h, gm, n, tt, ring, s0,
+    scratch_ring(vp, more ? vp : nullptr, pages, h, gm, n, tt, ring, wide,
+                 s0,
                  [&](const T* Vs, int t0, int cnt) {
       // V[t][d] of this tile
       auto vat = [&](int t, int d) {
@@ -555,25 +663,38 @@ inline int sm_count() {
   return n;
 }
 
-// layout: ring | Qs | L | row max and sum (cs > 1) | P.V partials (cs > 1)
-// | the CTA's page-table entries
+// layout: ring (kv_bytes per element) | the widened bf16 tile (e4m3
+// pools) | Qs | on chip: L | row max and sum (cs > 1) | P.V partials
+// (cs > 1) | on chip: the CTA's page-table entries.  With global_l the
+// logits and the page table stay in device memory.
 struct ScratchLayout {
-  size_t ring, qs, l, red, part, pages, total;
+  size_t ring, wide, qs, l, red, part, pages, total;
 };
-__host__ __device__ inline ScratchLayout scratch_layout(int rows, int hd,
-                                                        int depth, int ps,
-                                                        int stages, int cs) {
+__host__ __device__ inline ScratchLayout scratch_layout(
+    int rows, int hd, int depth, int ps, int stages, int cs,
+    int kv_bytes = 2, bool global_l = false) {
   const size_t hdp = scratch_hdp(hd);
   const int share = scratch_share(depth, cs);
   ScratchLayout o;
   o.ring = 0;
-  o.qs = o.ring + static_cast<size_t>(stages) * kTileTokens * hdp * 2;
+  o.wide = o.ring + static_cast<size_t>(stages) * kTileTokens * hdp *
+                        kv_bytes;
+  o.qs = o.wide + (kv_bytes != 2 ? kTileTokens * hdp * 2 : 0);
   o.l = o.qs + static_cast<size_t>(scratch_qrows(rows)) * hdp * 2;
-  o.red = o.l + static_cast<size_t>(rows) * scratch_lst(share) * 4;
+  o.red = o.l + (global_l ? 0
+                          : static_cast<size_t>(rows) * scratch_lst(share) *
+                                4);
   o.part = o.red + (cs > 1 ? static_cast<size_t>(2 * rows) * 4 : 0);
   o.pages = o.part + (cs > 1 ? static_cast<size_t>(rows) * hdp * 4 : 0);
-  o.total = o.pages + static_cast<size_t>((share + ps - 1) / ps + 1) * 4;
+  o.total = o.pages + (global_l ? 0
+                                : static_cast<size_t>((share + ps - 1) / ps +
+                                                      1) * 4);
   return o;
+}
+// floats of the global logits workspace of one (row, KV head, rank)
+__host__ __device__ inline size_t scratch_global_l(int rows, int depth,
+                                                   int cs) {
+  return static_cast<size_t>(rows) * scratch_lst(scratch_share(depth, cs));
 }
 
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
@@ -610,12 +731,19 @@ __device__ __forceinline__ uint32_t bf16x2_of(float2 v) {
 //     are combined across the cluster through distributed shared memory
 //     (the sums in rank order), and the CTAs' P.V partials are summed in
 //     rank order before the one rounding to bf16.
+//   * KV = Fp8: e4m3 tiles land in a ring of half the bytes and are
+//     widened into one bf16 tile before the math; kGlobalL: the logits
+//     live in the workspace `logits` (scratch_global_l floats per CTA)
+//     and the page table in device memory, past the on-chip capacity.
+template <typename KV, bool kGlobalL>
 __global__ void __launch_bounds__(kThreads) paged_scratch_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ vp, const int32_t* __restrict__ pt,
+    const __nv_bfloat16* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const int32_t* __restrict__ pt,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    __nv_bfloat16* __restrict__ out, Geom gm, int stages) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ logits, Geom gm,
+    int stages) {
   using T = __nv_bfloat16;
+  constexpr bool kWiden = sizeof(KV) != sizeof(T);
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
@@ -645,15 +773,26 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_mma_kernel(
   const int t4 = lane & 3;
   const int mat = lane >> 3;
   const ScratchLayout lay = scratch_layout(rows, hd, depth, gm.ps, stages,
-                                           cs);
+                                           cs, sizeof(KV), kGlobalL);
   const int stage = kTileTokens * hdp;
-  T* ring = reinterpret_cast<T*>(smem + lay.ring);
+  KV* ring = reinterpret_cast<KV*>(smem + lay.ring);
+  T* wide = reinterpret_cast<T*>(smem + lay.wide);
   T* Qs = reinterpret_cast<T*>(smem + lay.qs);
-  float* L = reinterpret_cast<float*>(smem + lay.l);
   float* red = reinterpret_cast<float*>(smem + lay.red);
   float* part = reinterpret_cast<float*>(smem + lay.part);
-  int* pages = reinterpret_cast<int*>(smem + lay.pages);
-  load_pages(pt + static_cast<size_t>(b) * gm.p_seq, tb0, te0, gm.ps, pages);
+  float* L;
+  const int* pages;
+  if constexpr (kGlobalL) {
+    L = logits + ((static_cast<size_t>(b) * gm.kv + h) * cs + rank) *
+                     scratch_global_l(rows, depth, cs);
+    pages = pt + static_cast<size_t>(b) * gm.p_seq + tb0 / gm.ps;
+  } else {
+    L = reinterpret_cast<float*>(smem + lay.l);
+    int* cta_pages = reinterpret_cast<int*>(smem + lay.pages);
+    load_pages(pt + static_cast<size_t>(b) * gm.p_seq, tb0, te0, gm.ps,
+               cta_pages);
+    pages = cta_pages;
+  }
   for (int i = threadIdx.x; i < qrows * cpr; i += kThreads) {
     const int r = i / cpr;
     const int c = i - r * cpr;
@@ -679,11 +818,11 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_mma_kernel(
   const int total = n_tiles * (1 + passes);
   auto issue = [&](int it) {
     if (it < total) {
-      const T* pool = it < n_tiles ? kp : vp;
+      const KV* pool = it < n_tiles ? kp : vp;
       const int tile = it < n_tiles ? it : (it - n_tiles) % n_tiles;
-      issue_tile<T>(pool, nullptr, pages, tb0, h, gm.ps, gm.kv, hdp,
-                    tb0 + tile * kTileTokens, kTileTokens, te0,
-                    ring + (it % stages) * stage, nullptr, hd);
+      issue_tile<KV>(pool, nullptr, pages, tb0, h, gm.ps, gm.kv, hdp,
+                     tb0 + tile * kTileTokens, kTileTokens, te0,
+                     ring + (it % stages) * stage, nullptr, hd);
     }
     cp_async_commit();
   };
@@ -751,7 +890,14 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_mma_kernel(
     if (it == n_tiles) softmax();
     cp_async_wait_upto(stages - 1);
     __syncthreads();
-    const T* st = ring + (it % stages) * stage;
+    const T* st;
+    if constexpr (kWiden) {
+      widen_tile<T>(ring + (it % stages) * stage, wide, kTileTokens, hdp);
+      __syncthreads();
+      st = wide;
+    } else {
+      st = ring + (it % stages) * stage;
+    }
     if (it < n_tiles) {
       // logits of this warp's 16 tokens against every row
       const int t0 = it * kTileTokens;      // within the CTA's share
@@ -1116,10 +1262,14 @@ template <int HD> struct WarpMath<float, HD> {
   }
 };
 
-// split_pages: the most page-table entries one split reads
-size_t streamed_smem(int hd, int elem_bytes, int split_pages) {
+// split_pages: the most page-table entries one split reads; kv_bytes: 1
+// for e4m3 pools (a ring of e4m3 tiles, then one widened K and V tile)
+size_t streamed_smem(int hd, int elem_bytes, int kv_bytes, int split_pages) {
   size_t s = static_cast<size_t>(ring_stages(hd, elem_bytes)) * 2 *
-                 kTileTokens * hd * elem_bytes +
+                 kTileTokens * hd * kv_bytes +
+             (kv_bytes != elem_bytes
+                  ? static_cast<size_t>(2) * kTileTokens * hd * elem_bytes
+                  : 0) +
              static_cast<size_t>(kGroupRows) * hd * elem_bytes +
              static_cast<size_t>(split_pages) * 4;
   if (elem_bytes == 4) s += (kWarps * kGroupRows * (kWarpTokens + 1)) * 4;
@@ -1130,10 +1280,12 @@ size_t streamed_smem(int hd, int elem_bytes, int split_pages) {
 
 // part_ml[(((b * kv + h) * n_split + split) * R + r) * 2 + {0, 1}] = m, l;
 // part_acc[... * hd + d] = the unnormalised f32 accumulator; R = g * sq.
-template <typename T, int HD>
+// KV = Fp8: the ring holds e4m3 tiles, each widened into one T tile pair
+// before the math.
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kThreads) paged_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int32_t* __restrict__ pt,
+    const T* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const int32_t* __restrict__ pt,
     const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
     float* __restrict__ part_ml, float* __restrict__ part_acc, Geom gm,
     int n_blocks, int block_tokens, int n_split) {
@@ -1143,6 +1295,7 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   constexpr int kCpr = HD / kVec;
   constexpr int kMask = swz_mask(kCpr);
   constexpr int kStage = 2 * kTileTokens * HD;  // K tile then V tile
+  constexpr bool kWiden = sizeof(KV) != sizeof(T);
   const int b = blockIdx.x;
   const int h = blockIdx.y;
   const int split = blockIdx.z % n_split;
@@ -1166,10 +1319,12 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
     }
     return;
   }
-  // layout: ring (kStages x [K tile | V tile]) | Qs [16][HD] | Pw | Aw
-  // (float32) | the split's page-table entries
-  T* ring = reinterpret_cast<T*>(smem);
-  T* Qs = ring + kStages * kStage;
+  // layout: ring (kStages x [K tile | V tile] of KV) | the widened [K | V]
+  // T tiles (e4m3 pools) | Qs [16][HD] | Pw | Aw (float32) | the split's
+  // page-table entries
+  KV* ring = reinterpret_cast<KV*>(smem);
+  T* wide = reinterpret_cast<T*>(ring + kStages * kStage);
+  T* Qs = wide + (kWiden ? kStage : 0);
   float* Pw = reinterpret_cast<float*>(Qs + kGroupRows * HD);
   float* Aw = Pw + kWarps * kGroupRows * kWarpTokens;
   int* pages = reinterpret_cast<int*>(
@@ -1196,10 +1351,10 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
   const int n_tiles = (t_end - t_begin + kTileTokens - 1) / kTileTokens;
   auto issue = [&](int it) {
     if (it < n_tiles) {
-      T* st = ring + (it % kStages) * kStage;
+      KV* st = ring + (it % kStages) * kStage;
       const int t0 = t_begin + it * kTileTokens;
-      issue_tile(kp, vp, pages, t_begin, h, gm.ps, gm.kv, HD, t0,
-                 kTileTokens, t_end, st, st + kTileTokens * HD, hd);
+      issue_tile<KV>(kp, vp, pages, t_begin, h, gm.ps, gm.kv, HD, t0,
+                     kTileTokens, t_end, st, st + kTileTokens * HD, hd);
     }
     cp_async_commit();
   };
@@ -1212,7 +1367,15 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
     issue(it + kStages - 1);
     cp_async_wait<kStages - 1>();
     __syncthreads();
-    const T* st = ring + (it % kStages) * kStage;
+    const T* st;
+    if constexpr (kWiden) {  // K and V rows alike: 2 x kTileTokens rows
+      widen_tile<T>(ring + (it % kStages) * kStage, wide, 2 * kTileTokens,
+                    HD);
+      __syncthreads();
+      st = wide;
+    } else {
+      st = ring + (it % kStages) * kStage;
+    }
     const int ta0 = t_begin + it * kTileTokens + warp * kWarpTokens;
     // a warp whose tokens all lie past t_end would leave its sums as
     // they are (p = 0, alpha = 1): skip it
@@ -1284,16 +1447,17 @@ struct SplitArgs {
   cudaStream_t st;
 };
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 cudaError_t launch_split(const SplitArgs& a) {
-  const size_t smem = streamed_smem(HD, sizeof(T), a.split_pages);
+  const size_t smem =
+      streamed_smem(HD, sizeof(T), sizeof(KV), a.split_pages);
   static smem::SmemGrant grant;
-  cudaError_t err = grant.allow(paged_split_kernel<T, HD>, smem);
+  cudaError_t err = grant.allow(paged_split_kernel<T, KV, HD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B, a.gm.kv, a.n_split * a.groups);
-  paged_split_kernel<T, HD><<<grid, kThreads, smem, a.st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
-      static_cast<const T*>(a.vp), static_cast<const int32_t*>(a.pt),
+  paged_split_kernel<T, KV, HD><<<grid, kThreads, smem, a.st>>>(
+      static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
+      static_cast<const KV*>(a.vp), static_cast<const int32_t*>(a.pt),
       static_cast<const int32_t*>(a.kv_len),
       static_cast<const int32_t*>(a.q_off), a.part_ml, a.part_acc, a.gm,
       a.n_blocks, a.block_tokens, a.n_split);
@@ -1309,152 +1473,250 @@ inline int streamed_width(int hd) {
   return 0;
 }
 
-template <typename T> cudaError_t split_by_hd(const SplitArgs& a) {
-  if (a.gm.hd <= 0 || (a.gm.hd * static_cast<int>(sizeof(T))) % 16 != 0)
+template <typename T, typename KV>
+cudaError_t split_by_hd(const SplitArgs& a) {
+  if (a.gm.hd <= 0 || (a.gm.hd * static_cast<int>(sizeof(T))) % 16 != 0 ||
+      (a.gm.hd * static_cast<int>(sizeof(KV))) % 16 != 0)
     return cudaErrorInvalidValue;
   switch (streamed_width(a.gm.hd)) {
-    case 16: return launch_split<T, 16>(a);
-    case 32: return launch_split<T, 32>(a);
-    case 64: return launch_split<T, 64>(a);
-    case 80: return launch_split<T, 80>(a);
-    case 96: return launch_split<T, 96>(a);
-    case 128: return launch_split<T, 128>(a);
-    case 192: return launch_split<T, 192>(a);
-    case 256: return launch_split<T, 256>(a);
+    case 16: return launch_split<T, KV, 16>(a);
+    case 32: return launch_split<T, KV, 32>(a);
+    case 64: return launch_split<T, KV, 64>(a);
+    case 80: return launch_split<T, KV, 80>(a);
+    case 96: return launch_split<T, KV, 96>(a);
+    case 128: return launch_split<T, KV, 128>(a);
+    case 192: return launch_split<T, KV, 192>(a);
+    case 256: return launch_split<T, KV, 256>(a);
     default: break;
   }
   return cudaErrorInvalidValue;
+}
+
+// float32 scratch lane's shared memory: ring (2 tiles of KV) | widened
+// tile (e4m3) | Qs | on chip: the logits and the row's page table
+inline size_t scratch_f32_smem(int rows, int hd, int depth, int ps,
+                               int kv_bytes, bool global_l) {
+  const size_t tt = scratch_tile(hd, 4);
+  size_t s = 2 * tt * hd * kv_bytes + (kv_bytes != 4 ? tt * hd * 4 : 0) +
+             static_cast<size_t>(rows) * (hd + 4) * 4;
+  if (!global_l)
+    s += static_cast<size_t>(rows) * ((depth + 3) & ~3) * 4 +
+         static_cast<size_t>((depth + ps - 1) / ps) * 4;
+  return s;
+}
+
+struct ScratchArgs {
+  const void *q, *kp, *vp, *pt, *kv_len, *q_off;
+  void* out;
+  float* logits;
+  Geom gm;
+  int B;
+  cudaStream_t st;
+};
+
+template <typename KV, bool kGlobalL>
+cudaError_t launch_scratch_f32(const ScratchArgs& a, size_t smem) {
+  static smem::SmemGrant grant;
+  cudaError_t err = grant.allow(paged_scratch_kernel<KV, kGlobalL>, smem);
+  if (err != cudaSuccess) return err;
+  paged_scratch_kernel<KV, kGlobalL>
+      <<<dim3(a.B, a.gm.kv), kThreads, smem, a.st>>>(
+          static_cast<const float*>(a.q), static_cast<const KV*>(a.kp),
+          static_cast<const KV*>(a.vp), static_cast<const int32_t*>(a.pt),
+          static_cast<const int32_t*>(a.kv_len),
+          static_cast<const int32_t*>(a.q_off), static_cast<float*>(a.out),
+          a.logits, a.gm);
+  return cudaGetLastError();
+}
+
+// the bf16 lane: a cluster of cs CTAs per (row, KV head) along z
+template <typename KV, bool kGlobalL>
+cudaError_t launch_scratch_mma(const ScratchArgs& a, int cs, int stages,
+                               size_t smem) {
+  using T = __nv_bfloat16;
+  auto kernel = paged_scratch_mma_kernel<KV, kGlobalL>;
+  static smem::SmemGrant grant;
+  cudaError_t err = grant.allow(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B, a.gm.kv, cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cs;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const KV*>(a.kp),
+      static_cast<const KV*>(a.vp), static_cast<const int32_t*>(a.pt),
+      static_cast<const int32_t*>(a.kv_len),
+      static_cast<const int32_t*>(a.q_off), static_cast<T*>(a.out), a.logits,
+      a.gm, stages);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// bytes of an element for a dtype code: 0 float32, 1 bfloat16, 2 e4m3
+inline int dtype_bytes(int code) {
+  return code == 0 ? 4 : code == 1 ? 2 : code == 2 ? 1 : 0;
+}
+// q in float32 or bf16; K/V in q's type or e4m3
+inline bool dtype_pair_ok(int dtype, int kv_dtype) {
+  return (dtype == 0 || dtype == 1) && (kv_dtype == dtype || kv_dtype == 2);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes each lane needs per block (the wrapper checks them
-// against the card's per-block limit before launching).  depth is the
-// table's token depth P_seq * ps, blocks the launch's B * kv.  At bf16
-// each CTA of the cluster the launch splits the window over
-// (scratch_cluster) holds its share of the logits, and this is the least
-// it takes (a two-stage ring; the launch deepens the ring where room is
-// left); the float32 lane is one CTA per (row, KV head).
+// Shared-memory bytes each lane's on-chip layout needs per block (the
+// wrapper compares them with the card's per-block limit).  depth is the
+// table's token depth P_seq * ps, blocks the launch's B * kv, kv_bytes
+// the K/V element size (1 for e4m3).  At bf16 each CTA of the cluster the
+// launch splits the window over (scratch_cluster) holds its share of the
+// logits, and this is the least it takes (a two-stage ring; the launch
+// deepens the ring where room is left); the float32 lane is one CTA per
+// (row, KV head).
 size_t paged_scratch_smem(int sq, int hq, int kv, int hd, int depth,
-                          int ps, int elem_bytes, int blocks) {
-  const size_t rows = static_cast<size_t>(hq / kv) * sq;
+                          int ps, int elem_bytes, int kv_bytes, int blocks) {
+  const int rows = hq / kv * sq;
   if (elem_bytes == 2)
-    return scratch_layout(static_cast<int>(rows), hd, depth, ps, 2,
-                          scratch_cluster(depth, blocks, sm_count()))
+    return scratch_layout(rows, hd, depth, ps, 2,
+                          scratch_cluster(depth, blocks, sm_count()),
+                          kv_bytes, false)
         .total;
-  return 2 * static_cast<size_t>(scratch_tile(hd, elem_bytes)) * hd *
-             elem_bytes +
-         rows * (hd + 4) * 4 + rows * ((depth + 3) & ~3) * 4 +
-         static_cast<size_t>((depth + ps - 1) / ps) * 4;
+  return scratch_f32_smem(rows, hd, depth, ps, kv_bytes, false);
 }
 
-// The deepest table (whole pages, in tokens) the scratch lane holds at
+// The deepest table (whole pages, in tokens) the on-chip layout holds at
 // this shape: the largest depth whose paged_scratch_smem fits a block.
 // The bytes grow with depth between the cluster's steps and fall at each
 // step, so every depth from the largest a cluster of 8 could hold down is
-// tried.
+// tried.  Deeper tables keep their logits in the global workspace.
 int paged_scratch_capacity(int sq, int hq, int kv, int hd, int ps,
-                           int elem_bytes, int blocks) {
+                           int elem_bytes, int kv_bytes, int blocks) {
   const long long rows = static_cast<long long>(hq / kv) * sq;
   if (rows <= 0 || ps <= 0) return 0;
   // each CTA holds at least depth / 8 tokens of f32 logits per row
   for (long long pages = 8LL * kSmemLimit / (4 * rows * ps) + 1; pages > 0;
        --pages) {
     if (paged_scratch_smem(sq, hq, kv, hd, static_cast<int>(pages * ps), ps,
-                           elem_bytes, blocks) <=
+                           elem_bytes, kv_bytes, blocks) <=
         static_cast<size_t>(kSmemLimit))
       return static_cast<int>(pages * ps);
   }
   return 0;
 }
 
-// split_pages: ceil(blocks / n_split) * block_pages; hd is the pools'
-// head dim (0 when no compiled width holds it)
-size_t paged_streamed_smem(int hd, int elem_bytes, int split_pages) {
-  const int w = streamed_width(hd);
-  return w == 0 ? 0 : streamed_smem(w, elem_bytes, split_pages);
+// Bytes of the global logits workspace a scratch launch at this shape
+// needs: 0 while the on-chip layout fits, else one f32 region per (row,
+// KV head, cluster rank).
+size_t paged_scratch_workspace(int B, int sq, int hq, int kv, int hd,
+                               int depth, int ps, int elem_bytes,
+                               int kv_bytes) {
+  if (paged_scratch_smem(sq, hq, kv, hd, depth, ps, elem_bytes, kv_bytes,
+                         B * kv) <= static_cast<size_t>(kSmemLimit))
+    return 0;
+  const int rows = hq / kv * sq;
+  const size_t bk = static_cast<size_t>(B) * kv;
+  if (elem_bytes == 2) {
+    const int cs = scratch_cluster(depth, B * kv, sm_count());
+    return bk * cs * scratch_global_l(rows, depth, cs) * 4;
+  }
+  return bk * rows * ((depth + 3) & ~3) * 4;
 }
 
-// scale is hd^-0.5 rounded to f32 by the caller; dtype: 0 = float32,
-// 1 = bfloat16.  Each returns a cudaError_t (0 = launched).
+// split_pages: ceil(blocks / n_split) * block_pages; hd is the pools'
+// head dim (0 when no compiled width holds it)
+size_t paged_streamed_smem(int hd, int elem_bytes, int kv_bytes,
+                           int split_pages) {
+  const int w = streamed_width(hd);
+  return w == 0 ? 0 : streamed_smem(w, elem_bytes, kv_bytes, split_pages);
+}
+
+// scale is hd^-0.5 rounded to f32 by the caller; dtype (q and out): 0 =
+// float32, 1 = bfloat16; kv_dtype: dtype, or 2 = float8_e4m3fn.  logits:
+// the workspace of paged_scratch_workspace bytes, or null when that is 0.
+// Each returns a cudaError_t (0 = launched).
 int paged_scratch_launch(const void* q, const void* kp, const void* vp,
                          const void* pt, const void* kv_len,
-                         const void* q_off, void* out, int B, int sq, int hq,
-                         int kv, int hd, int ps, int p_seq, int causal,
-                         float scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || kv <= 0 || hq % kv != 0 || (dtype != 0 && dtype != 1) ||
-      hd <= 0 || (hd * (dtype == 0 ? 4 : 2)) % 16 != 0) {
+                         const void* q_off, void* out, void* logits, int B,
+                         int sq, int hq, int kv, int hd, int ps, int p_seq,
+                         int causal, float scale, int dtype, int kv_dtype,
+                         void* stream) {
+  const int qb = dtype_bytes(dtype);
+  const int kvb = dtype_bytes(kv_dtype);
+  if (B <= 0 || kv <= 0 || hq % kv != 0 || !dtype_pair_ok(dtype, kv_dtype) ||
+      hd <= 0 || (hd * qb) % 16 != 0 || (hd * kvb) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Geom gm{sq, hq, kv, hd, ps, p_seq, causal, scale};
-  const dim3 grid(B, kv);
+  const ScratchArgs a{q, kp, vp, pt, kv_len, q_off, out,
+                      static_cast<float*>(logits),
+                      Geom{sq, hq, kv, hd, ps, p_seq, causal, scale}, B,
+                      static_cast<cudaStream_t>(stream)};
+  const int rows = hq / kv * sq;
+  const int depth = p_seq * ps;
+  const bool fp8 = kv_dtype == 2;
   cudaError_t err;
   if (dtype == 1) {
-    using T = __nv_bfloat16;
-    const int rows = hq / kv * sq;
-    const int depth = p_seq * ps;
     const int cs = scratch_cluster(depth, B * kv, sm_count());
+    const bool global_l =
+        scratch_layout(rows, hd, depth, ps, 2, cs, kvb, false).total >
+        static_cast<size_t>(kSmemLimit);
+    if (global_l && logits == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
     // a split window has parallelism enough: a three-stage ring keeps more
     // of the cluster's CTAs resident at once
     int stages = cs > 1 ? 3 : kMmaMaxStages;
-    while (stages > 2 && scratch_layout(rows, hd, depth, ps, stages, cs).total >
-                             static_cast<size_t>(kSmemLimit))
+    while (stages > 2 &&
+           scratch_layout(rows, hd, depth, ps, stages, cs, kvb, global_l)
+                   .total > static_cast<size_t>(kSmemLimit))
       --stages;
-    const size_t smem = scratch_layout(rows, hd, depth, ps, stages, cs).total;
-    static smem::SmemGrant mma_grant;
-    err = mma_grant.allow(paged_scratch_mma_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(B, kv, cs);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = cs;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(
-        &cfg, paged_scratch_mma_kernel, static_cast<const T*>(q),
-        static_cast<const T*>(kp), static_cast<const T*>(vp),
-        static_cast<const int32_t*>(pt), static_cast<const int32_t*>(kv_len),
-        static_cast<const int32_t*>(q_off), static_cast<T*>(out), gm, stages);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaGetLastError());
+    const size_t smem =
+        scratch_layout(rows, hd, depth, ps, stages, cs, kvb, global_l).total;
+    using T = __nv_bfloat16;
+    if (fp8)
+      err = global_l ? launch_scratch_mma<Fp8, true>(a, cs, stages, smem)
+                     : launch_scratch_mma<Fp8, false>(a, cs, stages, smem);
+    else
+      err = global_l ? launch_scratch_mma<T, true>(a, cs, stages, smem)
+                     : launch_scratch_mma<T, false>(a, cs, stages, smem);
+    return static_cast<int>(err);
   }
-  const size_t smem =
-      paged_scratch_smem(sq, hq, kv, hd, p_seq * ps, ps, 4, B * kv);
-  static smem::SmemGrant grant;
-  err = grant.allow(paged_scratch_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  paged_scratch_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(kp),
-      static_cast<const float*>(vp), static_cast<const int32_t*>(pt),
-      static_cast<const int32_t*>(kv_len),
-      static_cast<const int32_t*>(q_off), static_cast<float*>(out), gm);
-  return static_cast<int>(cudaGetLastError());
+  const bool global_l = scratch_f32_smem(rows, hd, depth, ps, kvb, false) >
+                        static_cast<size_t>(kSmemLimit);
+  if (global_l && logits == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = scratch_f32_smem(rows, hd, depth, ps, kvb, global_l);
+  if (fp8)
+    err = global_l ? launch_scratch_f32<Fp8, true>(a, smem)
+                   : launch_scratch_f32<Fp8, false>(a, smem);
+  else
+    err = global_l ? launch_scratch_f32<float, true>(a, smem)
+                   : launch_scratch_f32<float, false>(a, smem);
+  return static_cast<int>(err);
 }
 
 // The split kernel: partials of n_split contiguous runs of whole blocks of
 // block_pages pages into part_ml (B, kv, n_split, g * sq, 2) and part_acc
-// (B, kv, n_split, g * sq, hd), float32.  hd is a whole number of 16-byte
-// chunks, at most 256; it runs on the next compiled width up (16, 32, 64,
+// (B, kv, n_split, g * sq, hd), float32.  dtype and kv_dtype as for
+// paged_scratch_launch.  hd is a whole number of 16-byte chunks at q's
+// type and at K/V's, at most 256; it runs on the next compiled width up (16, 32, 64,
 // 80, 96, 128, 192, 256); p_seq % block_pages == 0; 1 <= n_split <= the
 // number of blocks.
 int paged_split_launch(const void* q, const void* kp, const void* vp,
                        const void* pt, const void* kv_len, const void* q_off,
                        void* part_ml, void* part_acc, int B, int sq, int hq,
                        int kv, int hd, int ps, int p_seq, int causal,
-                       float scale, int dtype, int block_pages, int n_split,
-                       void* stream) {
+                       float scale, int dtype, int kv_dtype,
+                       int block_pages, int n_split, void* stream) {
   if (B <= 0 || kv <= 0 || sq <= 0 || hq % kv != 0 || block_pages <= 0 ||
       p_seq % block_pages != 0 || n_split < 1 ||
-      n_split > p_seq / block_pages || (dtype != 0 && dtype != 1)) {
+      n_split > p_seq / block_pages || !dtype_pair_ok(dtype, kv_dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows = (hq / kv) * sq;
@@ -1467,8 +1729,12 @@ int paged_split_launch(const void* q, const void* kp, const void* vp,
                     (rows + kGroupRows - 1) / kGroupRows,
                     (n_blocks + n_split - 1) / n_split * block_pages,
                     static_cast<cudaStream_t>(stream)};
+  using T = __nv_bfloat16;
+  const bool fp8 = kv_dtype == 2;
   const cudaError_t err =
-      dtype == 0 ? split_by_hd<float>(a) : split_by_hd<__nv_bfloat16>(a);
+      dtype == 0 ? (fp8 ? split_by_hd<float, Fp8>(a)
+                        : split_by_hd<float, float>(a))
+                 : (fp8 ? split_by_hd<T, Fp8>(a) : split_by_hd<T, T>(a));
   return static_cast<int>(err);
 }
 

@@ -27,7 +27,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_W_BITS = 8      # the tensor-core kernel keeps code magnitudes in bytes
+#: round(w / scale) is an exact integer in float32 through 24 bits (the
+#: reference's own code stops being one past that); the tensor-core kernel
+#: takes the magnitudes a byte per pass, the popcount witness in a 16-bit
+#: tile through 15 bits and a 32-bit one past that
+MAX_W_BITS = 24
 
 
 def _entry(name: str):

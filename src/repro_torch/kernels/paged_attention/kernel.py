@@ -3,8 +3,13 @@
 ``paged_attention_scratch`` and ``paged_attention_streamed`` launch their
 kernels for CUDA tensors and run the plain version (``ref.py``) for CPU
 tensors; a CUDA call the kernels cannot take raises.  ``LAUNCHES`` counts
-kernel launches and nothing else.  The streamed lane's partials live in
-a float32 workspace the wrapper allocates; the kernels allocate nothing.
+kernel launches and nothing else.  The streamed lane's partials, and the
+scratch lane's logits past its on-chip capacity, live in float32
+workspaces the wrapper allocates; the kernels allocate nothing.
+
+q is float32 or bfloat16; the K/V pools are in q's type or in
+``float8_e4m3fn`` (the fp8 KV cache), which every kernel widens to q's
+type in shared memory before its math.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: K/V pool dtype codes: q's type, or e4m3 (code 2)
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
 #: widths the streamed lane's split kernel is compiled for: a head dim
@@ -48,18 +55,20 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     if lib.paged_scratch_launch.argtypes is None:
         lib.paged_scratch_launch.argtypes = (
-            [_P] * 7 + [_I] * 8 + [_F, _I, _P])
+            [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P])
         lib.paged_scratch_launch.restype = _I
         lib.paged_split_launch.argtypes = (
-            [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P])
+            [_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _I, _P])
         lib.paged_split_launch.restype = _I
         lib.paged_combine_launch.argtypes = [_P] * 3 + [_I] * 7 + [_P]
         lib.paged_combine_launch.restype = _I
-        lib.paged_scratch_smem.argtypes = [_I] * 8
+        lib.paged_scratch_smem.argtypes = [_I] * 9
         lib.paged_scratch_smem.restype = ctypes.c_size_t
-        lib.paged_scratch_capacity.argtypes = [_I] * 7
+        lib.paged_scratch_capacity.argtypes = [_I] * 8
         lib.paged_scratch_capacity.restype = _I
-        lib.paged_streamed_smem.argtypes = [_I] * 3
+        lib.paged_scratch_workspace.argtypes = [_I] * 9
+        lib.paged_scratch_workspace.restype = ctypes.c_size_t
+        lib.paged_streamed_smem.argtypes = [_I] * 4
         lib.paged_streamed_smem.restype = ctypes.c_size_t
     return lib
 
@@ -98,14 +107,15 @@ def _check(q, k_pages, v_pages, page_table, kv_len, q_offset):
     if hd2 != hd or hq % kv:
         raise ValueError(f"head shapes disagree: q {tuple(q.shape)}, pages "
                          f"{tuple(k_pages.shape)}")
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k_pages.dtype != v_pages.dtype \
+            or k_pages.dtype not in (q.dtype, torch.float8_e4m3fn):
         raise TypeError(f"paged attention kernels take float32 or bfloat16 "
-                        f"q/k/v of one type, got {q.dtype}/{k_pages.dtype}/"
-                        f"{v_pages.dtype}")
-    if (hd * q.element_size()) % 16:
-        raise ValueError(f"head_dim {hd} is not a whole number of 16-byte "
-                         f"chunks at {q.dtype}")
+                        f"q with K/V pools of q's type or float8_e4m3fn, "
+                        f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    for t in (q, k_pages):
+        if (hd * t.element_size()) % 16:
+            raise ValueError(f"head_dim {hd} is not a whole number of "
+                             f"16-byte chunks at {t.dtype}")
     for name, t in (("page_table", page_table), ("kv_len", kv_len),
                     ("q_offset", q_offset)):
         if t.dtype != torch.int32 or t.device != dev:
@@ -125,46 +135,52 @@ def _check(q, k_pages, v_pages, page_table, kv_len, q_offset):
 
 def scratch_capacity(b: int, sq: int, hq: int, kv: int, hd: int,
                      page_size: int, elem_bytes: int) -> int:
-    """Most tokens of table depth (whole pages) the scratch lane holds at
-    this shape.  At bfloat16 the launch splits a window of 512 tokens or
-    more over a cluster of up to 8 CTAs (fewer once B x kv fills the
-    card), each holding the f32 logits of its share; the float32 lane is
-    one CTA."""
+    """Most tokens of table depth (whole pages) the scratch lane's on-chip
+    layout holds at this shape, K/V in q's type.  At bfloat16 the launch
+    splits a window of 512 tokens or more over a cluster of up to 8 CTAs
+    (fewer once B x kv fills the card), each holding the f32 logits of
+    its share; the float32 lane is one CTA.  A deeper table keeps its
+    logits in a global workspace (:func:`scratch_workspace`)."""
     return _lib().paged_scratch_capacity(sq, hq, kv, hd, page_size,
-                                         elem_bytes, b * kv)
+                                         elem_bytes, elem_bytes, b * kv)
+
+
+def scratch_workspace(b: int, sq: int, hq: int, kv: int, hd: int,
+                      depth: int, page_size: int, elem_bytes: int,
+                      kv_bytes: int) -> int:
+    """Bytes of the global f32 logits workspace a scratch launch at this
+    shape takes: 0 within :func:`scratch_capacity`."""
+    return _lib().paged_scratch_workspace(b, sq, hq, kv, hd, depth,
+                                          page_size, elem_bytes, kv_bytes)
 
 
 def _scratch(q, k_pages, v_pages, page_table, kv_len, q_offset, causal):
     b, sq, hq, kv, hd, ps, p_seq = _check(q, k_pages, v_pages, page_table,
                                           kv_len, q_offset)
     lib = _lib()
-    eb = q.element_size()
-    depth = p_seq * ps
-    if lib.paged_scratch_smem(sq, hq, kv, hd, depth, ps, eb,
-                              b * kv) > SMEM_LIMIT:
-        cap = scratch_capacity(b, sq, hq, kv, hd, ps, eb)
-        raise ValueError(
-            f"paged attention scratch lane holds at most {cap} tokens of "
-            f"table at B={b}, g*sq={hq // kv * sq}, head_dim {hd}, "
-            f"{q.dtype} (227 KB of shared memory per block); this table is "
-            f"{depth} deep: use the streamed lane")
+    ws = scratch_workspace(b, sq, hq, kv, hd, p_seq * ps, ps,
+                           q.element_size(), k_pages.element_size())
+    logits = (torch.empty(ws // 4, dtype=torch.float32, device=q.device)
+              if ws else None)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_scratch_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
-            out.data_ptr(), b, sq, hq, kv, hd, ps, p_seq, int(causal),
-            hd ** -0.5, _DTYPES[q.dtype], stream)
+            out.data_ptr(), None if logits is None else logits.data_ptr(),
+            b, sq, hq, kv, hd, ps, p_seq, int(causal), hd ** -0.5,
+            _DTYPES[q.dtype], _KV_DTYPES[k_pages.dtype], stream)
     build.check(err, "paged_attention_scratch")
     LAUNCHES["paged_attention_scratch"] += 1
     return out
 
 
-def _split_plan(lib, dev, b, kv, rows, p_seq, block_pages, ps, hd, eb):
+def _split_plan(lib, dev, b, kv, rows, p_seq, block_pages, ps, hd, eb,
+                kvb):
     """The streamed lane's split count at this call shape, its shared
     memory checked once per shape."""
-    key = (dev.index, b, kv, rows, p_seq, block_pages, ps, hd, eb)
+    key = (dev.index, b, kv, rows, p_seq, block_pages, ps, hd, eb, kvb)
     n_split = _PLANS.get(key)
     if n_split is None:
         if dev.index not in _SMS:
@@ -173,7 +189,7 @@ def _split_plan(lib, dev, b, kv, rows, p_seq, block_pages, ps, hd, eb):
         n_split = choose_n_split(b, kv, rows, p_seq, block_pages, ps,
                                  _SMS[dev.index])
         split_pages = -(-(p_seq // block_pages) // n_split) * block_pages
-        smem = lib.paged_streamed_smem(hd, eb, split_pages)
+        smem = lib.paged_streamed_smem(hd, eb, kvb, split_pages)
         if smem > SMEM_LIMIT:
             raise ValueError(f"paged attention streamed lane needs {smem} B "
                              f"of shared memory per block (limit "
@@ -192,7 +208,7 @@ def _streamed(q, k_pages, v_pages, page_table, kv_len, q_offset, causal,
     lib = _lib()
     rows = hq // kv * sq
     n_split = _split_plan(lib, q.device, b, kv, rows, p_seq, block_pages,
-                          ps, hd, q.element_size())
+                          ps, hd, q.element_size(), k_pages.element_size())
     n_parts = b * kv * n_split * rows
     part = torch.empty(n_parts * (hd + 2), dtype=torch.float32,
                        device=q.device)
@@ -205,8 +221,8 @@ def _streamed(q, k_pages, v_pages, page_table, kv_len, q_offset, causal,
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), kv_len.data_ptr(), q_offset.data_ptr(),
             part_ml.data_ptr(), part_acc.data_ptr(), b, sq, hq, kv, hd, ps,
-            p_seq, int(causal), hd ** -0.5, dtype, block_pages, n_split,
-            stream)
+            p_seq, int(causal), hd ** -0.5, dtype, _KV_DTYPES[k_pages.dtype],
+            block_pages, n_split, stream)
         build.check(err, "paged_attention_streamed")
         LAUNCHES["paged_attention_streamed"] += 1
         err = lib.paged_combine_launch(
@@ -220,8 +236,9 @@ def _streamed(q, k_pages, v_pages, page_table, kv_len, q_offset, causal,
 def paged_attention_scratch(q, k_pages, v_pages, page_table, kv_len,
                             q_offset, *, causal: bool = True
                             ) -> torch.Tensor:
-    """Scratch lane: gather-then-SDPA with an exact softmax.  On the card
-    it holds tables up to :func:`scratch_capacity` tokens deep and raises
+    """Scratch lane: gather-then-SDPA with an exact softmax over the whole
+    window.  On the card the f32 logits stay on chip up to
+    :func:`scratch_capacity` tokens of table and in a global workspace
     past that."""
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, page_table,

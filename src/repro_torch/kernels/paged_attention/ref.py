@@ -14,6 +14,10 @@ max / denominator / accumulator updates.
 ``paged_attention_split_ref`` is the CUDA streamed lane's algorithm in
 plain PyTorch (split-KV partials, then their combine), for the tests:
 the kernel itself is held to ``paged_attention_streamed_ref``.
+
+A low-precision (float8_e4m3fn) pool is upcast to q's dtype after the
+gather, as the reference upcasts it inside the dot, so the scratch
+lane's weights round to q's dtype; fp8 pages are gathered as bytes.
 """
 from __future__ import annotations
 
@@ -32,13 +36,27 @@ def resolve_block_pages(pages_per_seq: int, block_pages: int) -> int:
     return bp
 
 
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its bytes (a view: reads and writes through it
+    are bitwise), so that gathers, scatters and copies need no fp8
+    kernel; any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def take_pages(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``pool[idx]`` along the page axis (an fp8 pool through its
+    bytes)."""
+    return as_bytes(pool)[idx].view(pool.dtype)
+
+
 def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
                  ) -> torch.Tensor:
     """(P+1, ps, kv, hd) pages + (B, P_seq) table -> (B, depth, kv, hd)
     logical view, depth = P_seq * ps (== max_len)."""
     b, p_seq = page_table.shape
     ps = pages.shape[1]
-    return pages[page_table.long()].reshape(b, p_seq * ps, *pages.shape[2:])
+    return take_pages(pages, page_table.long()).reshape(
+        b, p_seq * ps, *pages.shape[2:])
 
 
 def _as_rows(v, b: int, device) -> torch.Tensor:
@@ -52,8 +70,8 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, kv_len, q_offset,
     CALLS["paged_attention_ref"] += 1
     b, sq, hq, hd = q.shape
     dev = q.device
-    gk = gather_pages(k_pages, page_table)
-    gv = gather_pages(v_pages, page_table)
+    gk = gather_pages(k_pages, page_table).to(q.dtype)
+    gv = gather_pages(v_pages, page_table).to(q.dtype)
     depth = gk.shape[1]
     kv = gk.shape[2]
     g = hq // kv
@@ -100,8 +118,8 @@ def paged_attention_streamed_ref(q, k_pages, v_pages, page_table, kv_len,
     pt = page_table.long()
     for j in range(p_seq // bp):
         ptj = pt[:, j * bp:(j + 1) * bp].reshape(-1)
-        kk = k_pages[ptj].reshape(b, bt, kv, hd)
-        vv = v_pages[ptj].reshape(b, bt, kv, hd)
+        kk = take_pages(k_pages, ptj).reshape(b, bt, kv, hd).to(q.dtype)
+        vv = take_pages(v_pages, ptj).reshape(b, bt, kv, hd).to(q.dtype)
         logits = torch.einsum("bskgh,btkh->bkgst", qg, kk.to(f32)) * scale
         tpos = j * bt + torch.arange(bt, device=dev)
         if causal:
@@ -160,8 +178,10 @@ def paged_attention_split_ref(q, k_pages, v_pages, page_table, kv_len,
         lo, hi = split_bounds(n_blocks, n_split, s)
         t0, t1 = lo * bp * ps, hi * bp * ps
         pages = pt[:, lo * bp:hi * bp].reshape(-1)
-        kk = k_pages[pages].reshape(b, t1 - t0, kv, hd).to(f32)
-        vv = v_pages[pages].reshape(b, t1 - t0, kv, hd).to(f32)
+        kk = take_pages(k_pages, pages).reshape(b, t1 - t0, kv, hd).to(
+            q.dtype).to(f32)
+        vv = take_pages(v_pages, pages).reshape(b, t1 - t0, kv, hd).to(
+            q.dtype).to(f32)
         logits = torch.einsum("bskgh,btkh->bkgst", qg, kk) * (
             hd ** -0.5 if scale is None else scale)
         tpos = t0 + torch.arange(t1 - t0, device=dev)

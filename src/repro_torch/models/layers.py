@@ -14,6 +14,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core.executor import crossbar_linear
+from repro_torch.kernels.paged_attention.ref import as_bytes, take_pages
 
 Params = Dict[str, Any]
 
@@ -24,6 +25,37 @@ def normal(gen: torch.Generator, shape, scale: float, device,
            dtype=torch.float32) -> torch.Tensor:
     return (torch.randn(shape, generator=gen, device=device) * scale).to(
         dtype)
+
+
+# -- KV-cache storage ------------------------------------------------------------
+
+#: the fp8 KV-cache type (``ModelConfig.kv_dtype``)
+FP8 = torch.float8_e4m3fn
+#: the largest magnitude that rounds to e4m3's 448 (the tie rounds to
+#: even); past it ``jnp.astype(float8_e4m3fn)`` gives NaN
+_E4M3_LIMIT = 464.0
+
+
+def cache_cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` in the cache's dtype with the reference's cast semantics
+    (``x.astype(dtype)`` in JAX).  At float8_e4m3fn torch saturates where
+    JAX gives NaN: every |x| past 464 (that is, rounding past 448) and
+    +-inf becomes NaN, byte 0x7f or 0xff by the sign, as JAX writes it,
+    and a NaN keeps its sign the same way.  Elementwise ops of fixed shape
+    only (no host sync), the same on the CPU and on the card."""
+    if dtype != FP8:
+        return x.to(dtype)
+    nan = ~(x.abs() <= _E4M3_LIMIT)                  # past 464, inf, NaN
+    bits = x.clamp(-448.0, 448.0).to(FP8).view(torch.uint8)
+    nan_bits = (torch.signbit(x).to(torch.uint8) << 7) | 0x7F
+    return torch.where(nan, nan_bits, bits).view(FP8)
+
+
+def cache_zeros(shape, dtype, device) -> torch.Tensor:
+    """A zeroed cache tensor (an fp8 one zeroed as bytes)."""
+    if dtype == FP8:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(FP8)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 # -- norms --------------------------------------------------------------------
@@ -121,10 +153,15 @@ def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None):
     q_offset: absolute position of q[.., 0] for causal masking — an int,
               or (B,) when slots sit at different depths.
     kv_len:   (B,) valid KV lengths (decode), or None for full.
-    Logits are f32 (bf16 operands upcast: their products are exact).
+    Logits are f32 (bf16 operands upcast: their products are exact).  A
+    low-precision (fp8) cache is upcast to q's dtype first, as the
+    reference does, so the weights round to q's dtype before P.V.
     """
     b, sq, hq, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
+    if k.dtype != q.dtype:
+        k = k.to(q.dtype)
+        v = v.to(q.dtype)
     g = hq // kv
     dev = q.device
     qg = q.reshape(b, sq, kv, g, hd)
@@ -194,8 +231,8 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
         phys = torch.where(inb, torch.gather(pt.to(torch.int64), 1, lpage),
                            0)
         slot = torch.where(inb, s_idx % ps, 0)
-        ck[phys, slot] = k.to(ck.dtype)
-        cv[phys, slot] = v.to(cv.dtype)
+        as_bytes(ck)[phys, slot] = as_bytes(cache_cast(k, ck.dtype))
+        as_bytes(cv)[phys, slot] = as_bytes(cache_cast(v, cv.dtype))
         new_len = cache["len"].add_(sq)
         if cfg.paged_kernel:
             from repro_torch.kernels.paged_attention import paged_attention
@@ -207,8 +244,8 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
             # gather width is exactly max_len (page_size | max_len), so
             # the SDPA sees the dense branch's shapes
             ptl = pt.to(torch.int64)
-            gk = ck[ptl].reshape(b, depth, *ck.shape[2:])
-            gv = cv[ptl].reshape(b, depth, *cv.shape[2:])
+            gk = take_pages(ck, ptl).reshape(b, depth, *ck.shape[2:])
+            gv = take_pages(cv, ptl).reshape(b, depth, *cv.shape[2:])
             out = _chunked_sdpa(q, gk, gv, cfg, kv_len=new_len,
                                 q_offset=pos)
         new_cache = cache
@@ -234,15 +271,18 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
 def dense_append(c: torch.Tensor, x: torch.Tensor, pos: torch.Tensor
                  ) -> None:
     """Write window ``x`` (B, sq, ...) into the dense cache ``c`` (B,
-    S_max, ...) at row b's positions ``pos[b] + j``, in place; positions
-    at or past ``S_max`` are dropped.  Every shape is fixed by the window
-    (no mask indexing, no host sync): a dropped position is routed to
-    ``S_max - 1`` and carries the value that slot ends with (the window's
-    own entry for it, else the slot's old value), so every write to it is
-    the same write."""
+    S_max, ...) at row b's positions ``pos[b] + j``, in place, cast as
+    :func:`cache_cast` casts; positions at or past ``S_max`` are dropped.
+    Every shape is fixed by the window (no mask indexing, no host sync): a
+    dropped position is routed to ``S_max - 1`` and carries the value that
+    slot ends with (the window's own entry for it, else the slot's old
+    value), so every write to it is the same write.  An fp8 cache moves
+    as bytes."""
     b, sq = x.shape[:2]
     depth = c.shape[1]
     dev = x.device
+    x = as_bytes(cache_cast(x, c.dtype))
+    c = as_bytes(c)
     rows = torch.arange(b, device=dev)
     s_idx = pos[:, None].to(torch.int64) + torch.arange(sq, device=dev)[None]
     keep = s_idx < depth                                  # (B, sq)
@@ -250,18 +290,17 @@ def dense_append(c: torch.Tensor, x: torch.Tensor, pos: torch.Tensor
     j_last = depth - 1 - pos.to(torch.int64)              # (B,)
     hit = (j_last >= 0) & (j_last < sq)
     last = torch.where(hit.reshape(b, *[1] * (x.dim() - 2)),
-                       x[rows, j_last.clamp(0, sq - 1)].to(c.dtype),
-                       c[:, depth - 1])
-    val = torch.where(keep.reshape(b, sq, *[1] * (x.dim() - 2)),
-                      x.to(c.dtype), last[:, None])
+                       x[rows, j_last.clamp(0, sq - 1)], c[:, depth - 1])
+    val = torch.where(keep.reshape(b, sq, *[1] * (x.dim() - 2)), x,
+                      last[:, None])
     c[rows[:, None].expand(b, sq), s_idx.clamp(max=depth - 1)] = val
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     shape = (batch, max_len, cfg.kv_eff, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+    return {"k": cache_zeros(shape, dtype, device),
+            "v": cache_zeros(shape, dtype, device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
@@ -275,8 +314,8 @@ def paged_init_cache(cfg: AttnConfig, batch: int, max_len: int,
         raise ValueError(f"page_size {page_size} must divide max_len "
                          f"{max_len}")
     shape = (n_pages + 1, page_size, cfg.kv_eff, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+    return {"k": cache_zeros(shape, dtype, device),
+            "v": cache_zeros(shape, dtype, device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device),
             "pt": torch.zeros((batch, max_len // page_size),
                               dtype=torch.int32, device=device)}
@@ -286,9 +325,11 @@ def paged_copy_page(layers, src: int, dst: int):
     """Duplicate physical page ``src`` into ``dst`` across every layer's
     K/V pool, in place — the device half of copy-on-write.  ``layers``
     holds ``k``/``v`` of shape (n_layers, n_pages + 1, page_size, kv_eff,
-    head_dim); page tables and fill markers are untouched."""
+    head_dim); page tables and fill markers are untouched.  fp8 pages
+    move byte for byte."""
     for key in ("k", "v"):
-        layers[key][:, dst] = layers[key][:, src]
+        pool = as_bytes(layers[key])
+        pool[:, dst] = pool[:, src]
     return layers
 
 

@@ -48,7 +48,9 @@ class ModelConfig:
     rope_theta: float = 1e6
     kv_repeat: int = 1             # Megatron KV replication
     q_chunk: int = 0               # chunked attention (0 = off)
-    dtype: Any = torch.bfloat16    # activation/compute and KV-cache dtype
+    dtype: Any = torch.bfloat16    # activation/compute dtype
+    kv_dtype: Any = None           # KV-cache storage dtype (None = dtype);
+    # torch.float8_e4m3fn halves the cache, upcast to dtype inside the dot
     paged_kernel: bool = False     # paged decode via the CUDA kernels
     paged_stream_pages: int = 0    # streamed-lane threshold in pages
     paged_block_pages: int = 16    # pages per streamed block
@@ -117,10 +119,10 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
             digital=lambda: T.unembed(p["embed"], x, head=p["head"]))
 
     def init_cache(batch: int, max_len: int):
-        one = L.init_cache(bc.attn, batch, max_len, dtype=cfg.dtype,
-                           device=device)
-        return {"layers": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
-                                          dtype=v.dtype, device=device)
+        one = L.init_cache(bc.attn, batch, max_len,
+                           dtype=cfg.kv_dtype or cfg.dtype, device=device)
+        return {"layers": {k: L.cache_zeros((cfg.n_layers,) + tuple(v.shape),
+                                            v.dtype, device)
                            for k, v in one.items()}}
 
     def init_paged_cache(batch: int, max_len: int, n_pages: int,
@@ -128,9 +130,10 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         """Paged KV cache: physical page pools + per-row page tables,
         stacked across layers like ``init_cache``."""
         one = L.paged_init_cache(bc.attn, batch, max_len, n_pages,
-                                 page_size, dtype=cfg.dtype, device=device)
-        return {"layers": {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
-                                          dtype=v.dtype, device=device)
+                                 page_size, dtype=cfg.kv_dtype or cfg.dtype,
+                                 device=device)
+        return {"layers": {k: L.cache_zeros((cfg.n_layers,) + tuple(v.shape),
+                                            v.dtype, device)
                            for k, v in one.items()}}
 
     def copy_paged_page(cache, src: int, dst: int):

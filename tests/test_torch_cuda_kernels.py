@@ -16,10 +16,16 @@ Contracts:
   another order), 2e-2 at bfloat16 (the value type rounds the scratch
   lane's weights and both lanes' outputs; its unit roundoff is 3.9e-3);
   the streamed lane at any split count against the one-pass oracle;
+  with float8_e4m3fn K/V each lane equals, BITWISE, the same lane on the
+  pages upcast to q's type (e4m3 values are exact in bf16 and f32, and
+  the kernels widen them before the same math); past the on-chip
+  capacity the scratch lane keeps its logits in a global workspace and
+  meets the same bounds;
 * deep-net streaming: 1e-6 x max|y| against its plain version (as the
   MAC), and BITWISE equal both to the popcount kernel (an independent
   integer MAC) and to ``engine.program`` + the crossbar-MAC kernel (the
-  same integer codes and the same final conversion);
+  same integer codes and the same final conversion); past 8 weight bits
+  (up to 24) also BITWISE equal to the exact code sums times the LSB;
 * Jacobi sweeps: BITWISE equal to the plain sweep (the kernel repeats
   its float32 operations in order with explicitly rounded intrinsics,
   without FMA contraction), with one band and with many; one call is
@@ -430,21 +436,29 @@ def test_paged_lanes_at_the_prefix_sharing_serves_shape(cuda, dtype, rtol):
         assert _rel_err(ref.float(), out.float()) <= rtol, fn.__name__
 
 
-def test_scratch_lane_raises_past_its_capacity(cuda):
-    """The float32 lane is one CTA per (row, KV head): about 6,000 tokens
-    at 8 query rows.  The bf16 lane splits a long window over a cluster of
-    up to 8 CTAs, so at B x kv = 16 it holds eight times that; past it
-    both raise, launching nothing."""
+def test_scratch_lane_computes_past_its_on_chip_capacity(cuda):
+    """The float32 lane's on-chip layout is one CTA per (row, KV head):
+    about 6,000 tokens at 8 query rows.  The bf16 lane splits a long
+    window over a cluster of up to 8 CTAs, so at B x kv = 16 it holds
+    eight times that.  Past either capacity the lane raises nothing: its
+    logits go to a global workspace, one launch, within the same bounds
+    of the plain version (the softmax stays exact over the window)."""
     cap32 = pa.scratch_capacity(4, 4, 8, 4, 128, 8, 4)
     cap16 = pa.scratch_capacity(4, 4, 8, 4, 128, 8, 2)
     assert 4096 < cap32 < 8192 < 40000 < cap16
-    before = pa.LAUNCHES["paged_attention_scratch"]
-    for dtype, cap, depth in ((torch.float32, cap32, 8192),
-                              (torch.bfloat16, cap16, cap16 + 1024)):
+    for dtype, cap, depth, rtol in (
+            (torch.float32, cap32, 8192, 1e-5),
+            (torch.bfloat16, cap16, cap16 + 1024, 2e-2)):
         args = _long_case(14, dtype, [depth, 100, 10, 1], max_len=depth)
-        with pytest.raises(ValueError, match=f"at most {cap} tokens"):
-            pa.paged_attention_scratch(*args)
-    assert pa.LAUNCHES["paged_attention_scratch"] == before
+        eb = args[0].element_size()
+        assert pa.scratch_workspace(4, 4, 8, 4, 128, depth, 8, eb, eb) > 0
+        assert pa.scratch_workspace(4, 4, 8, 4, 128, cap, 8, eb, eb) == 0
+        before = pa.LAUNCHES["paged_attention_scratch"]
+        out = pa.paged_attention_scratch(*args)
+        torch.cuda.synchronize()
+        assert pa.LAUNCHES["paged_attention_scratch"] == before + 1
+        assert _rel_err(pa_ref.paged_attention_ref(*args).float(),
+                        out.float()) <= rtol, dtype
 
 
 def test_scratch_lane_holds_an_8192_token_window_on_a_cluster(cuda):
@@ -460,6 +474,142 @@ def test_scratch_lane_holds_an_8192_token_window_on_a_cluster(cuda):
     assert pa.LAUNCHES["paged_attention_scratch"] == before + 1
     assert _rel_err(pa_ref.paged_attention_ref(*args).float(),
                     out.float()) <= 2e-2
+
+
+def _fp8_pages(args):
+    """The case's K/V pools cast to float8_e4m3fn (on the card) beside
+    the same pools upcast back to q's type."""
+    k8, v8 = (t.to(torch.float8_e4m3fn) for t in args[1:3])
+    dtype = args[0].dtype
+    return ([args[0], k8, v8, *args[3:]],
+            [args[0], k8.to(dtype), v8.to(dtype), *args[3:]])
+
+
+_FP8_LANES = (
+    ("scratch", pa.paged_attention_scratch, pa_ref.paged_attention_ref,
+     {}),
+    ("streamed", pa.paged_attention_streamed,
+     pa_ref.paged_attention_streamed_ref, {"block_pages": 16}))
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", ["small", "serve", "long", "hd80"])
+def test_paged_lanes_fp8_equal_the_lanes_on_upcast_pages(cuda, dtype, rtol,
+                                                         shape):
+    """fp8 K/V: every lane BITWISE equal to itself on the pages upcast to
+    q's type, and within the lane's bound of the plain version on the fp8
+    pools (which upcasts them as the reference does)."""
+    if shape == "small":
+        args = [torch.from_numpy(a).to(cuda) for a in _case(5, sq=3,
+                                                             hd=32)]
+        args[:3] = [t.to(dtype) for t in args[:3]]
+    elif shape == "serve":      # the serving shape: hq 32, 16 KV heads
+        args = _long_case(21, dtype, [64, 37, 12, 5], max_len=64, hq=32,
+                          kv=16)
+    elif shape == "long":       # several splits, several scratch tiles
+        args = _long_case(22, dtype, [4096, 3000, 1200, 40],
+                          max_len=4096, hq=32, kv=16)
+    else:                       # a head dim off the compiled widths (96)
+        args = _long_case(23, dtype, [512, 300, 77, 9], max_len=512,
+                          hd=80)
+    fp8, up = _fp8_pages(args)
+    for lane, fn, plain, kw in _FP8_LANES:
+        before = pa.LAUNCHES[f"paged_attention_{lane}"]
+        out = fn(*fp8, **kw)
+        torch.cuda.synchronize()
+        assert pa.LAUNCHES[f"paged_attention_{lane}"] == before + 1
+        assert out.dtype == dtype
+        assert torch.equal(out, fn(*up, **kw)), lane
+        assert _rel_err(plain(*fp8, **kw).float(), out.float()) <= rtol, lane
+
+
+@pytest.mark.parametrize("dtype,depth", [(torch.float32, 8192),
+                                         (torch.bfloat16, 65536)])
+def test_scratch_lane_fp8_past_its_capacity(cuda, dtype, depth):
+    """fp8 pools past the on-chip layout (logits in the global workspace):
+    bitwise the lane on upcast pages."""
+    kv_len = [depth, 100, 10, 1] if depth < 65536 else [depth, 17]
+    args = _long_case(24, dtype, kv_len, max_len=depth, b=len(kv_len))
+    fp8, up = _fp8_pages(args)
+    out = pa.paged_attention_scratch(*fp8)
+    assert torch.equal(out, pa.paged_attention_scratch(*up))
+    assert _rel_err(pa_ref.paged_attention_ref(*fp8).float(),
+                    out.float()) <= (1e-5 if dtype == torch.float32
+                                     else 2e-2)
+
+
+def test_paged_kernels_refuse_a_mixed_kv_pair(cuda):
+    """K and V share one dtype, q's or float8_e4m3fn; anything else raises
+    TypeError before a launch."""
+    args = [torch.from_numpy(a).to(cuda) for a in _case(6)]
+    q, kp, vp = args[:3]
+    f8 = torch.float8_e4m3fn
+    bad = [(q.bfloat16(), kp.to(f8), vp.bfloat16()),   # K fp8, V bf16
+           (q, kp.bfloat16(), vp.bfloat16()),          # q f32, K/V bf16
+           (q.bfloat16(), kp, vp),                     # q bf16, K/V f32
+           (q.to(f8), kp.to(f8), vp.to(f8)),           # q fp8
+           (q.half(), kp.to(f8), vp.to(f8))]           # q float16
+    before = dict(pa.LAUNCHES)
+    for qq, kk, vv in bad:
+        for fn in (pa.paged_attention_scratch, pa.paged_attention_streamed):
+            with pytest.raises(TypeError):
+                fn(qq, kk, vv, *args[3:])
+    assert pa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("b,k,n,w_bits,bpc,rows,dtype", [
+    (16, 384, 256, 12, 1, 128, torch.float32),     # two passes
+    (16, 640, 256, 16, 1, 256, torch.float32),     # 16-bit witness tile
+    (9, 640, 264, 16, 2, 128, torch.bfloat16),
+    (5, 300, 200, 24, 1, 128, torch.float32),      # three passes, ragged
+    (16, 2560, 4096, 24, 2, 128, torch.bfloat16)])  # wq at 24 bits
+def test_deepnet_stream_wide_codes_bitwise_to_code_sums(
+        cuda, b, k, n, w_bits, bpc, rows, dtype):
+    """Past 8 weight bits the tensor-core kernel runs the group in passes
+    of one byte of each magnitude: BITWISE equal to the exact int64 code
+    sums of ``quantize_codes`` times the LSB, and to the popcount
+    witness (16-bit codes through 15 bits, 32-bit past)."""
+    rng = np.random.default_rng(k * w_bits + n)
+    x = torch.from_numpy(rng.integers(-128, 128, (b, k),
+                                      dtype=np.int32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.4).astype(
+        np.float32)).to(cuda).to(dtype)
+    q = QuantConfig(w_bits=w_bits, in_bits=8, adc_bits=10,
+                    bits_per_cell=bpc)
+    scale = ds_ops.weight_scales(w, q)
+    kw = dict(w_bits=w_bits, in_bits=8, adc_bits=10, bits_per_cell=bpc,
+              rows_per_adc=rows)
+    before = ds.LAUNCHES["deepnet_stream"]
+    y = ds.deepnet_stream(x, w, scale, **kw)
+    torch.cuda.synchronize()
+    assert ds.LAUNCHES["deepnet_stream"] == before + 1
+    pos, neg = ds.ref.quantize_codes(w, scale, w_bits=w_bits,
+                                     bits_per_cell=bpc)
+    pad = (-k) % rows
+    xp = torch.nn.functional.pad(x, (0, pad))
+    pos = torch.nn.functional.pad(pos, (0, 0, 0, pad))
+    neg = torch.nn.functional.pad(neg, (0, 0, 0, pad))
+    codes = mac.ref.crossbar_mac_codes_ref(
+        xp, pos, neg, in_bits=8, adc_bits=10, bits_per_cell=bpc,
+        rows_per_adc=rows)
+    assert int(codes.abs().max()) >= 2 ** (w_bits - 2)   # wide codes reached
+    full_scale = float(rows * (2 ** bpc - 1))
+    assert torch.equal(y, mac.ref.codes_to_float(codes, 10, full_scale))
+    assert torch.equal(y, ds.deepnet_stream_popcount(x, w, scale, **kw))
+
+
+def test_deepnet_stream_refuses_past_24_weight_bits(cuda):
+    """Past 24 bits rint(w / scale) is no longer an exact integer in
+    float32: the card refuses, launching nothing."""
+    x = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    w = torch.ones((128, 64), device=cuda)
+    scale = torch.ones((1, 64), device=cuda)
+    before = dict(ds.LAUNCHES)
+    with pytest.raises(ValueError, match="outside"):
+        ds.deepnet_stream(x, w, scale, w_bits=25, in_bits=8, adc_bits=10,
+                          bits_per_cell=1, rows_per_adc=128)
+    assert ds.LAUNCHES == before
 
 
 @pytest.mark.parametrize("b,k,n,w_bits,bpc,rows,dtype", [

@@ -1,5 +1,7 @@
 """The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``."""
+neither JAX nor anything of the reference package ``repro``, nor
+``ml_dtypes`` (the card machine has none: fp8 and bf16 arrays cross from
+numpy as raw bytes)."""
 import ast
 import pathlib
 import subprocess
@@ -25,7 +27,7 @@ def _imports(path):
 
 def _forbidden(name):
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
@@ -37,7 +39,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_package_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['repro'] = None; "
+            "sys.modules['repro'] = None; sys.modules['ml_dtypes'] = None; "
             "import repro_torch, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.kernels.crossbar_mac.ops, "
             "repro_torch.kernels.paged_attention; print('ok')")
