@@ -16,7 +16,12 @@ Phases, each of which fails the run (exit code 1, no result line):
              and 256 rows per ADC, leak 0 and 0.37, B 16 and 64, and must
              equal the exact int64 code sums (``crossbar_mac_codes_ref``)
              times the LSB bit for bit; each timed row carries call and
-             device ms.  The streamed lane also runs at head dim 40.
+             device ms.  The MAC also runs at the other decoder LMs'
+             widest reads (``ARCH_GEOMS``: minitron-4b's 256,000-column
+             head and its wi, qwen3-8b's wi, nemotron-4-340b's
+             18,432-square wq), and both paged lanes at their groups
+             (``ARCH_PAGED_CASES``: 24 q heads over 8, and 96 over 16 at
+             head dim 192).  The streamed lane also runs at head dim 40.
              Both paged lanes run again at a long-context shape (windows
              up to 4096 tokens), the streamed lane also at the
              long-context serve's shape (32 query rows per KV head), and
@@ -59,6 +64,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              step's layer-0 K/V under both MACs must cast to the same
              fp8 bytes except where the two float32 inputs lie on either
              side of an e4m3 rounding midpoint (a neighbouring step);
+             then minitron-4b (squared ReLU, a group of 3) and
+             phi3.5-moe (16 experts, top 2) the same way at float32,
+             paged: plain, and the kernels captured and eager;
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
              with ``--backend crossbar --use-kernel --kv paged``, captured
              (its step time: the warm-up, the capture and the replays),
@@ -105,7 +113,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              streams, the CPU's sharing counts, one capture, no
              retrace), the K/V pool half the bf16 serve's bytes at equal
              pages, the token agreement with the bf16-cache serves
-             logged; last
+             logged; then the other decoder LMs (``ARCH_SERVES``):
+             minitron-4b at its 32 layers and phi3.5-moe at 4, each on
+             one model programmed once, captured (one capture, no
+             retrace) and eager with identical streams, with tokens/s,
+             step ms, programming s and peak memory logged; last
              the 36-layer serve on one programmed model: eager (its
              step time, streams equal to the captured serve's), then
              captured and eager with steps 4 on in a ``torch.profiler``
@@ -114,7 +126,10 @@ Phases, each of which fails the run (exit code 1, no result line):
              again, at most three times) (the MAC's device ms per step
              and the device's idle share), then one eager step in a
              trace with CPU
-             activity (the host ops that cost most).  Every serve traces
+             activity (the host ops that cost most), and after it
+             phi3.5-moe's captured serve once more with its replays in a
+             trace of the card (the kernels that take most of a step;
+             the streams of its untraced serve).  Every serve traces
              its window step once (``serve_jit_traces_total``) and never
              again; every kernel of each path must have run (a captured
              serve runs the launches its capture recorded at each
@@ -260,15 +275,20 @@ GEOMS = [("wq", 2560, 4096), ("wk/wv", 2560, 2048), ("attn wo", 4096, 2560),
 # the projections of one layer, then the head (wk/wv and wi/wg twice)
 LAYER_PATH = ["wq", "wk/wv", "wk/wv", "attn wo", "wi/wg", "wi/wg", "mlp wo",
               "head"]
+# (name, K, N): the other decoder LMs' widest reads, at B 16: minitron-4b's
+# 256,000-column head and its wi, qwen3-8b's wi, nemotron-4-340b's wq
+ARCH_GEOMS = [("minitron head", 3072, 256000), ("minitron wi", 3072, 9216),
+              ("qwen3-8b wi", 4096, 12288), ("nemotron wq", 18432, 18432)]
 
 
 def phase_crossbar_mac(torch, dev, flush):
     """The MAC at every qwen3-4b projection (B 16, 128 rows per ADC, leak
     0 and 0.37), at the auto policy's 256-row reads, at B 64 (the
-    long-context serve's batch) and at B 20 and 12 (the multiplexed
-    serve's two lanes): BITWISE equal to the exact int64 code
-    sums of ``crossbar_mac_codes_ref`` times the LSB, and within 1e-5 of
-    the f32 plain version.  Runs at leak 0 are timed: call ms (CUDA
+    long-context serve's batch), at B 20 and 12 (the multiplexed serve's
+    two lanes) and at the other archs' geometries (``ARCH_GEOMS``):
+    BITWISE equal to the exact int64 code sums of
+    ``crossbar_mac_codes_ref`` times the LSB, and within 1e-5 of the f32
+    plain version.  Runs at leak 0 are timed: call ms (CUDA
     events, the wrapper included) and device ms (the zeroing, MAC and
     conversion kernels in a ``torch.profiler`` trace)."""
     from repro_torch.kernels.crossbar_mac import kernel, ref
@@ -291,7 +311,9 @@ def phase_crossbar_mac(torch, dev, flush):
     # at chunk 4, so 20 rows (a partial second 16-row tile) and 12
     runs += [(g, "deepnet", 128, leak, b) for b in (20, 12)
              for g in (geoms[0], geoms[-1]) for leak in (0.0, 0.37)]
+    runs += [(g, "deepnet", 128, 0.0, 16) for g in ARCH_GEOMS]
     for (name, k, n), mode, rows, leak, b in runs:
+        t_row = time.perf_counter()
         x = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
                           dtype=torch.int32)
         pos = torch.randint(0, 2, (s, k, n), generator=gen, device=dev,
@@ -333,6 +355,7 @@ def phase_crossbar_mac(torch, dev, flush):
             ops = 2 * 2 * b * in_bits * s * k * n    # AND-accumulate, +/-
             row["bound_ms"], row["bound_by"] = bound(nbytes, ops, "int8")
             row["library_ms"] = None
+        row["wall_s"] = time.perf_counter() - t_row
         rows_out.append(row)
         log(f"  crossbar_mac {name:8s} K={k:5d} N={n:6d} B={b:2d} {mode:9s} "
             f"leak={leak:4.2f}: bitwise = code sums x lsb; vs plain max|err| "
@@ -446,6 +469,7 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
     ``up`` (the same case with fp8 K/V upcast to q's type) the lane on
     ``args`` must equal the lane on ``up`` bit for bit, and SDPA runs on
     ``up``."""
+    t0 = time.perf_counter()
     run, plain = _paged_run(kernel, ref, lane, args, bp)
     y = run()
     y_ref = plain()
@@ -494,7 +518,9 @@ def _paged_measure(torch, kernel, ref, lane, args, bp, max_len, kv_len,
          "plain_ms": timed(torch, plain, 5, flush),
          "library_ms": timed(torch, sdpa, 20, flush),
          "library_device_ms": lib_dms,
-         "bound_ms": bnd, "bound_by": by}
+         "bound_ms": bnd, "bound_by": by,
+         "wall_s": time.perf_counter() - t0}
+    what += f" hq={hq} kv={kv} hd={hd}"
     log(f"  {what} kv_len={kv_len}"
         f"{' (bitwise = the lane on upcast pages)' if up else ''}: "
         f"max|err| {err:.3e} (rel {rel:.2e} <= {tol:g}); call "
@@ -534,11 +560,16 @@ GLOBAL_CASES = (("f32_8192", "float32", 4, CLUSTER_CASE["max_len"],
                 ("bf16_65536", "bfloat16", 1, 65536, [65536]))
 #: the multiplexed serve's scratch lanes: (rows, fill of each row)
 MUX_PAGED_CASES = ((5, [64, 37, 12, 5, 31]), (3, [31, 20, 5]))
+#: the other archs' attention at both lanes' serving shapes, bf16: (tag,
+#: q heads, cached KV heads, head dim): minitron-4b's group of 3 (grok-1's
+#: 48 over 16 too), nemotron-4-340b's group of 6 at head dim 192
+ARCH_PAGED_CASES = (("g3", 24, 8, 128), ("g6_hd192", 96, 16, 192))
 
 
 def phase_paged_attention(torch, dev, flush):
     """Both lanes at their serving shapes (a 64-token table for the
-    scratch lane, 512 tokens in 4-page blocks for the streamed lane), then
+    scratch lane, 512 tokens in 4-page blocks for the streamed lane), at
+    qwen3-4b's heads and at the other archs' (``ARCH_PAGED_CASES``), then
     both at the long-context shape (``LONG_CASE``), then the scratch lane
     past one CTA's capacity on a cluster (``CLUSTER_CASE``), the streamed lane
     at the long-context serve's shape (``SERVE_LONG_CASE``), past the
@@ -558,6 +589,14 @@ def phase_paged_attention(torch, dev, flush):
                            kv_len, torch.bfloat16)
         out[lane] = _paged_measure(torch, kernel, ref, lane, args, bp,
                                    max_len, kv_len, flush)
+    for tag, a_hq, a_kv, a_hd in ARCH_PAGED_CASES:
+        for lane, max_len, kv_len, bp in (
+                ("scratch", 64, [64, 37, 12, 5], 0),
+                ("streamed", 512, [512, 300, 77, 9], 4)):
+            args = _paged_case(torch, dev, gen, b, sq, max_len, ps, a_hq,
+                               a_kv, a_hd, kv_len, torch.bfloat16)
+            out[lane][tag] = _paged_measure(torch, kernel, ref, lane, args,
+                                            bp, max_len, kv_len, flush)
     long_args = _paged_case(torch, dev, gen, b, sq, LONG_CASE["max_len"], ps,
                             hq, kv, hd, LONG_CASE["kv_len"], torch.bfloat16)
     for lane in ("scratch", "streamed"):
@@ -1056,15 +1095,17 @@ def _fp8_flips(torch, a, b):
             "max_gap_steps": float((gap / e4m3_step).max())}
 
 
-def phase_parity(torch, dev, mode_policy=None, kv_dtype=None):
-    """Greedy streams at full width, 2 layers, float32, crossbar backend:
-    the plain versions (captured), and the CUDA kernels captured and
-    eager (``capture=False``, the witness), paged and dense, must all be
-    identical; each serve must trace its window step once.  ``kv_dtype``:
-    the cache's dtype.  With the fp8 cache (``torch.float8_e4m3fn``) the
-    MAC kernel runs with the attention kernels on and off, and the plain
-    MAC with neither: the MAC's plain version shift-adds its codes in
-    float32 and its kernel sums them exactly, so K and V differ in the
+def phase_parity(torch, dev, mode_policy=None, kv_dtype=None, arch=ARCH,
+                 kvs=("paged", "dense")):
+    """Greedy streams of ``arch`` at full width, 2 layers, float32,
+    crossbar backend: the plain versions (captured), and the CUDA kernels
+    captured and eager (``capture=False``, the witness), with each KV
+    layout of ``kvs``, must all be identical; each serve must trace its
+    window step once.  ``kv_dtype``: the cache's dtype.  With the fp8
+    cache (``torch.float8_e4m3fn``) the MAC kernel runs with the
+    attention kernels on and off, and the plain MAC with neither: the
+    MAC's plain version shift-adds its codes in float32 and its kernel
+    sums them exactly, so K and V differ in the
     last float32 bits before the cache cast, and the cast to e4m3 (3
     mantissa bits) turns the values that lie within that gap of a
     rounding midpoint into a whole fp8 step.  So at fp8 the streams must
@@ -1080,7 +1121,8 @@ def phase_parity(torch, dev, mode_policy=None, kv_dtype=None):
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import BatchScheduler, Request
 
-    base = dataclasses.replace(get_config(ARCH), n_layers=2,
+    t_phase = time.perf_counter()
+    base = dataclasses.replace(get_config(arch), n_layers=2,
                                backend="crossbar", dtype=torch.float32,
                                kv_dtype=kv_dtype)
     gen = torch.Generator()
@@ -1099,8 +1141,8 @@ def phase_parity(torch, dev, mode_policy=None, kv_dtype=None):
         model = build_model(cfg, device=dev)
         if params is None:
             params = model.init(0)
-        runs = ([("paged", True), ("paged", False), ("dense", True),
-                 ("dense", False)] if use_kernel else [("paged", True)])
+        runs = ([(kv, c) for kv in kvs for c in (True, False)]
+                if use_kernel else [("paged", True)])
         for kv, capture in runs:
             _reset_counts()
             sched = BatchScheduler(model, params, n_slots=2, max_len=64,
@@ -1134,7 +1176,8 @@ def phase_parity(torch, dev, mode_policy=None, kv_dtype=None):
                 check(by_rows.get(256, 0) > 0 and by_rows.get(128, 0) > 0,
                       f"auto policy: crossbar_mac launches by rows "
                       f"{by_rows}")
-            log(f"  policy={mode_policy} kv_dtype={kv_dtype} mac kernel="
+            log(f"  {arch} policy={mode_policy} kv_dtype={kv_dtype} "
+                f"mac kernel="
                 f"{mac} attention kernels={attn} kv={kv} "
                 f"{'captured' if capture else 'eager'}: streams "
                 f"{streams[run]} (kernel launches run: crossbar_mac {n_mac}"
@@ -1153,12 +1196,14 @@ def phase_parity(torch, dev, mode_policy=None, kv_dtype=None):
     group = [r for r in streams if kv_dtype is None or r[0]]
     first = streams[group[0]]
     check(all(streams[r] == first for r in group),
-          f"greedy streams differ across plain/kernel, paged/dense, "
-          f"captured/eager (mode_policy={mode_policy}, kv_dtype="
+          f"{arch}: greedy streams differ across plain/kernel, "
+          f"paged/dense, captured/eager (mode_policy={mode_policy}, kv_dtype="
           f"{kv_dtype}): { {r: streams[r] for r in group} }")
     plain, kern = (streams[(m, m, "paged", True)] for m in (False, True))
     mac_equal = plain == kern
-    out = {"streams": {str(k): v for k, v in kern.items()},
+    log(f"  {arch} parity: {time.perf_counter() - t_phase:.1f} s")
+    out = {"arch": arch, "seconds": time.perf_counter() - t_phase,
+           "streams": {str(k): v for k, v in kern.items()},
            "identical": True, "layers": 2, "dtype": "float32",
            "kv_dtype": str(kv_dtype), "mode_policy": mode_policy,
            "plain_mac_streams_equal": mac_equal,
@@ -1289,7 +1334,7 @@ def phase_serve(torch, dev, argv, must_launch, rows_per_adc=(),
     # greedy decoding takes the argmax over the head's padded vocab (as
     # the reference does), so any id below padded_vocab is one the model
     # can emit and embed; random weights do emit ids past vocab
-    vocab = get_config(ARCH).padded_vocab
+    vocab = get_config(argv[argv.index("--arch") + 1]).padded_vocab
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1373,8 +1418,9 @@ def _trace_stats(evs, steps):
     """From the card's events, between the start of the first MAC kernel
     and the end of the last MAC launch: the MAC's device ms per step (its
     kernel, the memset that zeroes its code buffer just before it, and
-    its conversion kernel), every device event's ms per step, and the
-    device's idle share (the window less the union of those events)."""
+    its conversion kernel), every device event's ms per step, the eight
+    kernel names with the most device time per step, and the device's
+    idle share (the window less the union of those events)."""
     mac_us, mac_n, spans = 0.0, 0, []
     for i, e in enumerate(evs):
         t0, dur = float(e["ts"]), float(e["dur"])
@@ -1401,7 +1447,15 @@ def _trace_stats(evs, steps):
         if b > a:
             busy += b - a
             end = b
+    by_name = {}
+    for e in evs:
+        if lo <= float(e["ts"]) < hi:
+            name = e["name"][:96]
+            by_name[name] = by_name.get(name, 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"mac_device_ms_per_step": mac_us / steps / 1e3,
+            "top_kernels_ms_per_step": {k: us / steps / 1e3
+                                        for k, us in top},
             "device_busy_ms_per_step": busy / steps / 1e3,
             "window_ms_per_step": (hi - lo) / steps / 1e3,
             "device_idle_share": 1.0 - busy / (hi - lo),
@@ -1673,14 +1727,14 @@ def _swap_host_timers():
         spent["chunks"] -= spent["digest"]   # first chunks take digests
 
 
-def _drive(st, dev, swap_params=None):
-    """A captured serve of ``st``'s requests on its model, whose weights
-    are resident (``launch/serve.drive``, with a hot-swap of
-    ``swap_params`` as ``SWAP_FLAGS`` set it); returns what
-    ``launch/serve.main`` returns."""
+def _drive(st, dev, swap_params=None, capture=None):
+    """A serve of ``st``'s requests on its model, whose weights are
+    resident (``launch/serve.drive``, with a hot-swap of ``swap_params``
+    as ``SWAP_FLAGS`` set it), captured unless ``capture`` is False;
+    returns what ``launch/serve.main`` returns."""
     from repro_torch.launch import serve
 
-    sched = st.scheduler()
+    sched = st.scheduler(capture)
     after, chunks = (int(SWAP_FLAGS[i]) for i in (1, 3))
     rep = serve.drive(sched, st.requests(), dev, swap_params=swap_params,
                       swap_after=after, swap_chunks=chunks)
@@ -1794,6 +1848,90 @@ def phase_hotswap(torch, dev):
 #: into 21 pages for A and 11 for B (``_split_slots``), and every request
 #: claims 4 pages (16 + 16 - 1 tokens): A's four requests all fit, B holds
 #: two of its four at a time, so the page budget binds on B's lane only
+#: the other decoder LMs served at full width through the CLI's entry
+#: points: minitron-4b (squared ReLU, a group of 3, the 256,000-column
+#: head) at its 32 layers, ~47 GB; phi3.5-moe (16 experts, top 2) at 4
+#: layers, ~27 GB (its f32 experts are 5 GB a layer)
+ARCH_SERVES = (("minitron-4b", None), ("phi3.5-moe", 4))
+
+
+def _serve_argv(arch, layers=None):
+    """The main serve's command line (4 slots, chunk 4, 4 requests x 8
+    new tokens, a 64-token window) for ``arch`` at ``layers``."""
+    return (["--arch", arch] + (["--layers", str(layers)] if layers else [])
+            + ["--backend", "crossbar", "--use-kernel", "--kv", "paged",
+               "--requests", "4", "--prompt-len", "16", "--max-new", "8",
+               "--slots", "4", "--max-len", "64", "--chunk", "4"])
+
+
+def phase_arch_trace(torch, dev, out_dir, want):
+    """phi3.5-moe's captured serve of ``ARCH_SERVES`` on a new model, its
+    replayed steps 4 on in a trace of the card (after every timed serve:
+    a trace slows the serves that follow it): the MAC's device ms per
+    step, all device work, the idle share and the kernels that take the
+    most; its streams must be ``want``, the untraced serve's."""
+    from repro_torch.launch import serve
+
+    arch, layers = ARCH_SERVES[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = serve.setup(_serve_argv(arch, layers))
+    out = _serve_in_trace(torch, st, True, out_dir)
+    check(out["streams"] == want,
+          f"{arch}: the traced serve's streams differ from the untraced")
+    log(f"  {arch}: device ms per step by kernel "
+        + "; ".join(f"{ms:.3f} {name[:60]}" for name, ms in
+                    out["top_kernels_ms_per_step"].items()))
+    return out
+
+
+def phase_archs(torch, dev):
+    """Each of ``ARCH_SERVES`` on one model programmed once: the serve
+    captured (one capture, no retrace; tokens/s, step ms, peak memory),
+    then the eager witness on the same resident planes, whose streams must
+    equal the captured serve's."""
+    from repro_torch.launch import serve
+
+    must = ["crossbar_mac", "paged_attention_scratch"]
+    out = {}
+    for arch, layers in ARCH_SERVES:
+        t_phase = time.perf_counter()
+        argv = _serve_argv(arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated(dev) < 1 << 30,
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+              f"allocated before the {arch} serve")
+        st = serve.setup(argv)
+        t0 = time.perf_counter()
+        st.model.executor.program_params(st.params)
+        torch.cuda.synchronize()
+        program_s = time.perf_counter() - t0
+        cfg = st.model.cfg
+        log(f"  {' '.join(argv)}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, act {cfg.act}, {cfg.family}; programming "
+            f"{program_s:.2f} s; captured, then eager")
+        cap = phase_serve(torch, dev, argv, must,
+                          run=lambda: _drive(st, dev))
+        eager = phase_serve(torch, dev, argv, must, capture=False,
+                            run=lambda: _drive(st, dev, capture=False))
+        check(eager["streams"] == cap["streams"],
+              f"{arch}: captured and eager streams differ")
+        del st
+        cap["program_s"] = program_s
+        cap["eager"] = {k: eager[k] for k in (
+            "tok_per_s", "steps", "seconds", "step_ms", "first_steps_ms",
+            "later_step_ms", "launches", "max_memory_allocated")}
+        cap["phase_s"] = time.perf_counter() - t_phase
+        log(f"  {arch}: streams equal captured and eager; replays "
+            f"{cap['later_step_ms']:.2f} ms against eager "
+            f"{eager['later_step_ms']:.2f} ms; peak "
+            f"{cap['max_memory_allocated'] / 1e9:.2f} GB; "
+            f"{cap['phase_s']:.1f} s")
+        out[arch] = cap
+    return out
+
+
 MUX_ARGV = ["--arch", ARCH, "--layers", "8", "--backend", "crossbar",
             "--use-kernel", "--kv", "paged", "--requests", "8", "--slots",
             "4", "--prompt-len", "16", "--max-new", "16", "--max-len", "64",
@@ -2420,6 +2558,7 @@ def main() -> int:
         del flush
         torch.cuda.empty_cache()
 
+        log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "parity"
         log("[3/4] token parity: full width, 2 layers, fp32, crossbar, "
             "paged KV, with and without the kernels")
@@ -2428,14 +2567,16 @@ def main() -> int:
         log("  the same with an fp8 cache (kv_dtype=float8_e4m3fn)")
         report["parity_fp8"] = phase_parity(
             torch, dev, kv_dtype=torch.float8_e4m3fn)
+        for arch, _ in ARCH_SERVES:
+            log(f"  {arch}: kernels on and off, captured and eager")
+            report[f"parity_{arch}"] = phase_parity(torch, dev, arch=arch,
+                                                    kvs=("paged",))
 
+        log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "serve"
         log(f"[4/4] serve {ARCH} at full width through launch/serve.py "
             f"(window step captured)")
-        main_argv = ["--arch", ARCH, "--backend", "crossbar", "--use-kernel",
-                     "--kv", "paged", "--requests", "4", "--prompt-len",
-                     "16", "--max-new", "8", "--slots", "4", "--max-len",
-                     "64", "--chunk", "4"]
+        main_argv = _serve_argv(ARCH)
         report["serve"] = phase_serve(
             torch, dev, main_argv,
             ["crossbar_mac", "paged_attention_scratch"], rows_per_adc=[128])
@@ -2481,6 +2622,7 @@ def main() -> int:
             report[key]["eager"] = {k: eager[k] for k in (
                 "tok_per_s", "steps", "seconds", "step_ms",
                 "later_step_ms", "launches")}
+        log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "hotswap"
         log("  hot-swap at full width, 8 layers")
         report["hotswap"] = phase_hotswap(torch, dev)
@@ -2494,6 +2636,11 @@ def main() -> int:
         log("  the fp8 KV cache at full width, 8 layers, both lanes")
         report["kv_fp8"] = phase_kv_fp8(torch, dev,
                                         report["prefix_preempt"])
+        log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
+        phase = "archs"
+        log("  the other decoder LMs at full width: "
+            + ", ".join(f"{a} ({n or 'all'} layers)" for a, n in ARCH_SERVES))
+        report["archs"] = phase_archs(torch, dev)
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
@@ -2513,6 +2660,11 @@ def main() -> int:
             f"{100 * te['device_idle_share']:.1f}%; MAC device ms per step "
             f"{tc['mac_device_ms_per_step']:.3f} vs "
             f"{te['mac_device_ms_per_step']:.3f}")
+        phase = "archs"
+        arch = ARCH_SERVES[1][0]
+        log(f"  {arch}'s captured serve traced")
+        report["archs"][arch]["trace"] = phase_arch_trace(
+            torch, dev, out_dir, report["archs"][arch]["streams"])
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)
@@ -2567,7 +2719,8 @@ def main() -> int:
             "max_abs_err": max([r["max_abs_err"]] + [
                 r[k]["max_abs_err"] for k in (
                     "long", "serve_long", "hd40", "mux_b5", "mux_b3",
-                    "prefix_share", "global_f32_8192", "global_bf16_65536")
+                    "prefix_share", "global_f32_8192", "global_bf16_65536",
+                    *(c[0] for c in ARCH_PAGED_CASES))
                 if k in r] + [
                     c["max_abs_err"] for by_q in r["fp8"].values()
                     for c in by_q.values()]),
@@ -2666,6 +2819,22 @@ def main() -> int:
         "us_per_sweep": tile["us_per_sweep"],
         **{f"device_ms_{n}x{n}": ir_rows[n]["device_ms"]
            for n in (10, 64, 256, 512)}})
+    # the other archs: their serves' launches, the kernels at their shapes
+    arch_l = {a: report["archs"][a]["launches"] for a, _ in ARCH_SERVES}
+    for kr in kernels[:3]:
+        kr.update({f"{a}_serve_launches": arch_l[a].get(kr["name"], 0)
+                   for a in arch_l})
+    for r in report["crossbar_mac"]:
+        if any(r["geometry"] == g[0] for g in ARCH_GEOMS):
+            tag = r["geometry"].replace(" ", "_")
+            kernels[0].update({f"{tag}_{k}": r[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    for kr, lane in zip(kernels[1:3], ("scratch", "streamed")):
+        for tag, *_ in ARCH_PAGED_CASES:
+            c = report["paged_attention"][lane][tag]
+            kr.update({f"{tag}_{k}": c[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")})
     report["kernels"] = kernels
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"chip_smoke: all phases passed in {report['seconds']:.1f} s")

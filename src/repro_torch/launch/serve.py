@@ -1,5 +1,11 @@
 """Serving CLI: ``python -m repro_torch.launch.serve --arch qwen3-4b``.
 
+``--arch`` takes every decoder LM of the registry (``configs/``): the
+dense qwen3-4b, qwen3-8b, minitron-4b and nemotron-4-340b, and the MoE
+phi3.5-moe and grok-1-314b, by the reference's names and aliases; any
+other arch exits, as the reference's CLI exits for its VLM,
+encoder-decoder and recurrent families.
+
 Continuous-batching decode over the port's BatchScheduler with synthetic
 prompts (random params and prompts from seeded torch Generators).
 
@@ -410,7 +416,10 @@ def setup(argv=None) -> Setup:
     mode_policy = parse_mode_policy(args.mode_policy)
     device = resolve_device(args.device)
 
-    cfg = get_config(args.arch, smoke=args.smoke)
+    try:
+        cfg = get_config(args.arch, smoke=args.smoke)
+    except NotImplementedError as e:   # the reference's other families
+        raise SystemExit(str(e))
     cfg = dataclasses.replace(cfg, backend=args.backend)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)

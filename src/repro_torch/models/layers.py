@@ -1,6 +1,7 @@
-"""Model building blocks for the dense decoder family (PyTorch): RMSNorm,
+"""Model building blocks for the decoder families (PyTorch): RMSNorm,
 RoPE, GQA attention (qk-norm, dense and paged KV caches, chunked and
-causal) and the SwiGLU MLP.
+causal), the SwiGLU, squared-ReLU and GELU MLPs and the token-dropping
+MoE block.
 
 Pure functions over explicit param dicts, as in ``repro.models.layers``;
 initializers take an explicit ``torch.Generator`` and device.  The
@@ -9,6 +10,7 @@ reference's logical sharding constraints have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict
 
 import torch
@@ -336,13 +338,13 @@ def paged_copy_page(layers, src: int, dst: int):
 # -- MLPs ----------------------------------------------------------------------
 
 def mlp_init(gen, d_model: int, d_ff: int, act: str, device) -> Params:
-    if act != "swiglu":
-        raise NotImplementedError(
-            f"mlp act {act!r} is a later slice of the PyTorch port (this "
-            f"slice serves the swiglu dense family)")
-    return {"wi": normal(gen, (d_model, d_ff), d_model ** -0.5, device),
-            "wg": normal(gen, (d_model, d_ff), d_model ** -0.5, device),
-            "wo": normal(gen, (d_ff, d_model), d_ff ** -0.5, device)}
+    """``wi``, ``wg`` and ``wo`` for swiglu; ``wi`` and ``wo`` for any
+    other act, as the reference draws them."""
+    p = {"wi": normal(gen, (d_model, d_ff), d_model ** -0.5, device)}
+    if act == "swiglu":
+        p["wg"] = normal(gen, (d_model, d_ff), d_model ** -0.5, device)
+    p["wo"] = normal(gen, (d_ff, d_model), d_ff ** -0.5, device)
+    return p
 
 
 def silu(g: torch.Tensor) -> torch.Tensor:
@@ -356,14 +358,147 @@ def silu(g: torch.Tensor) -> torch.Tensor:
     return g * t
 
 
+def _rounded(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype`` (a host value: no device work)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as the reference rounds it:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))`` with
+    each step rounded to ``x``'s dtype and both constants rounded to it
+    first.  ``F.gelu(approximate="tanh")`` rounds once, and at bfloat16
+    differs from the reference in 1,518 of the 65,536 patterns."""
+    t = x * x * x
+    t = t * _rounded(0.044715, x.dtype)
+    t = x + t
+    t = t * _rounded(math.sqrt(2 / math.pi), x.dtype)
+    t = torch.tanh(t)
+    t = 1 + t
+    t = 0.5 * t
+    return x * t
+
+
+def relu2(h: torch.Tensor) -> torch.Tensor:
+    """The squared ReLU (nemotron), ``jnp.square(jax.nn.relu(h))``."""
+    return torch.relu(h).square()
+
+
+def _activate(h: torch.Tensor, act: str) -> torch.Tensor:
+    """The non-gated activations."""
+    if act == "relu2":
+        return relu2(h)
+    if act == "gelu":
+        return gelu(h)
+    raise ValueError(act)
+
+
 def mlp(p, x, act: str = "swiglu"):
-    if act != "swiglu":
-        raise NotImplementedError(f"mlp act {act!r} is not ported yet")
     h = crossbar_linear(x, p["wi"], "wi",
                         digital=lambda: x @ p["wi"].to(x.dtype))
-    g = crossbar_linear(x, p["wg"], "wg",
-                        digital=lambda: x @ p["wg"].to(x.dtype))
-    h = silu(g) * h
+    if act == "swiglu":
+        g = crossbar_linear(x, p["wg"], "wg",
+                            digital=lambda: x @ p["wg"].to(x.dtype))
+        h = silu(g) * h
+    else:
+        h = _activate(h, act)
     return crossbar_linear(
         h, p["wo"], "wo",
         digital=lambda: torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype)))
+
+
+# -- Mixture of Experts --------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    act: str = "swiglu"
+
+
+def moe_init(gen, d_model: int, d_ff: int, cfg: MoEConfig, device
+             ) -> Params:
+    e = cfg.n_experts
+    p = {"router": normal(gen, (d_model, e), d_model ** -0.5, device),
+         "wi": normal(gen, (e, d_model, d_ff), d_model ** -0.5, device),
+         "wo": normal(gen, (e, d_ff, d_model), d_ff ** -0.5, device)}
+    if cfg.act == "swiglu":
+        p["wg"] = normal(gen, (e, d_model, d_ff), d_model ** -0.5, device)
+    return p
+
+
+def moe_route(p, x, cfg: MoEConfig):
+    """The router: f32 softmax gates over the router logits (computed in
+    ``x``'s dtype), and each token's top-k experts, the lower expert
+    index first among equal gates (as ``jax.lax.top_k`` breaks ties;
+    ``torch.topk`` does not), with their gates renormalised.  Returns
+    (gates (B, S, E), top_g (B, S, k), top_e (B, S, k))."""
+    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype))
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_g, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_g, top_e = top_g[..., :cfg.top_k], top_e[..., :cfg.top_k]
+    top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
+    return gates, top_g, top_e
+
+
+def moe_block(p, x, cfg: MoEConfig):
+    """Token-dropping top-k MoE with group-local sort-based dispatch, as
+    the reference's ``moe_block``: each batch row is a group, its
+    (token, choice) assignments are stably sorted by expert, and an
+    expert takes the first C of them,
+      C = ceil(S * top_k * capacity_factor / n_experts),
+    so a row's earlier tokens win its capacity; a dropped token's
+    contribution is zero (the residual carries it).  Returns (y, gates).
+
+    Every shape is fixed by ``x``'s (no host sync, no mask indexing), so
+    a CUDA graph can hold the block.  The dispatch buffer receives one
+    nonzero value per kept slot and each token exactly ``top_k`` values,
+    so for ``top_k <= 2`` both scatter-adds are exact in any order
+    (``0 + a + b == 0 + b + a``); CUDA's ``scatter_add_`` has no fixed
+    order, so a larger ``top_k`` is refused there."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    if k > 2 and x.is_cuda:
+        raise NotImplementedError(
+            f"moe top_k={k}: the combine's scatter-add sums {k} values in "
+            f"no fixed order on CUDA (exact only for top_k <= 2)")
+    c = max(1, int(-(-s * k * cfg.capacity_factor // e)))
+
+    gates, top_g, top_e = moe_route(p, x, cfg)
+    # flatten assignments within each group
+    ids = top_e.reshape(b, s * k)                          # (B, S*k)
+    gts = top_g.reshape(b, s * k)
+    order = torch.argsort(ids, dim=-1, stable=True)        # group-local
+    ids_s = torch.gather(ids, 1, order)
+    gts_s = torch.gather(gts, 1, order)
+    tok_s = order // k                                     # source token
+
+    # position within expert via running count over the sorted list
+    same = ids_s[:, :, None] == torch.arange(e, device=x.device)
+    pos_all = torch.cumsum(same.to(torch.int64), dim=1) - 1  # (B, S*k, E)
+    pos = torch.gather(pos_all, 2, ids_s[:, :, None])[..., 0]
+    keep = pos < c
+    dest = ids_s * c + torch.clamp(pos, max=c - 1)         # (B, S*k)
+
+    xs = torch.gather(x, 1, tok_s[..., None].expand(b, s * k, d))
+    xs = torch.where(keep[..., None], xs, 0.0)
+    buf = torch.zeros((b, e * c, d), dtype=x.dtype, device=x.device)
+    buf.scatter_add_(1, dest[..., None].expand(b, s * k, d), xs)
+    buf = buf.reshape(b, e, c, d)
+
+    h = torch.einsum("becd,edf->becf", buf, p["wi"].to(x.dtype))
+    if cfg.act == "swiglu":
+        g = torch.einsum("becd,edf->becf", buf, p["wg"].to(x.dtype))
+        h = silu(g) * h
+    else:
+        h = _activate(h, cfg.act)
+    out = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
+    out = out.reshape(b, e * c, d)
+
+    # gather back to sorted slots, weight by gates, unsort via scatter-add
+    ys = torch.gather(out, 1, dest[..., None].expand(b, s * k, d))
+    ys = ys * (gts_s * keep)[..., None].to(x.dtype)
+    y = torch.zeros((b, s, d), dtype=x.dtype, device=x.device)
+    y.scatter_add_(1, tok_s[..., None].expand(b, s * k, d), ys)
+    return y, gates

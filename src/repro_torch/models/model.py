@@ -1,4 +1,4 @@
-"""Model builder for the dense decoder family (PyTorch).
+"""Model builder for the decoder families, dense and MoE (PyTorch).
 
 ``build_model(cfg, device=None)`` returns a ``Model`` with the
 reference's functional API for inference:
@@ -9,8 +9,8 @@ reference's functional API for inference:
   init_cache(batch, max_len) / init_paged_cache(...) / copy_paged_page(...)
 
 The model lives on one device, CUDA unless ``device="cpu"`` is asked
-for.  Families other than ``"dense"`` and the training path are later
-slices of the port.
+for.  The other families (VLM, encoder-decoder, recurrent) and the
+training path are later slices of the port.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.core.executor import CrossbarExecutor
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import AttnConfig
+from repro_torch.models.layers import AttnConfig, MoEConfig
 
 
 def _pad_vocab(v: int, mult: int = 256) -> int:
@@ -35,7 +35,7 @@ def _pad_vocab(v: int, mult: int = 256) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # "dense" (other families: later slices)
+    family: str                    # "dense" | "moe" (others: later slices)
     n_layers: int
     d_model: int
     n_heads: int = 0
@@ -47,6 +47,9 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     kv_repeat: int = 1             # Megatron KV replication
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity: float = 1.25
     q_chunk: int = 0               # chunked attention (0 = off)
     dtype: Any = torch.bfloat16    # activation/compute dtype
     kv_dtype: Any = None           # KV-cache storage dtype (None = dtype);
@@ -72,8 +75,16 @@ class ModelConfig:
             paged_block_pages=self.paged_block_pages)
 
     @property
+    def moe(self) -> Optional[MoEConfig]:
+        if self.moe_experts == 0:
+            return None
+        return MoEConfig(self.moe_experts, self.moe_top_k,
+                         self.moe_capacity, self.act)
+
+    @property
     def block_cfg(self) -> T.BlockConfig:
-        return T.BlockConfig(attn=self.attn, d_ff=self.d_ff, act=self.act)
+        return T.BlockConfig(attn=self.attn, d_ff=self.d_ff, act=self.act,
+                             moe=self.moe)
 
 
 @dataclasses.dataclass
@@ -194,8 +205,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     asked for)."""
     if cfg.backend not in ("digital", "crossbar"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"model family {cfg.family!r} is a later slice of the PyTorch "
-            f"port; this slice builds the dense decoder family")
+            f"port; it builds the dense and MoE decoder families")
     return _build_transformer(cfg, resolve_device(device))

@@ -1,4 +1,4 @@
-"""Decoder-only dense transformer stack (PyTorch).
+"""Decoder-only transformer stack, dense and MoE (PyTorch).
 
 Layer-stacked parameters (a leading ``layers`` axis, as in the
 reference) applied by an unrolled Python loop: crossbar tiles are
@@ -7,13 +7,13 @@ addressed by layer NAME, which the crossbar backend needs anyway.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.core import executor as xbar
 from repro_torch.models import layers as L
-from repro_torch.models.layers import AttnConfig
+from repro_torch.models.layers import AttnConfig, MoEConfig
 
 Params = Dict[str, Any]
 
@@ -23,14 +23,19 @@ class BlockConfig:
     attn: AttnConfig
     d_ff: int
     act: str = "swiglu"
+    moe: Optional[MoEConfig] = None
 
 
 def block_init(gen, cfg: BlockConfig, device) -> Params:
     d = cfg.attn.d_model
-    return {"ln1": torch.ones((d,), device=device),
-            "attn": L.attn_init(gen, cfg.attn, device),
-            "ln2": torch.ones((d,), device=device),
-            "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.act, device)}
+    p = {"ln1": torch.ones((d,), device=device),
+         "attn": L.attn_init(gen, cfg.attn, device),
+         "ln2": torch.ones((d,), device=device)}
+    if cfg.moe is not None:
+        p["moe"] = L.moe_init(gen, d, cfg.d_ff, cfg.moe, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.act, device)
+    return p
 
 
 def block(p, cfg: BlockConfig, x, positions, cache=None):
@@ -40,8 +45,12 @@ def block(p, cfg: BlockConfig, x, positions, cache=None):
                                    L.rmsnorm(x, p["ln1"]), positions,
                                    cache=cache)
     x = x + h
-    with xbar.scope("mlp"):
-        h = L.mlp(p["mlp"], L.rmsnorm(x, p["ln2"]), cfg.act)
+    if cfg.moe is not None:
+        # plain products, outside any scope: no expert is programmed
+        h, _ = L.moe_block(p["moe"], L.rmsnorm(x, p["ln2"]), cfg.moe)
+    else:
+        with xbar.scope("mlp"):
+            h = L.mlp(p["mlp"], L.rmsnorm(x, p["ln2"]), cfg.act)
     return x + h, new_cache
 
 

@@ -58,8 +58,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(dev, dtype=torch.float32, use_kernel=True, **xbar):
-    cfg = get_config("qwen3-4b", smoke=True)
+def _model(dev, dtype=torch.float32, use_kernel=True, arch="qwen3-4b",
+           **xbar):
+    cfg = get_config(arch, smoke=True)
     cfg = dataclasses.replace(
         cfg, backend="crossbar", dtype=dtype, paged_kernel=use_kernel,
         xbar=dataclasses.replace(cfg.xbar, use_kernel=use_kernel, **xbar))
@@ -130,6 +131,28 @@ def test_captured_logits_equal_eager_bitwise(cuda, dtype, kv, use_kernel):
     assert s_cap == s_eager
     assert len(l_cap) == len(l_eager) > 2
     for a, b in zip(l_eager, l_cap):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "phi3.5-moe",
+                                  "grok-1-314b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu2_and_moe_steps_capture_with_eager_logits(cuda, arch, dtype):
+    """The squared-ReLU MLP and the MoE block (sort, cumsum, both
+    scatter-adds) inside the captured step: one capture, the eager
+    step's logits bitwise."""
+    prompts = _mix(4, (5, 11, 3))
+    model = _model(cuda, dtype, arch=arch)
+    params = model.init(0)
+    out = {}
+    for capture in (False, True):
+        tap = []
+        sched = BatchScheduler(_tapped(model, tap), params, n_slots=2,
+                               max_len=32, capture=capture)
+        out[capture] = _run(sched, prompts, tap)
+        assert sched.capture_report()["A"]["captures"] == int(capture)
+    assert out[True][0] == out[False][0]
+    for a, b in zip(out[False][1], out[True][1]):
         assert torch.equal(a, b)
 
 
