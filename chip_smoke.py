@@ -19,7 +19,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              device ms.  The MAC also runs at the other decoder LMs'
              widest reads (``ARCH_GEOMS``: minitron-4b's 256,000-column
              head and its wi, qwen3-8b's wi, nemotron-4-340b's
-             18,432-square wq), and both paged lanes at their groups
+             18,432-square wq), at qwen2-vl-72b's and whisper-base's
+             (``FAMILY_GEOMS``: qwen2-vl's wq, wi, 29,568-row mlp wo and
+             head, whisper's head) and at whisper's encoder prefill (its
+             wq at B 6000: 4 x 1500 frames), and both paged lanes at
+             their groups
              (``ARCH_PAGED_CASES``: 24 q heads over 8, and 96 over 16 at
              head dim 192).  The streamed lane also runs at head dim 40.
              Both paged lanes run again at a long-context shape (windows
@@ -66,7 +70,14 @@ Phases, each of which fails the run (exit code 1, no result line):
              side of an e4m3 rounding midpoint (a neighbouring step);
              then minitron-4b (squared ReLU, a group of 3) and
              phi3.5-moe (16 experts, top 2) the same way at float32,
-             paged: plain, and the kernels captured and eager;
+             paged: plain, and the kernels captured and eager; then
+             ``greedy_generate`` at float32: qwen2-vl-72b (1 layer, 16
+             patches on a 4 x 4 grid) and whisper-base (6 + 6 layers,
+             1500 frames), the MAC kernel's streams identical to the
+             MAC's exact plain version's on the same model (whisper's
+             also beside the engine's float32 plain path, logged), and
+             rwkv6-3b (2 layers) and zamba2-1.2b (7) on the card and on
+             the CPU from the same params, identical;
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
              with ``--backend crossbar --use-kernel --kv paged``, captured
              (its step time: the warm-up, the capture and the replays),
@@ -114,10 +125,19 @@ Phases, each of which fails the run (exit code 1, no result line):
              retrace), the K/V pool half the bf16 serve's bytes at equal
              pages, the token agreement with the bf16-cache serves
              logged; then the other decoder LMs (``ARCH_SERVES``):
-             minitron-4b at its 32 layers and phi3.5-moe at 4, each on
+             minitron-4b at 16 of its 32 layers and phi3.5-moe at 4, each on
              one model programmed once, captured (one capture, no
              retrace) and eager with identical streams, with tokens/s,
-             step ms, programming s and peak memory logged; last
+             step ms, programming s and peak memory logged; then the
+             other families through ``greedy_generate`` at bf16, B 4
+             (``FAMILY_SERVES``): whisper-base (1500 frames, 64 new) and
+             qwen2-vl-72b at 2 layers (256 patches, 64 text tokens, 16
+             new) on the crossbar with the kernels, no plain version run,
+             and rwkv6-3b and zamba2-1.2b at full depth (512-token
+             prompts, 32 new), digital, ``chunked_gla`` held against
+             ``naive_gla`` at their shapes; each with finite logits, its
+             prefill ms, median decode-step ms, tokens/s, programming s
+             and peak memory logged; last
              the 36-layer serve on one programmed model: eager (its
              step time, streams equal to the captured serve's), then
              captured and eager with steps 4 on in a ``torch.profiler``
@@ -167,6 +187,11 @@ L2_FLUSH_BYTES = 64 << 20            # > the H100's 50 MB L2
 # loses device records (MAC kernels and their conversions alike), which a
 # second serve does not repeat; a wrong launch count repeats every time
 TRACE_ATTEMPTS = 3
+# kernels launched inside a serve's trace after its counted steps: the
+# records a trace lost were always the tail of its last step, so the
+# counted steps' records are followed by these before the trace stops
+# (outside the window ``_trace_stats`` reads)
+TRACE_TAIL_KERNELS = 32768
 
 
 class PhaseError(RuntimeError):
@@ -279,13 +304,24 @@ LAYER_PATH = ["wq", "wk/wv", "wk/wv", "attn wo", "wi/wg", "wi/wg", "mlp wo",
 # 256,000-column head and its wi, qwen3-8b's wi, nemotron-4-340b's wq
 ARCH_GEOMS = [("minitron head", 3072, 256000), ("minitron wi", 3072, 9216),
               ("qwen3-8b wi", 4096, 12288), ("nemotron wq", 18432, 18432)]
+# (name, K, N): the VLM's and the encoder-decoder's reads, at B 16:
+# qwen2-vl-72b's wq, wi/wg, mlp wo (231 row groups) and head, whisper-base's
+# head; and whisper's encoder prefill (4 x 1500 frames) through its wq
+FAMILY_GEOMS = [("qwen2-vl wq", 8192, 8192), ("qwen2-vl wi", 8192, 29568),
+                ("qwen2-vl mlp wo", 29568, 8192),
+                ("qwen2-vl head", 8192, 152064),
+                ("whisper head", 512, 51968)]
+ENC_GEOM = ("whisper enc wq", 512, 512)
+WHISPER_FRAMES = 1500                # Whisper's 30-second window
+FAMILY_B = 4                         # the family serves' batch
 
 
 def phase_crossbar_mac(torch, dev, flush):
     """The MAC at every qwen3-4b projection (B 16, 128 rows per ADC, leak
     0 and 0.37), at the auto policy's 256-row reads, at B 64 (the
     long-context serve's batch), at B 20 and 12 (the multiplexed serve's
-    two lanes) and at the other archs' geometries (``ARCH_GEOMS``):
+    two lanes), at the other archs' geometries (``ARCH_GEOMS``,
+    ``FAMILY_GEOMS``) and at whisper's encoder prefill (B 6000):
     BITWISE equal to the exact int64 code sums of
     ``crossbar_mac_codes_ref`` times the LSB, and within 1e-5 of the f32
     plain version.  Runs at leak 0 are timed: call ms (CUDA
@@ -311,7 +347,8 @@ def phase_crossbar_mac(torch, dev, flush):
     # at chunk 4, so 20 rows (a partial second 16-row tile) and 12
     runs += [(g, "deepnet", 128, leak, b) for b in (20, 12)
              for g in (geoms[0], geoms[-1]) for leak in (0.0, 0.37)]
-    runs += [(g, "deepnet", 128, 0.0, 16) for g in ARCH_GEOMS]
+    runs += [(g, "deepnet", 128, 0.0, 16) for g in ARCH_GEOMS + FAMILY_GEOMS]
+    runs += [(ENC_GEOM, "deepnet", 128, 0.0, FAMILY_B * WHISPER_FRAMES)]
     for (name, k, n), mode, rows, leak, b in runs:
         t_row = time.perf_counter()
         x = torch.randint(-128, 128, (b, k), generator=gen, device=dev,
@@ -357,7 +394,7 @@ def phase_crossbar_mac(torch, dev, flush):
             row["library_ms"] = None
         row["wall_s"] = time.perf_counter() - t_row
         rows_out.append(row)
-        log(f"  crossbar_mac {name:8s} K={k:5d} N={n:6d} B={b:2d} {mode:9s} "
+        log(f"  crossbar_mac {name:8s} K={k:5d} N={n:6d} B={b:4d} {mode:9s} "
             f"leak={leak:4.2f}: bitwise = code sums x lsb; vs plain max|err| "
             f"{err:.3e} (rel {rel:.2e} <= {tol:g})" + (
                 f"; call {row['ms']:.4f} ms, device {row['device_ms']:.4f} "
@@ -1495,6 +1532,10 @@ def _traced_serve(torch, st, capture, out_dir, untraced=2):
             prof.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        tail = torch.zeros(1, device=st.model.device)
+        for _ in range(TRACE_TAIL_KERNELS):
+            tail.add_(1)
+        torch.cuda.synchronize()
     counted = {k: n - before.get(k, 0) for k, n in launch_counts().items()}
     cap = sched.capture_report()["A"]
     _check_traced_once(sched.capture_report(), capture)
@@ -1850,9 +1891,10 @@ def phase_hotswap(torch, dev):
 #: two of its four at a time, so the page budget binds on B's lane only
 #: the other decoder LMs served at full width through the CLI's entry
 #: points: minitron-4b (squared ReLU, a group of 3, the 256,000-column
-#: head) at its 32 layers, ~47 GB; phi3.5-moe (16 experts, top 2) at 4
-#: layers, ~27 GB (its f32 experts are 5 GB a layer)
-ARCH_SERVES = (("minitron-4b", None), ("phi3.5-moe", 4))
+#: head) at 16 of its 32 layers (all 32 fit, ~47 GB, but take ~42 s to
+#: program, and chip_smoke passed 1000 s with them); phi3.5-moe (16
+#: experts, top 2) at 4 layers, ~27 GB (its f32 experts are 5 GB a layer)
+ARCH_SERVES = (("minitron-4b", 16), ("phi3.5-moe", 4))
 
 
 def _serve_argv(arch, layers=None):
@@ -1929,6 +1971,412 @@ def phase_archs(torch, dev):
             f"{cap['max_memory_allocated'] / 1e9:.2f} GB; "
             f"{cap['phase_s']:.1f} s")
         out[arch] = cap
+    return out
+
+
+# -- the VLM, encoder-decoder and recurrent families ------------------------
+
+#: qwen2-vl-72b's serve (2 of its 80 layers): a 16 x 16 grid of patches at
+#: t = 0, 64 text tokens after it, 16 new; its cache holds all 336 slots
+VLM_SERVE = dict(layers=2, grid=16, text=64, new=16, max_len=336)
+#: (arch, layers (None: all), backend, batch kwargs, new tokens, max_len)
+FAMILY_SERVES = (
+    ("whisper-base", None, "crossbar", dict(text=4, frames=WHISPER_FRAMES),
+     64, None),
+    ("qwen2-vl-72b", VLM_SERVE["layers"], "crossbar",
+     dict(text=VLM_SERVE["text"], grid=VLM_SERVE["grid"]), VLM_SERVE["new"],
+     VLM_SERVE["max_len"]),
+    ("rwkv6-3b", None, "digital", dict(text=512), 32, None),
+    ("zamba2-1.2b", None, "digital", dict(text=512), 32, None))
+#: chunked_gla against naive_gla at the recurrent serves' shapes: within
+#: this x max(1, max|naive|), float32 (docs/PORT.md)
+GLA_SERVE_BOUND = 2.0 ** -18
+
+
+def _family_batch(torch, dev, cfg, b, gen, text, grid=0, frames=0):
+    """A ``greedy_generate`` batch for ``cfg``'s family, drawn from ``gen``
+    (a generator on ``dev``): ``text`` tokens a row; for a VLM ``grid`` x
+    ``grid`` patch embeddings at t = 0, ids (0, h, w), and the text's ids
+    after the grid; for an encoder-decoder ``frames`` frame embeddings."""
+    batch = {"tokens": torch.randint(0, cfg.vocab - 1, (b, text),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        ar = torch.arange(grid, device=dev)
+        h, w = torch.meshgrid(ar, ar, indexing="ij")
+        vis = torch.stack([torch.zeros_like(h), h, w], -1).reshape(-1, 3)
+        txt = (grid + torch.arange(text, device=dev))[:, None].expand(-1, 3)
+        batch["positions_thw"] = torch.cat([vis, txt]).to(
+            torch.int32)[None].expand(b, -1, -1).contiguous()
+        batch["vis_emb"] = torch.randn((b, grid * grid, cfg.d_model),
+                                       generator=gen, device=dev)
+    if cfg.family == "encdec":
+        batch["enc_emb"] = torch.randn((b, frames, cfg.d_model),
+                                       generator=gen, device=dev)
+    return batch
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _timed_generate(torch, model, params, batch, max_new, max_len=None):
+    """``greedy_generate`` with the model's prefill and each decode step
+    timed on the host clock, the device synchronized around each, and
+    every step's logits checked finite on the device.  Returns (tokens,
+    prefill ms, decode-step ms, wall s, logits finite)."""
+    from repro_torch.serve.engine import greedy_generate
+
+    ms = {"prefill": [], "decode_step": []}
+    finite = torch.ones((), dtype=torch.bool, device=model.device)
+    inner = {key: getattr(model, key) for key in ms}
+
+    def timed(key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = inner[key](*args, **kwargs)
+            finite.logical_and_(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+            return logits, cache
+        return run
+
+    for key in ms:
+        setattr(model, key, timed(key))
+    try:
+        t0 = time.perf_counter()
+        toks = greedy_generate(model, params, batch, max_new,
+                               max_len=max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for key in ms:
+            setattr(model, key, inner[key])
+    return toks, ms["prefill"][0], ms["decode_step"], wall, bool(finite)
+
+
+#: columns per call of the exact plain MAC (``_exact_plain_mac``): bounds
+#: its float32 copies of the planes (2.1 GB at K 8192)
+EXACT_COLS = 16384
+
+
+@contextlib.contextmanager
+def _exact_plain_mac(torch):
+    """Route the engine's MAC reads through the MAC's exact plain version:
+    the int64 code sums of ``crossbar_mac_codes_ref`` times the LSB,
+    ``EXACT_COLS`` columns at a time, which the kernel equals bit for bit
+    (phase 2).  Inside, a model built with ``use_kernel=True`` launches
+    no kernel; everything else it computes is unchanged."""
+    from repro_torch.kernels.crossbar_mac import ops, ref
+
+    launch = ops.crossbar_mac
+
+    def exact(x, pos, neg, leak, *, in_bits, adc_bits, bits_per_cell,
+              rows_per_adc, full_scale_rows=None):
+        fs_rows = full_scale_rows or rows_per_adc
+        kw = dict(in_bits=in_bits, adc_bits=adc_bits,
+                  bits_per_cell=bits_per_cell, rows_per_adc=rows_per_adc,
+                  full_scale_rows=fs_rows, leak_codes=leak)
+        full_scale = float(fs_rows * (2 ** bits_per_cell - 1))
+        return torch.cat([ref.codes_to_float(ref.crossbar_mac_codes_ref(
+            x, pos[..., c:c + EXACT_COLS], neg[..., c:c + EXACT_COLS],
+            **kw), adc_bits, full_scale)
+            for c in range(0, pos.shape[-1], EXACT_COLS)], dim=-1)
+
+    ops.crossbar_mac = exact
+    try:
+        yield
+    finally:
+        ops.crossbar_mac = launch
+
+
+def _logits_at(torch, model, params, batch, toks, step, max_len):
+    """The logits (B, V) and the cache of a greedy run of ``model`` at
+    decode step ``step`` (0: the prefill's), fed ``toks[:, :step]``."""
+    b, s = batch["tokens"].shape
+    max_len = max_len or s + toks.shape[1]
+    cache = (model.init_cache(b, max_len, src_len=s)
+             if model.cfg.family == "encdec" else
+             model.init_cache(b, max_len))
+    logits, cache = model.prefill(params, batch, cache)
+    for j in range(step):
+        logits, cache = model.decode_step(params, toks[:, j:j + 1], cache)
+    return logits[:, -1].float(), cache
+
+
+def _explain_divergence(torch, dev, models, params, batch, streams,
+                        max_len):
+    """The first decode step at which the plain MAC's and the kernel's
+    streams part, both models fed the kernel's tokens before it: each
+    must pick its own stream's token again; how far apart their logits
+    (and an encoder-decoder's encoder K) lie is logged."""
+    kern, plain = (torch.tensor(streams[k], device=dev) for k in (True,
+                                                                   False))
+    step = int((kern != plain).any(0).nonzero()[0])
+    (lk, ck), (lp, cp) = (_logits_at(torch, models[k], params, batch, kern,
+                                     step, max_len) for k in (True, False))
+    check(torch.equal(lk.argmax(-1), kern[:, step])
+          and torch.equal(lp.argmax(-1), plain[:, step]),
+          "the fed runs do not repeat the greedy streams' tokens")
+    scale = lp.abs().max()
+    gap = ((lk - lp).abs().max() / scale).item()
+    rows = (kern[:, step] != plain[:, step]).nonzero()[:, 0].tolist()
+    margins = [((lp[r, plain[r, step]] - lp[r, kern[r, step]]) / scale)
+               .item() for r in rows]
+    out = {"step": step, "rows": rows, "logit_gap": gap,
+           "plain_margins": margins}
+    if "cross_kv" in ck:
+        out["cross_k_gap"] = ((ck["cross_kv"]["k"] - cp["cross_kv"]["k"])
+                              .abs().max() / cp["cross_kv"]["k"].abs().max()
+                              ).item()
+    log(f"  the streams part at decode step {step}, rows {rows}: fed the "
+        f"same tokens, the two paths' logits differ by {gap:.2e} of the "
+        f"largest magnitude, the plain path's own pick leads the kernel's "
+        f"by {', '.join(f'{m:.2e}' for m in margins)} of it"
+        + (f"; the encoder's K by {out['cross_k_gap']:.2e}"
+           if "cross_k_gap" in out else ""))
+    return out
+
+
+def phase_family_parity(torch, dev):
+    """``greedy_generate`` at float32: qwen2-vl-72b at full width and 1
+    layer (its programming ~25 s; 8 text tokens after 16 patches on a 4 x
+    4 grid) and whisper-base at its 6 + 6 layers (1500 frames, 4 tokens),
+    crossbar: the MAC kernel's streams must equal, on the same programmed
+    model, those of the MAC's exact plain version (``_exact_plain_mac``).
+    For whisper-base (a 1 s programming) the engine's plain path
+    (``use_kernel=False``: the reference's order, shift-adding the codes
+    in float32) runs too, each path alone launched; its streams are
+    logged beside the kernel's, and where they part
+    ``_explain_divergence`` logs how far: its reads are 1e-5 from the
+    kernel's (phase 2), and each layer's int8 input quantization turns a
+    value that close to a rounding midpoint into a whole code, a gap the
+    layers after it widen;
+    rwkv6-3b at full width and 2 layers and zamba2-1.2b at 7 (one
+    shared-attention application, then a trailing Mamba2 block), digital,
+    must give on the card the streams the port gives on the CPU from the
+    same params."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.engine import greedy_generate
+
+    out = {}
+    for arch, layers, kw, routes in (
+            ("qwen2-vl-72b", 1, dict(text=8, grid=4), (True,)),
+            ("whisper-base", None, dict(text=4, frames=WHISPER_FRAMES),
+             (False, True))):
+        t_arch = time.perf_counter()
+        base = get_config(arch)
+        base = dataclasses.replace(base, n_layers=layers or base.n_layers,
+                                   backend="crossbar", dtype=torch.float32)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4)
+        batch = _family_batch(torch, dev, base, 2, gen, **kw)
+        max_len = (kw["grid"] ** 2 + kw["text"] + 4 if "grid" in kw
+                   else None)
+        params, streams, models = None, {}, {}
+        for use_kernel in routes:
+            cfg = dataclasses.replace(base, xbar=dataclasses.replace(
+                base.xbar, use_kernel=use_kernel))
+            model = models[use_kernel] = build_model(cfg, device=dev)
+            params = params if params is not None else model.init(0)
+            _reset_counts()
+            toks = greedy_generate(model, params, batch, 4, max_len=max_len)
+            torch.cuda.synchronize()
+            counted, plain, _ = _read_counts()
+            n_mac = counted["crossbar_mac"]
+            n_ref = plain["engine.matmul_reference"]
+            check((n_mac > 0) == use_kernel and (n_ref > 0) != use_kernel,
+                  f"{arch} use_kernel={use_kernel}: MAC launches {n_mac}, "
+                  f"plain MAC calls {n_ref}")
+            streams[use_kernel] = toks.tolist()
+            log(f"  {arch} ({cfg.n_layers} layers) fp32 use_kernel="
+                f"{use_kernel}: streams {streams[use_kernel]} (MAC launches "
+                f"{n_mac}, plain MAC calls {n_ref})")
+        _reset_counts()
+        with _exact_plain_mac(torch):
+            exact = greedy_generate(models[True], params, batch, 4,
+                                    max_len=max_len).tolist()
+        counted, plain, _ = _read_counts()
+        check(counted["crossbar_mac"] == 0
+              and plain["crossbar_mac_codes_ref"] > 0,
+              f"{arch}: the exact plain MAC's run launched "
+              f"{counted['crossbar_mac']} kernels, "
+              f"{plain['crossbar_mac_codes_ref']} exact reads")
+        log(f"  {arch}: the exact plain MAC's streams {exact} "
+            f"({plain['crossbar_mac_codes_ref']} reads)")
+        check(exact == streams[True],
+              f"{arch}: the MAC kernel's streams {streams[True]} differ "
+              f"from its exact plain version's {exact}")
+        out[arch] = {"layers": base.n_layers, "streams": streams[True]}
+        if False in streams:
+            equal = streams[False] == streams[True]
+            out[arch].update(
+                plain_streams=streams[False], streams_equal=equal,
+                agreement=_agreement(dict(enumerate(streams[False])),
+                                     dict(enumerate(streams[True]))))
+            if not equal:
+                out[arch]["divergence"] = _explain_divergence(
+                    torch, dev, models, params, batch, streams, max_len)
+        del models, model, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[arch]["seconds"] = time.perf_counter() - t_arch
+        log(f"  {arch}: the kernel's streams equal the exact plain MAC's"
+            + (f"; the engine's plain path's "
+               f"{'equal' if out[arch]['streams_equal'] else 'part'}"
+               if False in streams else "")
+            + f" ({out[arch]['seconds']:.1f} s)")
+    for arch, layers in (("rwkv6-3b", 2), ("zamba2-1.2b", 7)):
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype=torch.float32)
+        model = build_model(cfg, device=dev)
+        params = model.init(0)
+        gen = torch.Generator()
+        gen.manual_seed(5)
+        toks = torch.randint(0, cfg.vocab - 1, (2, 16), generator=gen,
+                             dtype=torch.int32)
+        got = greedy_generate(model, params, {"tokens": toks.to(dev)}, 4)
+        want = greedy_generate(build_model(cfg, device="cpu"),
+                               _to(params, "cpu"), {"tokens": toks}, 4)
+        check(got.cpu().tolist() == want.tolist(),
+              f"{arch}: the card's streams {got.tolist()} differ from the "
+              f"CPU's {want.tolist()}")
+        out[arch] = {"layers": layers, "streams": want.tolist(),
+                     "seconds": time.perf_counter() - t_arch}
+        log(f"  {arch} ({layers} layers) fp32: the card's streams equal "
+            f"the CPU's {want.tolist()} ({out[arch]['seconds']:.1f} s)")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gla_at_serve_shapes(torch, dev, cfg):
+    """``chunked_gla`` against ``naive_gla`` on random inputs of the
+    recurrent serve's shapes (B 4, 512 positions, its heads and chunk;
+    RWKV6's decays and ``u``, Mamba2's per-head decays); returns the
+    error over max(1, max|naive|) of the outputs and the final state."""
+    import math
+
+    from repro_torch.models import lin_attn
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    b, s = FAMILY_B, 512
+    if cfg.family == "rwkv6":
+        rc = cfg.rwkv
+        h, dk, dv, chunk = rc.n_heads, rc.head_dim, rc.head_dim, rc.chunk
+        log_w = -torch.exp(rand(b, s, h, dk) * 6 - 6.5)
+        u = randn(h, dk, scale=0.3)
+        k = randn(b, s, h, dk, scale=0.1)
+        v = randn(b, s, h, dv)
+    else:
+        mc = cfg.mamba
+        h, dk, dv, chunk = mc.n_heads, mc.d_state, mc.head_dim, mc.chunk
+        dt = torch.exp((rand(b, s, h) - 1) * math.log(1000))
+        a = torch.exp(rand(h) * math.log(16))
+        log_w = (-a * dt)[..., None].expand(b, s, h, dk)
+        u = None
+        k = randn(b, s, h, dk)
+        v = randn(b, s, h, dv) * dt[..., None]
+    q = randn(b, s, h, dk)
+    y, st = lin_attn.chunked_gla(q, k, v, log_w, u, chunk=chunk)
+    ny, nst = lin_attn.naive_gla(q, k, v, log_w, u)
+    return [((got - want).abs().max() / want.abs().max().clamp(
+        min=1.0)).item() for got, want in ((y, ny), (st, nst))]
+
+
+def phase_family_serves(torch, dev):
+    """``FAMILY_SERVES`` through ``greedy_generate`` at bfloat16, B 4, each
+    on a new model: whisper-base at full depth (1500 random frames, a
+    4-token prompt, 64 new) and qwen2-vl-72b at full width and 2 layers,
+    crossbar with the kernels (every MAC read on the kernel, no plain
+    version); rwkv6-3b and zamba2-1.2b at full depth, digital, 512-token
+    prompts and 32 new, with ``chunked_gla`` held against ``naive_gla``
+    at the serve's shapes.  Each logs the prefill ms, the median decode
+    step ms, tokens/s, programming s and peak memory; every step's logits
+    must be finite and every token inside the padded vocab."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for arch, layers, backend, kw, new, max_len in FAMILY_SERVES:
+        t_arch = time.perf_counter()
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, n_layers=layers or base.n_layers,
+                                  backend=backend)
+        if backend == "crossbar":
+            cfg = dataclasses.replace(cfg, xbar=dataclasses.replace(
+                cfg.xbar, use_kernel=True))
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated(dev) < 1 << 30,
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+              f"allocated before the {arch} serve")
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, device=dev)
+        params = model.init(0)
+        program_s = 0.0
+        if backend == "crossbar":
+            t0 = time.perf_counter()
+            model.executor.program_params(params)
+            torch.cuda.synchronize()
+            program_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        batch = _family_batch(torch, dev, cfg, FAMILY_B, gen, **kw)
+        _reset_counts()
+        toks, prefill_ms, step_ms, wall, finite = _timed_generate(
+            torch, model, params, batch, new, max_len)
+        counted, plain, _ = _read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        check(finite, f"{arch}: non-finite logits")
+        check(tuple(toks.shape) == (FAMILY_B, new)
+              and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+              f"{arch}: tokens {tuple(toks.shape)} outside the padded vocab")
+        row = {"layers": cfg.n_layers, "backend": backend, "b": FAMILY_B,
+               "prompt": kw, "new": new, "max_len": max_len,
+               "prefill_ms": prefill_ms,
+               "decode_step_ms": statistics.median(step_ms),
+               "tok_per_s": FAMILY_B * new / wall, "seconds": wall,
+               "program_s": program_s, "max_memory_allocated": peak,
+               "launches": counted, "plain_calls": plain,
+               "streams": toks.tolist()}
+        if backend == "crossbar":
+            check(counted["crossbar_mac"] > 0
+                  and all(v == 0 for v in plain.values()),
+                  f"{arch}: MAC launches {counted['crossbar_mac']}, plain "
+                  f"versions {plain}")
+        else:
+            row["gla_err"] = _gla_at_serve_shapes(torch, dev, cfg)
+            check(max(row["gla_err"]) <= GLA_SERVE_BOUND,
+                  f"{arch}: chunked_gla against naive_gla {row['gla_err']} "
+                  f"> {GLA_SERVE_BOUND:.2e} of the largest magnitude")
+        del model, params, batch
+        row["phase_s"] = time.perf_counter() - t_arch
+        log(f"  {arch} ({cfg.n_layers} layers, {backend}, bf16, B "
+            f"{FAMILY_B}, {kw}, {new} new): prefill {prefill_ms:.2f} ms, "
+            f"decode step {row['decode_step_ms']:.2f} ms (median of "
+            f"{len(step_ms)}), {row['tok_per_s']:.2f} tok/s; programming "
+            f"{program_s:.2f} s; peak {peak / 2**30:.2f} GiB; MAC launches "
+            f"{counted['crossbar_mac']}"
+            + (f"; chunked_gla vs naive at the serve's shapes: y "
+               f"{row['gla_err'][0]:.2e}, state {row['gla_err'][1]:.2e} of "
+               f"the largest magnitude" if "gla_err" in row else "")
+            + f"; {row['phase_s']:.1f} s")
+        out[arch] = row
     return out
 
 
@@ -2571,6 +3019,9 @@ def main() -> int:
             log(f"  {arch}: kernels on and off, captured and eager")
             report[f"parity_{arch}"] = phase_parity(torch, dev, arch=arch,
                                                     kvs=("paged",))
+        log("  the VLM, encoder-decoder and recurrent families through "
+            "greedy_generate")
+        report["parity_families"] = phase_family_parity(torch, dev)
 
         log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "serve"
@@ -2641,6 +3092,13 @@ def main() -> int:
         log("  the other decoder LMs at full width: "
             + ", ".join(f"{a} ({n or 'all'} layers)" for a, n in ARCH_SERVES))
         report["archs"] = phase_archs(torch, dev)
+        phase = "families"
+        log("  the VLM, encoder-decoder and recurrent families through "
+            "greedy_generate: " + ", ".join(
+                f"{a} ({n or 'all'} layers, {bk})"
+                for a, n, bk, *_ in FAMILY_SERVES))
+        report["families"] = phase_family_serves(torch, dev)
+        log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
@@ -2824,8 +3282,13 @@ def main() -> int:
     for kr in kernels[:3]:
         kr.update({f"{a}_serve_launches": arch_l[a].get(kr["name"], 0)
                    for a in arch_l})
+    for a, _, backend, *_ in FAMILY_SERVES:
+        if backend == "crossbar":
+            kernels[0][f"{a}_serve_launches"] = report["families"][a][
+                "launches"]["crossbar_mac"]
     for r in report["crossbar_mac"]:
-        if any(r["geometry"] == g[0] for g in ARCH_GEOMS):
+        if any(r["geometry"] == g[0]
+               for g in ARCH_GEOMS + FAMILY_GEOMS + [ENC_GEOM]):
             tag = r["geometry"].replace(" ", "_")
             kernels[0].update({f"{tag}_{k}": r[k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})

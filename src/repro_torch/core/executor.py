@@ -72,7 +72,7 @@ from repro_torch.core.planes import ChunkedProgram, PlaneBank, SwapPlan
 _ATTN_KEYS = {"wq": 1, "wk": 1, "wv": 1, "wo": 2}
 _MLP_KEYS = {"wi": 1, "wg": 1, "wo": 1}
 # top-level param stacks whose leading axis is the layer index
-_STACKED_ROOTS = ("blocks",)
+_STACKED_ROOTS = ("blocks", "enc_blocks")
 
 #: per-weight read modes a policy may assign ("auto" resolves to one)
 READ_MODES = ("expansion", "deepnet")
@@ -102,7 +102,11 @@ def _classify(parts: List[str]) -> Optional[int]:
         return 1
     if len(parts) >= 2:
         mod, leaf = parts[-2], parts[-1]
-        if mod == "attn" and leaf in _ATTN_KEYS:
+        if mod == "xattn" and leaf in ("wk", "wv"):
+            # cross-attention K/V come from the encoder output through the
+            # digital _cross_kv path (models/model.py): never read here
+            return None
+        if mod in ("attn", "xattn") and leaf in _ATTN_KEYS:
             return _ATTN_KEYS[leaf]
         if mod == "mlp" and leaf in _MLP_KEYS:
             return _MLP_KEYS[leaf]

@@ -2,9 +2,10 @@
 
 ``--arch`` takes every decoder LM of the registry (``configs/``): the
 dense qwen3-4b, qwen3-8b, minitron-4b and nemotron-4-340b, and the MoE
-phi3.5-moe and grok-1-314b, by the reference's names and aliases; any
-other arch exits, as the reference's CLI exits for its VLM,
-encoder-decoder and recurrent families.
+phi3.5-moe and grok-1-314b, by the reference's names and aliases.  The
+VLM, encoder-decoder and recurrent archs (qwen2-vl-72b, whisper-base,
+rwkv6-3b, zamba2-1.2b) exit, as the reference's CLI exits for them: they
+generate through ``serve.engine.greedy_generate``.
 
 Continuous-batching decode over the port's BatchScheduler with synthetic
 prompts (random params and prompts from seeded torch Generators).
@@ -416,10 +417,11 @@ def setup(argv=None) -> Setup:
     mode_policy = parse_mode_policy(args.mode_policy)
     device = resolve_device(args.device)
 
-    try:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    except NotImplementedError as e:   # the reference's other families
-        raise SystemExit(str(e))
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family in ("encdec", "vlm", "rwkv6", "zamba2"):
+        raise SystemExit("scheduler demo targets decoder LMs; "
+                         "see serve.engine.greedy_generate for other "
+                         "families")
     cfg = dataclasses.replace(cfg, backend=args.backend)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)

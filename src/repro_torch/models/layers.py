@@ -1,7 +1,8 @@
-"""Model building blocks for the decoder families (PyTorch): RMSNorm,
-RoPE, GQA attention (qk-norm, dense and paged KV caches, chunked and
-causal), the SwiGLU, squared-ReLU and GELU MLPs and the token-dropping
-MoE block.
+"""Model building blocks (PyTorch): RMSNorm and LayerNorm, RoPE and
+Qwen2-VL's M-RoPE, GQA attention (qk-norm, dense and paged KV caches,
+chunked, causal, bidirectional and cross), the SwiGLU, squared-ReLU and
+GELU MLPs, the token-dropping MoE block, and the reference's rounding of
+``jax.nn.sigmoid``, ``jax.nn.silu`` and ``jax.nn.softplus``.
 
 Pure functions over explicit param dicts, as in ``repro.models.layers``;
 initializers take an explicit ``torch.Generator`` and device.  The
@@ -72,6 +73,17 @@ def rmsnorm(x, w, eps: float = 1e-6):
     return normed * w.to(dtype)
 
 
+def layernorm(x, p, eps: float = 1e-5):
+    """LayerNorm with weight ``p["w"]`` and bias ``p["b"]``, all in f32
+    and cast back at the end, as the reference; the variance is the
+    population variance (``jnp.var``)."""
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * p["w"] + p["b"]).to(dtype)
+
+
 # -- rotary embeddings ---------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float = 1e6, device=None):
@@ -91,6 +103,34 @@ def apply_rope(x, positions, theta: float = 1e6):
     return out.to(x.dtype)
 
 
+def mrope_sections(n: int):
+    """Qwen2-VL's default split of the ``n = head_dim / 2`` frequency
+    slots into (temporal, height, width) sections, 1 : 1.5 : 1.5."""
+    t = n // 4
+    h = (n - t) // 2
+    return (t, h, n - t - h)
+
+
+def apply_mrope(x, positions_thw, theta: float = 1e6, sections=None):
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); positions_thw: (B, S,
+    3) = (t, h, w) ids.  Frequency slot i rotates by the position stream
+    of its section; text tokens carry t == h == w, which is plain RoPE."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                      # (D/2,)
+    n = d // 2
+    sections = sections or mrope_sections(n)
+    assert sum(sections) == n, (sections, n)
+    sec_ids = torch.tensor([i for i, w in enumerate(sections)
+                            for _ in range(w)], device=x.device)
+    pos = positions_thw.to(torch.float32)[..., sec_ids]       # (B, S, D/2)
+    ang = pos * inv
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # -- attention -----------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +143,7 @@ class AttnConfig:
     rope_theta: float = 1e6
     kv_repeat: int = 1          # Megatron-style KV replication
     causal: bool = True
+    mrope: bool = False         # Qwen2-VL: positions are (B, S, 3) ids
     q_chunk: int = 0            # 0 = unchunked; else chunk the query axis
     paged_kernel: bool = False  # paged decode via the CUDA kernels
     paged_stream_pages: int = 0  # streamed lane when the page table is >=
@@ -143,18 +184,23 @@ def _project_qkv(p, cfg: AttnConfig, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    if positions is not None:
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None):
+def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None,
+          cross: bool = False):
     """Grouped scaled-dot-product attention on (B, S, H, D) tensors.
 
     q_offset: absolute position of q[.., 0] for causal masking — an int,
               or (B,) when slots sit at different depths.
     kv_len:   (B,) valid KV lengths (decode), or None for full.
+    cross:    cross-attention onto an encoder's K/V: no causal mask.
     Logits are f32 (bf16 operands upcast: their products are exact).  A
     low-precision (fp8) cache is upcast to q's dtype first, as the
     reference does, so the weights round to q's dtype before P.V.
@@ -170,7 +216,7 @@ def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None):
     scale = hd ** -0.5
     logits = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
-    if cfg.causal:
+    if cfg.causal and not cross:
         qpos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
                 + torch.arange(sq, device=dev)[None])         # (B or 1, sq)
         mask = qpos[:, :, None] >= torch.arange(sk, device=dev)[None, None]
@@ -183,26 +229,31 @@ def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None):
     return out.reshape(b, sq, hq, hd)
 
 
-def _chunked_sdpa(q, k, v, cfg: AttnConfig, kv_len=None, q_offset=0):
+def _chunked_sdpa(q, k, v, cfg: AttnConfig, kv_len=None, q_offset=0,
+                  cross: bool = False):
     """Q-axis-chunked SDPA: bounds the scores working set to
     (B, H, q_chunk, S_k)."""
     b, sq = q.shape[:2]
     if not (cfg.q_chunk and sq > cfg.q_chunk and sq % cfg.q_chunk == 0):
-        return _sdpa(q, k, v, cfg, q_offset, kv_len=kv_len)
+        return _sdpa(q, k, v, cfg, q_offset, kv_len=kv_len, cross=cross)
     nq = sq // cfg.q_chunk
     qs = q.reshape(b, nq, cfg.q_chunk, *q.shape[2:])
     outs = [_sdpa(qs[:, i], k, v, cfg, q_offset + i * cfg.q_chunk,
-                  kv_len=kv_len) for i in range(nq)]
+                  kv_len=kv_len, cross=cross) for i in range(nq)]
     return torch.stack(outs, dim=1).reshape(b, sq, *q.shape[2:])
 
 
-def attention(p, cfg: AttnConfig, x, positions, cache=None):
+def attention(p, cfg: AttnConfig, x, positions, cache=None, cross_kv=None,
+              kv_len=None):
     """Returns (y, new_cache).
 
     cache: None (prefill-no-cache), a dense dict with k, v
     (B, S_max, kv_eff, hd) and "len" (B,) int32, or a paged dict that
     also carries "pt" (B, P_seq) and whose k/v are page pools
     (n_pages + 1, page_size, kv_eff, hd).
+    cross_kv: (k, v) of an encoder's output for cross-attention: only q
+    is projected (no rotary position), nothing is masked but past
+    ``kv_len``, and ``cache`` passes through.
 
     The KV scatter and the fill marker update the cache's k/v and "len"
     tensors IN PLACE (the caller owns them; the reference returns updated
@@ -210,7 +261,14 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None):
     hold the step; the returned cache holds the same tensors.
     """
     b, sq, _ = x.shape
-    if cache is None:
+    if cross_kv is not None:
+        q = _qkv_proj(x, p["wq"], "wq")
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"])
+        k, v = cross_kv
+        out = _chunked_sdpa(q, k, v, cfg, kv_len=kv_len, cross=True)
+        new_cache = cache
+    elif cache is None:
         q, k, v = _project_qkv(p, cfg, x, positions)
         out = _chunked_sdpa(q, k, v, cfg)
         new_cache = None
@@ -347,15 +405,28 @@ def mlp_init(gen, d_model: int, d_ff: int, act: str, device) -> Params:
     return p
 
 
-def silu(g: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference rounds it: ``g * (1 / (1 +
-    exp(-g)))`` with the exp, the add, the divide and the product each
-    rounded to ``g``'s dtype.  ``F.silu`` rounds once, and at bfloat16
-    differs from the reference in a third of the outputs or more."""
+def sigmoid(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference rounds it: ``1 / (1 +
+    exp(-g))`` with the exp, the add and the divide each rounded to
+    ``g``'s dtype (``torch.sigmoid`` rounds once)."""
     t = torch.exp(-g)
     t = 1 + t
-    t = 1 / t
-    return g * t
+    return 1 / t
+
+
+def silu(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference rounds it: ``g * sigmoid(g)``
+    with each step rounded to ``g``'s dtype.  ``F.silu`` rounds once, and
+    at bfloat16 differs from the reference in a third of the outputs or
+    more."""
+    return g * sigmoid(g)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, that is ``logaddexp(x, 0)``: ``max(x, 0) +
+    log1p(exp(-|x|))``.  ``F.softplus`` returns ``x`` itself past its
+    threshold, another function."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def _rounded(v: float, dtype) -> float:

@@ -1,5 +1,11 @@
-"""Batched serving runtime: the paged continuous-batching scheduler
-(PyTorch).
+"""Batched serving runtime (PyTorch): the prefill and decode step
+builders with the fixed-batch ``greedy_generate``, and the paged
+continuous-batching scheduler.
+
+``greedy_generate`` is the entry point of every family, the VLM,
+encoder-decoder and recurrent ones included: one prefill over the whole
+batch, then ``max_new - 1`` decode steps, each an argmax over the padded
+vocabulary (ids past ``cfg.vocab`` can come out, as in the reference).
 
 The scheduler serves its tenant through ONE window step of fixed shape
 ``(width, chunk)`` with per-row valid counts.  Newly admitted prompts
@@ -56,6 +62,61 @@ from repro_torch.kernels import launch_counts
 from repro_torch.models.model import Model
 from repro_torch.serve.hotswap import HotSwapper, overlap_report
 from repro_torch.serve.kv_pool import PagedKVPool, default_pool_pages
+
+
+def make_prefill_step(model: Model):
+    def prefill_step(params, batch, cache):
+        logits, cache = model.prefill(params, batch, cache)
+        next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(
+            torch.int32)
+        return next_tok, cache
+
+    return prefill_step
+
+
+def make_decode_step(model: Model, temperature: float = 0.0):
+    """The decode step: greedy, or at ``temperature > 0`` a draw from
+    softmax(logits / temperature) with the caller's ``torch.Generator``
+    (greedy when none is given)."""
+    def decode_step(params, tokens, cache,
+                    generator: Optional[torch.Generator] = None):
+        logits, cache = model.decode_step(params, tokens, cache)
+        lg = logits[:, -1].to(torch.float32)
+        if temperature > 0.0 and generator is not None:
+            probs = torch.softmax(lg / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(lg, dim=-1)
+        return nxt[:, None].to(torch.int32), cache
+
+    return decode_step
+
+
+def greedy_generate(model: Model, params, batch, max_new: int,
+                    max_len: Optional[int] = None):
+    """Generate ``max_new`` tokens for every row of ``batch`` (a dict of
+    tensors on the model's device: ``tokens`` (B, S), plus ``vis_emb``
+    and ``positions_thw`` for a VLM, ``enc_emb`` for an
+    encoder-decoder).  Returns (B, max_new) int32.
+
+    ``max_len`` defaults to S + max_new, text tokens only, as in the
+    reference: a VLM batch's P patch embeddings also take cache slots, so
+    at that default the cache is P slots short and the writes past its
+    end are dropped.  Pass ``max_len`` explicitly for a VLM."""
+    b, s = batch["tokens"].shape
+    max_len = max_len or (s + max_new)
+    if model.cfg.family == "encdec":
+        cache = model.init_cache(b, max_len, src_len=s)
+    else:
+        cache = model.init_cache(b, max_len)
+    prefill = make_prefill_step(model)
+    decode = make_decode_step(model)
+    tok, cache = prefill(params, batch, cache)
+    toks = [tok]
+    for _ in range(max_new - 1):
+        tok, cache = decode(params, tok, cache)
+        toks.append(tok)
+    return torch.cat(toks, dim=1)
 
 
 @dataclasses.dataclass
@@ -372,6 +433,10 @@ class BatchScheduler:
             raise ValueError(
                 "prefix_share/preemption operate on the page pool; "
                 "they require kv='paged'")
+        if kv == "paged" and model.init_paged_cache is None:
+            raise ValueError(
+                f"model family {model.cfg.family!r} has no paged cache; "
+                f"pass kv='dense' (the scheduler targets decoder LMs)")
         if kv == "paged" and max_len % page_size:
             raise ValueError(f"page_size {page_size} must divide max_len "
                              f"{max_len}")

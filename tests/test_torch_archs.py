@@ -2,8 +2,12 @@
 
 Contract (docs/PORT.md, "Other dense configs and the MoE family"):
 * every FULL and SMOKE config of qwen3-8b, minitron-4b, nemotron-4-340b,
-  phi3.5-moe and grok-1-314b carries the reference's value in every field
-  the port's ``ModelConfig`` has, and the reference's aliases resolve;
+  phi3.5-moe, grok-1-314b, qwen2-vl-72b, whisper-base, rwkv6-3b and
+  zamba2-1.2b carries the reference's value in every field the port's
+  ``ModelConfig`` has, and so do the derived block, RWKV and Mamba2
+  configs and the Zamba2 layout; the reference's aliases resolve, and
+  the serve CLI refuses the VLM, encoder-decoder and recurrent archs
+  with the reference's message;
 * on each SMOKE config at float32 with the crossbar backend and a paged
   KV cache, the same params (carried across by ``bridge``) and prompts
   give IDENTICAL greedy streams in the port's ``BatchScheduler`` and the
@@ -29,19 +33,23 @@ torch.set_num_threads(1)   # the suite runs one worker process per core
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS as jax_arch_ids  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models.model import build_model as jax_build  # noqa: E402
 from repro.serve.engine import BatchScheduler as JaxScheduler  # noqa: E402
 from repro.serve.engine import Request as JaxRequest  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
-from repro_torch.configs import ALIASES, get_config  # noqa: E402
+from repro_torch.configs import ALIASES, ARCH_IDS, get_config  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
-from repro_torch.models.model import ModelConfig, build_model  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.engine import BatchScheduler, Request  # noqa: E402
 
 ARCHS = ["qwen3-8b", "minitron-4b", "nemotron-4-340b", "phi3.5-moe",
          "grok-1-314b"]
+#: the families that generate through ``greedy_generate`` only
+GENERATE_ARCHS = ["qwen2-vl-72b", "whisper-base", "rwkv6-3b",
+                  "zamba2-1.2b"]
 PROMPT_LENS = (5, 11, 3)
 MAX_NEW = 4
 #: ModelConfig fields that are no configuration of the architecture
@@ -98,24 +106,37 @@ def test_smoke_streams_equal_the_reference(reference, use_kernel):
     assert model.executor.fingerprint() == reference["fingerprint"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _same_fields(port, ref, skip=()):
+    """Every field of the port's dataclass ``port`` (but ``skip``) holds
+    the reference's value."""
+    for f in dataclasses.fields(port):
+        if f.name not in skip:
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+
+
+@pytest.mark.parametrize("arch", ARCHS + GENERATE_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_carry_the_reference_fields(arch, smoke):
     port, ref = get_config(arch, smoke=smoke), jax_config(arch, smoke=smoke)
-    for f in dataclasses.fields(ModelConfig):
-        if f.name not in NOT_ARCH:
-            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    _same_fields(port, ref, NOT_ARCH)
     assert port.moe == (None if ref.moe is None else layers.MoEConfig(
         *dataclasses.astuple(ref.moe)))
+    _same_fields(port.block_cfg, ref.block_cfg, ("attn", "moe"))
+    _same_fields(port.attn, ref.attn, NOT_ARCH)
+    _same_fields(port.rwkv, ref.rwkv)
+    _same_fields(port.mamba, ref.mamba)
+    assert port.zamba_layout == ref.zamba_layout
 
 
 def test_aliases_and_the_cli_refusal():
     assert get_config("phi3.5-moe-42b-a6.6b") is get_config("phi3.5-moe")
-    assert {ALIASES[a] for a in ARCHS} | {"qwen3_4b"} == set(
-        ALIASES.values())
-    with pytest.raises(SystemExit, match="later slice"):
-        serve_cli.main(["--arch", "whisper-base", "--smoke", "--device",
-                        "cpu"])
+    assert {ALIASES[a] for a in ARCHS + GENERATE_ARCHS} | {"qwen3_4b"} == \
+        set(ALIASES.values())
+    assert ARCH_IDS == jax_arch_ids
+    for arch in GENERATE_ARCHS:
+        with pytest.raises(SystemExit, match="scheduler demo targets "
+                                             "decoder LMs"):
+            serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu"])
 
 
 # -- the activations ---------------------------------------------------------
