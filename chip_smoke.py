@@ -54,6 +54,26 @@ Phases, each of which fails the run (exit code 1, no result line):
              per call), timed (call and device ms, device µs per sweep),
              and driven through ``ir_solve.solve`` at 12 x 8, bitwise
              against the plain solve and against the dense nodal solve;
+   physics — the device physics and the two array modes, each held on
+             the card against the same port function on CPU tensors:
+             (a) the paper's 10 x 10 x 2 array (``expansion_mac`` against
+             ``expansion_mac_ir``, ``deepnet_read`` with its leakage, the
+             bank ops at N = 2 and 3 bit for bit the pair ops) and the
+             paper's C1 (the line-loss reduction of 20 SET inputs at
+             V_write, 0.22 +- 0.03), C2 (``speedup(200, 10)``, 0.29 +-
+             0.01), C3 (2.5 pA +- 5%), C4 (39.6 nA +- 1%) and C5 (the
+             worst read deviation over 200 ``sample_conductances`` trials
+             and its bits per cell, logged); (b) ``hysteresis_loop`` at
+             its defaults (pinched, nonzero area) and ``program_verify``
+             (48 pulses x 16 steps) on every cell of qwen3-4b's wq planes,
+             83.9 M, a 10 x 10 corner against the CPU; (c)
+             ``matmul_analog`` at wq, B 16, against ``engine.matmul`` on
+             the same planes and against the CPU, and with noise from four
+             generators; (d) ``deepnet_mlp`` through the MAC kernel at
+             qwen3-4b's MLP widths (2560 -> 9728 -> 2560 -> 9728 -> 2560,
+             B 16), bit for bit the exact plain MAC, each layer's
+             programming s and MAC ms; (e) the quickstart's body
+             (``examples/torch_quickstart.py``);
 3. parity  — full-width qwen3-4b, 2 layers, float32, crossbar backend:
              greedy streams with the plain versions and with the CUDA
              kernels, the window step captured in a CUDA graph (the
@@ -79,10 +99,9 @@ Phases, each of which fails the run (exit code 1, no result line):
              rwkv6-3b (2 layers) and zamba2-1.2b (7) on the card and on
              the CPU from the same params, identical;
 4. serve   — ``repro_torch.launch.serve.main`` at full width (36 layers)
-             with ``--backend crossbar --use-kernel --kv paged``, captured
-             (its step time: the warm-up, the capture and the replays),
-             the same under ``--mode-policy auto`` (attention and head
-             read as expansion-fused pairs, 256 rows per ADC), then two
+             with ``--backend crossbar --use-kernel --kv paged`` under
+             ``--mode-policy auto`` (attention and head read as
+             expansion-fused pairs, 256 rows per ADC), then two
              4-layer serves through the streamed attention lane (the
              second with 1024-token prompts in a 2048-token window), each
              captured and eager with identical streams; then the hot-swap
@@ -138,8 +157,11 @@ Phases, each of which fails the run (exit code 1, no result line):
              ``naive_gla`` at their shapes; each with finite logits, its
              prefill ms, median decode-step ms, tokens/s, programming s
              and peak memory logged; last
-             the 36-layer serve on one programmed model: eager (its
-             step time, streams equal to the captured serve's), then
+             the 36-layer serve on one model programmed once (the
+             CLI's setup): captured (its step time: the warm-up, the
+             capture and the replays; its launches are the kernels
+             line's), eager (its step time, streams equal to the captured
+             serve's), then
              captured and eager with steps 4 on in a ``torch.profiler``
              trace of the card (step 3 is the profiler's warm-up; a
              serve whose trace lost device records is served and traced
@@ -168,6 +190,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import statistics
 import subprocess
@@ -1065,6 +1088,414 @@ def phase_ir_solve(torch, dev, flush, out_dir):
             "solve_bitwise": True}
 
 
+# -- the physics phase: device physics and the two array modes ----------------
+
+#: qwen3-4b's MLP widths for ``deepnet_mlp``: d_model -> d_ff -> d_model,
+#: twice (four deep-net layers)
+MLP_WIDTHS = (2560, 9728, 2560, 9728, 2560)
+PHYSICS_B = 16
+#: ``matmul_analog(noise=False)`` against ``engine.matmul`` on the same
+#: planes, max |diff| / max |twin| (tests/test_torch_physics.py)
+ANALOG_TWIN_REL = 0.25
+#: outputs of ``matmul_analog`` that an ADC code on either side of a
+#: rounding midpoint may move between the card and the CPU
+ANALOG_FLIP_SHARE = 0.02
+#: the Euler trajectories, card against CPU (tests/test_torch_physics.py)
+STATE_ATOL = 2.0 ** -20
+LOOP_RTOL = 2.0 ** -18
+SOLVE_RTOL = 1e-4     # cuSOLVER's LU against LAPACK's (docs/PORT.md)
+MAC_RTOL = 1e-6       # x max: a float32 v @ G in another order
+
+
+def _close(torch, got, want, rtol, what):
+    _, rel = rel_err(torch, got.cpu(), want.cpu())
+    check(rel <= rtol, f"{what}: card vs CPU rel err {rel:.3e} > {rtol}")
+    return rel
+
+
+def _analog_moved(torch, got, want, x, pw, cfg):
+    """The share of ``matmul_analog`` outputs that differ by more than
+    1e-6 x max|want|, and the largest such difference in ADC codes at the
+    heaviest (pulse, slice) weight (one flipped code at a rounding
+    midpoint moves an output by at most one)."""
+    from repro_torch.core import engine
+
+    code = engine._analog_code_value(x, pw, cfg).cpu()
+    diff = (got.cpu().double() - want.cpu().double()).abs()
+    moved = diff > 1e-6 * want.abs().max().item()
+    worst = float((diff[moved] / code[moved]).max()) if moved.any() else 0.0
+    return float(moved.double().mean()), worst
+
+
+def _paper_array(torch, dev):
+    """(a) The paper's 10 x 10 x 2 array: the mode ops on the card held
+    against the CPU, the bank ops against the pair ops, and C1-C5."""
+    from repro_torch.core import crossbar, ir_drop, modes, pipeline
+    from repro_torch.core import device as dm
+    from repro_torch.core.timing import PAPER
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    g_all = (PAPER.g_reset + (PAPER.g_set - PAPER.g_reset)
+             * torch.rand((3, 10, 10), generator=gen))
+    v_all = torch.rand((2, 10), generator=gen) * PAPER.v_read
+    cfg = modes.StackConfig(10, 10)
+    out = {}
+
+    def both(fn):
+        """``fn(device)`` on the card and on the CPU."""
+        return fn(dev), fn(cpu)
+
+    def pair_on(d):
+        return modes.StackState(g_all[0].to(d), g_all[1].to(d),
+                                torch.tensor(True, device=d))
+
+    i_id, i_id_cpu = both(lambda d: modes.expansion_mac(
+        pair_on(d), v_all[0].to(d), v_all[1].to(d), cfg))
+    i_ir, i_ir_cpu = both(lambda d: modes.expansion_mac_ir(
+        pair_on(d), v_all[0].to(d), v_all[1].to(d), cfg))
+    check(bool((i_ir <= i_id + 1e-12).all())
+          and bool((1.0 - i_ir / i_id < 0.05).all()),
+          "expansion_mac_ir is not within 5% under the ideal expansion_mac")
+    out["expansion_mac_rel"] = _close(torch, i_id, i_id_cpu, MAC_RTOL,
+                                      "expansion_mac")
+    out["expansion_mac_ir_rel"] = _close(torch, i_ir, i_ir_cpu, SOLVE_RTOL,
+                                         "expansion_mac_ir")
+    out["ir_loss_max"] = float((1.0 - i_ir / i_id).max())
+    rd, rd_cpu = both(lambda d: modes.deepnet_read(pair_on(d),
+                                                   v_all[0].to(d), cfg))
+    out["deepnet_read_rel"] = _close(torch, rd, rd_cpu, MAC_RTOL,
+                                     "deepnet_read")
+    leak = rd - modes.deepnet_read(pair_on(dev), v_all[0].to(dev), cfg,
+                                   include_leakage=False)
+    out["deepnet_read_leak_A"] = float(leak.mean())
+
+    # the bank ops, bit for bit the pair ops (tests/test_planebank.py)
+    pair, vt, vb = pair_on(dev), v_all[0].to(dev), v_all[1].to(dev)
+    g_new = g_all[2].to(dev)
+    bank = modes.bank_from_pair(pair)
+    check(torch.equal(modes.bank_read(bank, vt, cfg),
+                      modes.deepnet_read(pair, vt, cfg)),
+          "bank_read at N = 2 differs from deepnet_read")
+    i_pair, pair2 = modes.deepnet_layer(pair, vt, g_new, cfg)
+    i_bank, bank2 = modes.bank_layer(bank, vt, g_new, cfg)
+    check(torch.equal(i_pair, i_bank)
+          and torch.equal(bank2.g[0], pair2.g_top)
+          and torch.equal(bank2.g[1], pair2.g_bot)
+          and bool(bank2.read_idx == torch.logical_not(
+              pair2.read_top).to(torch.int32)),
+          "bank_layer at N = 2 differs from deepnet_layer")
+    check(torch.equal(modes.bank_expansion_mac(bank, vt, vb, cfg),
+                      modes.expansion_mac(pair, vt, vb, cfg))
+          and torch.equal(modes.bank_expansion_mac_ir(bank, vt, vb, cfg),
+                          modes.expansion_mac_ir(pair, vt, vb, cfg)),
+          "the fused pair at N = 2 differs from the expansion ops")
+    g3 = g_all.to(dev)
+    bank3 = modes.BankState(g3, torch.tensor(0, dtype=torch.int32,
+                                             device=dev))
+    for idx in range(3):
+        one = modes.StackState(g3[idx], g3[idx], torch.tensor(True,
+                                                              device=dev))
+        check(torch.equal(
+            modes.bank_read(modes.bank_set_read(bank3, idx), vt, cfg,
+                            include_leakage=False),
+            modes.deepnet_read(one, vt, cfg, include_leakage=False)),
+            f"bank_read of plane {idx} at N = 3")
+    b2 = modes.bank_write_plane(bank3, modes.bank_write_idx(bank3), g_new)
+    check(torch.equal(b2.g[1], g_new) and torch.equal(b2.g[0], g3[0])
+          and torch.equal(b2.g[2], g3[2]),
+          "bank_write_plane at N = 3 touched another plane")
+    b3 = modes.bank_advance(modes.bank_advance(modes.bank_advance(bank3)))
+    check(b3.read_idx.device == g3.device and int(b3.read_idx) == 0,
+          "the N = 3 ring did not come round")
+    lk = [modes.bank_read(bank3, vt, cfg, n_writing=n) for n in (0, 1, 2)]
+    check(torch.allclose(lk[2] - lk[0], 2.0 * (lk[1] - lk[0]), rtol=1e-6),
+          "two writing planes do not leak twice one")
+
+    # C1: 20 inputs, all SET, at V_write (tests/test_core.py:77-91)
+    def c1(d):
+        g = torch.full((20, 20), PAPER.g_set, device=d)
+        v = torch.full((20,), PAPER.v_write, device=d)
+        i_ideal = ir_drop.ideal_currents(
+            crossbar.effective_conductance(g, crossbar.PlaneConfig(20, 20)),
+            v)
+        i_pl, _, _ = ir_drop.solve_planar(g, v)
+        gt = torch.full((10, 20), PAPER.g_set, device=d)
+        vt_ = torch.full((10,), PAPER.v_write, device=d)
+        i_cs, _, _ = ir_drop.solve_crossstack(gt, gt, vt_, vt_)
+        return 1.0 - float(ir_drop.ir_drop_loss(i_cs, i_ideal).mean()
+                           / ir_drop.ir_drop_loss(i_pl, i_ideal).mean())
+
+    c1_card, c1_cpu = both(c1)
+    check(abs(c1_card - 0.22) <= 0.03,
+          f"C1: line-loss reduction {c1_card:.4f} not 0.22 +- 0.03")
+    check(abs(c1_card - c1_cpu) <= 1e-4,
+          f"C1: card {c1_card} vs CPU {c1_cpu}")
+    c2 = pipeline.speedup(200, 10)
+    check(abs(c2 - 0.29) <= 0.01, f"C2: speedup(200, 10) = {c2:.4f}")
+    c3 = float(dm.transistor_leakage(
+        torch.tensor(PAPER.v_write, device=dev),
+        torch.tensor(0.0, device=dev)))
+    check(abs(c3 / 2.5e-12 - 1.0) <= 0.05, f"C3: leakage {c3:.4e} A")
+    c4 = float(crossbar.mac(torch.full((1,), 0.004, device=dev),
+                            torch.full((1, 1), PAPER.g_reset, device=dev),
+                            crossbar.PlaneConfig(1, 1))[0]) * 1e9
+    check(abs(c4 / 39.6 - 1.0) <= 0.01, f"C4: read current {c4:.3f} nA")
+    # C5: the worst read deviation of a 10-cell all-SET column over 200
+    # Monte-Carlo trials, and the bits per cell it leaves
+    cgen = torch.Generator(device=dev).manual_seed(1)
+    g = dm.sample_conductances(cgen, torch.ones((200, 10), device=dev))
+    i_cols = (PAPER.v_read * crossbar.effective_conductance(
+        g, crossbar.PlaneConfig(10, 10))).sum(dim=1)
+    i_nom = PAPER.v_read * 10 / (PAPER.r_set + PAPER.r_on_transistor)
+    worst = float(((i_cols - i_nom).abs() / i_nom).max())
+    c5_bits = float(torch.log2(torch.tensor(1.0 / worst)))
+    out.update(c1=c1_card, c1_cpu=c1_cpu, c2=c2, c3_A=c3, c4_nA=c4,
+               c5_worst_dev=worst, c5_bits_per_cell=c5_bits)
+    log(f"  (a) 10 x 10 x 2: expansion_mac vs CPU "
+        f"{out['expansion_mac_rel']:.2e}, through the nodal solve "
+        f"{out['expansion_mac_ir_rel']:.2e} "
+        f"(IR loss up to {100 * out['ir_loss_max']:.3f}%); deepnet_read "
+        f"{out['deepnet_read_rel']:.2e}, leakage "
+        f"{out['deepnet_read_leak_A'] * 1e12:.2f} pA a column; bank ops at "
+        f"N = 2 and 3 bitwise the pair ops")
+    log(f"  paper: C1 line-loss reduction {c1_card:.4f} (CPU {c1_cpu:.4f}; "
+        f"paper 0.22); C2 speedup(200, 10) {c2:.4f} (0.29); C3 leakage "
+        f"{c3 * 1e12:.4f} pA (2.5); C4 read {c4:.3f} nA (39.6); C5 worst "
+        f"read deviation {100 * worst:.2f}% over 200 trials -> "
+        f"{c5_bits:.2f} bits per cell (paper: 8%, 3.5)")
+    return out
+
+
+def _device_dynamics(torch, dev, pw, cfg):
+    """(b) ``hysteresis_loop`` at its defaults and ``program_verify`` on
+    every cell of ``pw``'s planes (both sides, every slice), each held
+    against the CPU."""
+    import numpy as np
+
+    from repro_torch.core import device as dm
+    from repro_torch.core import quant
+    from repro_torch.core.timing import PAPER
+
+    out = {}
+    t0 = time.perf_counter()
+    v, i, w = dm.hysteresis_loop(device=dev)
+    torch.cuda.synchronize()
+    out["hysteresis_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_c, i_c, w_c = dm.hysteresis_loop(device="cpu")
+    out["hysteresis_cpu_s"] = time.perf_counter() - t0
+    vn, i_n = v.cpu().numpy(), i.cpu().numpy()
+    near0 = np.abs(vn) < 0.01
+    pinch = float(np.abs(i_n[near0]).max() / np.abs(i_n).max())
+    half = len(vn) // 2
+    area = float(abs(np.trapezoid(i_n[half:], vn[half:])))
+    check(pinch < 0.05 and area > 0.0,
+          f"hysteresis loop: pinch {pinch:.3e}, area {area:.3e}")
+    dv = float((v.cpu() - v_c).abs().max())
+    dw = float((w.cpu() - w_c).abs().max())
+    di = float((i.cpu() - i_c).abs().max() / i_c.abs().max())
+    check(dv <= STATE_ATOL and dw <= STATE_ATOL and di <= LOOP_RTOL,
+          f"hysteresis card vs CPU: v {dv:.3e}, w {dw:.3e}, i {di:.3e}")
+    out.update(pinch=pinch, area=area, steps=len(vn), dv=dv, dw=dw, di=di)
+    log(f"  (b) hysteresis_loop, {len(vn)} steps: {out['hysteresis_s']:.2f} "
+        f"s on the card ({out['hysteresis_cpu_s']:.2f} s CPU); pinch "
+        f"{pinch:.2e}, area {area:.3e} V A; card vs CPU: v {dv:.2e}, w "
+        f"{dw:.2e}, i {di:.2e} of max")
+
+    q = cfg.quant
+    codes = torch.stack([pw.pos, pw.neg])          # (2, S, T, R, N)
+    target = quant.slices_to_conductance(codes, q, PAPER.g_reset,
+                                         PAPER.g_set)
+    del codes
+    w0 = torch.rand(target.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    model = dm.MemristorModel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_fin, g_tr = model.program_verify(w0, target, n_pulses=48,
+                                       n_steps=16)
+    torch.cuda.synchronize()
+    out["program_verify_s"] = time.perf_counter() - t0
+    r_fin = 1.0 / model.conductance(w_fin)
+    share = float(((r_fin * target - 1.0).abs() <= 0.25).double().mean())
+    corner = (0, 0, 0, slice(0, 10), slice(0, 10))
+    w_cpu, g_cpu = model.program_verify(w0[corner].cpu(),
+                                        target[corner].cpu(),
+                                        n_pulses=48, n_steps=16)
+    dw_pv = float((w_fin[corner].cpu() - w_cpu).abs().max())
+    dg_pv = float(((g_tr[(slice(None),) + corner].cpu() - g_cpu).abs()
+                   / g_cpu).max())
+    check(dw_pv <= STATE_ATOL and dg_pv <= LOOP_RTOL,
+          f"program_verify card vs CPU at the 10 x 10 corner: w {dw_pv:.3e}"
+          f", g {dg_pv:.3e}")
+    out.update(cells=target.numel(), within_25pct=share, dw_pv=dw_pv,
+               dg_pv=dg_pv, trace_gb=g_tr.numel() * 4 / 1e9)
+    log(f"  (b) program_verify, 48 pulses x 16 steps, on {target.numel():,}"
+        f" cells (wq's planes, both sides): {out['program_verify_s']:.2f} s"
+        f"; {100 * share:.2f}% of cells within 25% of their target "
+        f"resistance; the 10 x 10 corner vs CPU: w {dw_pv:.2e}, g "
+        f"{dg_pv:.2e}")
+    return out
+
+
+def _analog_at_wq(torch, dev, w, pw, cfg):
+    """(c) ``matmul_analog`` at qwen3-4b's wq: noise off against
+    ``engine.matmul`` (the MAC kernel) and against the CPU; noise on from
+    four seeded generators."""
+    from repro_torch.core import engine
+
+    out = {}
+    x = torch.randn((PHYSICS_B, w.shape[0]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    twin = engine.matmul(x, pw, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    analog = engine.matmul_analog(None, x, pw, cfg, noise=False)
+    torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+    pw_cpu = engine.ProgrammedLinear(pw.pos.cpu(), pw.neg.cpu(),
+                                     pw.w_scale.cpu(), pw.k, pw.n)
+    t0 = time.perf_counter()
+    analog_cpu = engine.matmul_analog(None, x.cpu(), pw_cpu, cfg,
+                                      noise=False)
+    out["cpu_s"] = time.perf_counter() - t0
+    _, rel_twin = rel_err(torch, analog, twin)
+    check(rel_twin <= ANALOG_TWIN_REL,
+          f"matmul_analog vs engine.matmul: {rel_twin:.4f} > "
+          f"{ANALOG_TWIN_REL}")
+    share, worst = _analog_moved(torch, analog, analog_cpu, x, pw, cfg)
+    check(share <= ANALOG_FLIP_SHARE and worst <= 2.0,
+          f"matmul_analog card vs CPU: {100 * share:.3f}% of outputs moved"
+          f", up to {worst:.2f} codes")
+    noisy = torch.stack([engine.matmul_analog(
+        torch.Generator(device=dev).manual_seed(k), x, pw, cfg)
+        for k in range(4)])
+    check(bool(torch.isfinite(noisy).all()), "noisy matmul_analog: "
+          "non-finite output")
+    scale = analog.abs().max()
+    spread = float(noisy.std(dim=0).max() / scale)
+    dev_noise = float((noisy - analog).abs().max() / scale)
+    out.update(rel_twin=rel_twin, moved_share=share, moved_codes=worst,
+               noise_spread=spread, noise_dev=dev_noise)
+    log(f"  (c) matmul_analog at wq ({w.shape[0]} x {w.shape[1]}, B "
+        f"{PHYSICS_B}): {out['card_s'] * 1e3:.1f} ms on the card, "
+        f"{out['cpu_s']:.2f} s on the CPU; against engine.matmul "
+        f"{rel_twin:.4f} of max (bound {ANALOG_TWIN_REL}); card vs CPU "
+        f"{100 * share:.3f}% of outputs moved by an ADC midpoint (up to "
+        f"{worst:.2f} codes); noise on, 4 generators: spread {spread:.4f} "
+        f"of max, up to {dev_noise:.4f} from the noiseless read")
+    return out
+
+
+def _deepnet_mlp_at_width(torch, dev):
+    """(d) ``deepnet_mlp`` through the CUDA MAC at qwen3-4b's MLP widths:
+    its launches, bit for bit the exact plain MAC's output, and each
+    layer's programming and MAC time."""
+    from repro_torch.core import engine, pipeline
+
+    cfg = engine.EngineConfig(mode="deepnet", use_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ws = [torch.randn((a, b), device=dev, generator=gen) * 0.02
+          for a, b in zip(MLP_WIDTHS[:-1], MLP_WIDTHS[1:])]
+    x = torch.randn((PHYSICS_B, MLP_WIDTHS[0]), device=dev, generator=gen)
+    _reset_counts()
+    y = pipeline.deepnet_mlp(x, ws, cfg)
+    torch.cuda.synchronize()
+    counted, plain, by_rows = _read_counts()
+    check(counted["crossbar_mac"] == len(ws)
+          and by_rows == {cfg.rows_per_adc: len(ws)}
+          and not any(plain.values()),
+          f"deepnet_mlp launched {counted}, plain {plain}, rows {by_rows}")
+    with _exact_plain_mac(torch):
+        y_exact = pipeline.deepnet_mlp(x, ws, cfg)
+    check(torch.equal(y, y_exact),
+          "deepnet_mlp through the MAC kernel differs from the exact plain "
+          "MAC's")
+    # each layer again, timed: programming (the write) and the MAC (read)
+    prog_s, mac_ms, h = [], [], x
+    for i, w in enumerate(ws):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw = engine.program(w, cfg)
+        torch.cuda.synchronize()
+        prog_s.append(time.perf_counter() - t0)
+        h_in = h
+        h = engine.matmul(h_in, pw, cfg)
+        mac_ms.append(timed(torch, lambda: engine.matmul(h_in, pw, cfg), 5))
+        if i < len(ws) - 1:
+            h = torch.relu(h)
+    check(torch.equal(h, y), "the timed layers differ from deepnet_mlp")
+    overlap = pipeline.streaming_speedup(
+        statistics.mean(mac_ms) / 1e3, statistics.mean(prog_s), len(ws))
+    log(f"  (d) deepnet_mlp {' -> '.join(map(str, MLP_WIDTHS))}, B "
+        f"{PHYSICS_B}, deep-net (128 rows per ADC): {counted['crossbar_mac']}"
+        f" MAC launches, bitwise the exact plain MAC; per layer programming "
+        + ", ".join(f"{s:.4f}" for s in prog_s) + " s, MAC "
+        + ", ".join(f"{m:.3f}" for m in mac_ms)
+        + f" ms; streaming_speedup {overlap:.4f}")
+    return {"launches": counted["crossbar_mac"], "program_s": prog_s,
+            "mac_ms": mac_ms, "streaming_speedup": overlap}
+
+
+def phase_physics(torch, dev):
+    """The device physics and the two array modes on the card, (a)-(e)
+    of the module docstring."""
+    import importlib.util
+
+    from repro_torch.core import engine
+
+    t_phase = time.perf_counter()
+    out = {"paper_array": _paper_array(torch, dev)}
+    cfg = engine.EngineConfig(mode="deepnet", use_kernel=True)
+    k, n = GEOMS[0][1:]
+    w = torch.randn((k, n), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)
+                    ) * 0.02
+    pw = engine.program(w, cfg)
+    out["dynamics"] = _device_dynamics(torch, dev, pw, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["analog"] = _analog_at_wq(torch, dev, w, pw, cfg)
+    del w, pw
+    out["deepnet_mlp"] = _deepnet_mlp_at_width(torch, dev)
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    _reset_counts()
+    qs = quickstart.main(dev)
+    torch.cuda.synchronize()
+    counted, plain, _ = _read_counts()
+    check(counted["crossbar_mac"] == len(qs["outputs"])
+          and not any(plain.values()),
+          f"quickstart launched {counted}, plain {plain}")
+    # every read again through the MAC's exact plain version: the
+    # kernel's outputs at 64-row tiles, 2 x 64-row pairs, a 12-bit ADC and
+    # w_bits 8, 4 and 2, bit for bit
+    with _exact_plain_mac(torch), contextlib.redirect_stdout(io.StringIO()):
+        qs_exact = quickstart.main(dev)
+    differ = [key for key, y in qs["outputs"].items()
+              if not torch.equal(y, qs_exact["outputs"][key])]
+    check(not differ and qs["reads"] == qs_exact["reads"]
+          and qs["executor_rel_err"] == qs_exact["executor_rel_err"],
+          f"quickstart: the kernel's reads {differ} differ from the exact "
+          f"plain MAC's")
+    check(all(0.0 <= e < 1.0 for e in qs["reads"].values())
+          and abs(qs["speedups"][10] - 0.29) <= 0.01,
+          f"quickstart: {qs['reads']}, speedups {qs['speedups']}")
+    log(f"  (e) quickstart: {counted['crossbar_mac']} MAC launches, each "
+        f"read bitwise the exact plain MAC's")
+    out["quickstart"] = {"reads": {f"{m}_{b}": e for (m, b), e in
+                                   qs["reads"].items()},
+                         "executor_rel_err": qs["executor_rel_err"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  physics phase: {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 3: token parity with and without the kernels -------------------------
 
 #: the MAC-toggle probe's first step at fp8: slots x chunk query rows,
@@ -1633,22 +2064,34 @@ def _host_ops_of_one_step(torch, st, at_step=2, top=12):
             "top_ops": ops}
 
 
-def phase_witness(torch, dev, argv, want, out_dir):
+def phase_witness(torch, dev, argv, out_dir):
     """The 36-layer serve of ``argv`` on one model, programmed once: the
-    eager step (``capture=False``) untraced, its streams equal to the
-    captured serve's (``want``); then the captured and the eager serves
-    with steps 4 on in a trace of the card; last, one
-    eager step in a trace with CPU activity on."""
+    captured serve (``phase_serve``: its step times, launches and
+    streams), the eager step (``capture=False``) untraced, its streams
+    equal to the captured serve's; then the captured and the eager serves
+    with steps 4 on in a trace of the card; last, one eager step in a
+    trace with CPU activity on.  Returns the captured serve's report with
+    the rest under ``witness``."""
     from repro_torch.launch import serve
 
     gc.collect()
     torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated(dev) < 1 << 30,
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+          f"allocated before the 36-layer serve")
     st = serve.setup(argv)
     t0 = time.perf_counter()
-    sched = st.scheduler(capture=False)
+    st.model.executor.program_params(st.params)
     torch.cuda.synchronize()
     program_s = time.perf_counter() - t0
+    log(f"  programming {program_s:.2f} s")
+    sv = phase_serve(torch, dev, argv,
+                     ["crossbar_mac", "paged_attention_scratch"],
+                     rows_per_adc=[128], run=lambda: _drive(st, dev))
+    sv["program_s"] = program_s
+    want = sv["streams"]
     _reset_counts()
+    sched = st.scheduler(capture=False)
     rep = serve.drive(sched, st.requests(), dev)
     _check_traced_once(sched.capture_report(), False)
     del sched
@@ -1660,17 +2103,17 @@ def phase_witness(torch, dev, argv, want, out_dir):
         f" {rep['steps']} steps, {rep['seconds']:.2f} s; step "
         f"{stats['step_ms']:.2f} ms, median after the first two "
         f"{stats['later_step_ms']:.2f} ms); streams equal the captured "
-        f"serve's; programming {program_s:.2f} s")
+        f"serve's")
     out = {"eager": {"tok_per_s": rep["tok_per_s"], "steps": rep["steps"],
-                     "seconds": rep["seconds"], **stats,
-                     "program_s": program_s}}
+                     "seconds": rep["seconds"], **stats}}
     # the traces slow the host for what follows them: untraced first
     for name, capture in (("trace_captured", True), ("trace_eager", False)):
         out[name] = _serve_in_trace(torch, st, capture, out_dir)
         check(out[name]["streams"] == want,
               f"{name}: streams differ from the captured serve's")
     out["host_ops"] = _host_ops_of_one_step(torch, st)
-    return out
+    sv["witness"] = out
+    return sv
 
 
 def check_mode_report(rep):
@@ -3005,6 +3448,11 @@ def main() -> int:
         report["ir_solve"] = phase_ir_solve(torch, dev, flush, out_dir)
         del flush
         torch.cuda.empty_cache()
+        phase = "physics"
+        log("  physics: the paper's 10 x 10 x 2 array, the device dynamics "
+            "at wq's cell count, matmul_analog at wq, deepnet_mlp at the "
+            "MLP widths, the quickstart")
+        report["physics"] = phase_physics(torch, dev)
 
         log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "parity"
@@ -3026,19 +3474,8 @@ def main() -> int:
         log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "serve"
         log(f"[4/4] serve {ARCH} at full width through launch/serve.py "
-            f"(window step captured)")
+            f"(window step captured), the 36-layer serve last")
         main_argv = _serve_argv(ARCH)
-        report["serve"] = phase_serve(
-            torch, dev, main_argv,
-            ["crossbar_mac", "paged_attention_scratch"], rows_per_adc=[128])
-        sv = report["serve"]
-        mac_est, mac_per_step = mac_step_ms(mac_rows)
-        sv["mac_launches_per_step"] = sv["launches"]["crossbar_mac"] / \
-            sv["steps"]
-        log(f"  the MAC's {mac_per_step} launches per step (run "
-            f"{sv['mac_launches_per_step']:.1f}) would take {mac_est:.2f} ms "
-            f"of device time at phase 2's per-geometry times (an estimate; "
-            f"the traces below measure it)")
         log("  --mode-policy auto (attention and head expansion-fused)")
         report["serve_auto"] = phase_serve(
             torch, dev, main_argv + ["--mode-policy", "auto"],
@@ -3102,11 +3539,18 @@ def main() -> int:
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
         # outlives it), so none of the timed CLI serves follows one
-        log("  the main serve on one programmed model: eager (the "
-            "witness), then captured and eager in a torch.profiler trace "
-            "of the card, then one eager step with CPU activity traced")
-        sv["witness"] = phase_witness(torch, dev, main_argv, sv["streams"],
-                                      out_dir)
+        log("  the main serve on one programmed model: captured (the "
+            "serve's step time and launches), eager (the witness), then "
+            "captured and eager in a torch.profiler trace of the card, then "
+            "one eager step with CPU activity traced")
+        report["serve"] = sv = phase_witness(torch, dev, main_argv, out_dir)
+        mac_est, mac_per_step = mac_step_ms(mac_rows)
+        sv["mac_launches_per_step"] = sv["launches"]["crossbar_mac"] / \
+            sv["steps"]
+        log(f"  the MAC's {mac_per_step} launches per step (run "
+            f"{sv['mac_launches_per_step']:.1f}) would take {mac_est:.2f} ms "
+            f"of device time at phase 2's per-geometry times (an estimate; "
+            f"the traces measure it)")
         tc = sv["witness"]["trace_captured"]
         te = sv["witness"]["trace_eager"]
         ev = sv["witness"]["eager"]
@@ -3151,6 +3595,8 @@ def main() -> int:
          "library_ms": None, "shape": f"B=16 K={head['k']} N={head['n']}",
          "swap_serve_launches": swap_l["crossbar_mac"],
          "mux_serve_launches": mux_l["crossbar_mac"],
+         "deepnet_mlp_launches": report["physics"]["deepnet_mlp"][
+             "launches"],
          "b64_ms": head64["ms"], "b64_device_ms": head64["device_ms"],
          "b64_bound_ms": head64["bound_ms"],
          "step_device_ms": witness["trace_captured"][

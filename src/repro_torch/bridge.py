@@ -9,7 +9,9 @@ program and compute from identical weights.  bfloat16 and
 float8_e4m3fn arrays (numpy's ``ml_dtypes`` extension types, which this
 module does not import) arrive bit for bit: they cross as their raw
 bytes.  ``torch_dtype`` maps a reference dtype (``jnp.float8_e4m3fn``,
-by its numpy name) to the port's.
+by its numpy name) to the port's.  ``mode_state_from_numpy`` carries a
+reference ``modes.StackState`` or ``BankState`` (as ``jax.device_get``
+returns it) into the port's, planes, selector and index alike.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import modes
 from repro_torch.device import DeviceLike, resolve_device
 
 #: numpy dtype names of the reference's float types -> torch dtypes
@@ -52,3 +55,18 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Any:
         return _tensor(np.asarray(node), dev)
 
     return conv(tree)
+
+
+def mode_state_from_numpy(state: Any, device: DeviceLike = None):
+    """A reference ``StackState`` (``g_top``, ``g_bot``, ``read_top``) or
+    ``BankState`` (``g``, ``read_idx``) of numpy arrays -> the port's on
+    ``device`` (CUDA by default): float32 planes, a 0-d bool
+    ``read_top``, a 0-d int32 ``read_idx``."""
+    dev = resolve_device(device)
+    if hasattr(state, "g_top"):
+        return modes.StackState(
+            _tensor(state.g_top, dev), _tensor(state.g_bot, dev),
+            _tensor(np.asarray(state.read_top, dtype=np.bool_), dev))
+    return modes.BankState(
+        _tensor(state.g, dev),
+        _tensor(np.asarray(state.read_idx, dtype=np.int32), dev))

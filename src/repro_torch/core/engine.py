@@ -15,22 +15,28 @@ bit-exact crossbar arithmetic:
 
 ``matmul`` dispatches to the CUDA crossbar-MAC kernel when
 ``cfg.use_kernel`` (``kernels/crossbar_mac``) and to the plain reference
-otherwise.  The analog (conductance-domain) path of the reference is
-not ported yet.
+otherwise.  ``matmul_analog`` runs the same programmed planes in the
+conductance domain (device variability, access-transistor R, first-order
+IR attenuation) for fidelity studies; its products are float32 einsums,
+so a fidelity study on the card wants
+``torch.backends.cuda.matmul.allow_tf32 = False`` (docs/PORT.md).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections.abc import Mapping
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import obs
-from repro_torch.core import quant
+from repro_torch.core import device as memristor
+from repro_torch.core import ir_drop, quant
 from repro_torch.core.device import DeviceConfig
 from repro_torch.core.quant import QuantConfig, true_div
 from repro_torch.core.timing import PAPER, CrossStackParams
+from repro_torch.kernels.crossbar_mac import ref as cb_ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,10 +198,15 @@ def _pulse_trains(x: torch.Tensor, pw: ProgrammedLinear,
 
 def matmul_reference(x: torch.Tensor, pw: ProgrammedLinear,
                      cfg: EngineConfig, leak_codes=0.0) -> torch.Tensor:
-    """Loop reference: one (pulse, slice) step at a time, ADC fused — the
-    order of the reference's ``lax.scan``, so peak memory stays
-    O(B * T * N).  ``leak_codes`` is added to BOTH differential columns
-    before each ADC conversion."""
+    """Loop reference: one pulse at a time against a group of cell planes
+    (``kernels/crossbar_mac/ref.slice_group_sums``), ADC fused; peak
+    memory stays O(group * B * T * N).  ``leak_codes`` is added to BOTH
+    differential columns before each ADC conversion.
+
+    The pre-ADC sums are exact integers, so reading a group of slices in
+    one product changes no bit: each slice's codes, and the float32
+    shift-add over (pulse, slice) in the order of the reference's
+    ``lax.scan``, are those of a slice-by-slice loop."""
     _count_dispatch("reference", pw)
     q = cfg.quant
     lead = x.shape[:-1]
@@ -207,22 +218,25 @@ def matmul_reference(x: torch.Tensor, pw: ProgrammedLinear,
     bsz = bits.shape[1]
     pair = cfg.mode == "expansion" and t % 2 == 0 and t >= 2
 
-    y_acc = torch.zeros((bsz, n_pad), dtype=torch.float32, device=dev)
-    for idx in range(bits.shape[0] * s):
-        a, sl = idx // s, idx % s
-        xa = bits[a]
-        p_s = pw.pos[sl].to(torch.float32)
-        n_s = pw.neg[sl].to(torch.float32)
-        # analog column sums of ONE pulse against ONE cell plane: (B, T, N)
-        acc_p = torch.einsum("btr,trn->btn", xa, p_s)
-        acc_n = torch.einsum("btr,trn->btn", xa, n_s)
+    sums = torch.empty((bits.shape[0], s, bsz, n_pad), dtype=torch.float32,
+                       device=dev)
+    for s0, a, acc_p, acc_n in cb_ref.slice_group_sums(bits, pw.pos,
+                                                        pw.neg):
+        g = acc_p.shape[0]
         if pair:
-            # adjacent row-tiles stacked on the two planes: analog sum first
-            acc_p = acc_p.reshape(bsz, t // 2, 2, n_pad).sum(dim=2)
-            acc_n = acc_n.reshape(bsz, t // 2, 2, n_pad).sum(dim=2)
+            # adjacent row-tiles stacked on the two planes: analog sum
+            # first
+            acc_p = acc_p.reshape(g, bsz, t // 2, 2, n_pad).sum(dim=3)
+            acc_n = acc_n.reshape(g, bsz, t // 2, 2, n_pad).sum(dim=3)
         d = (_adc_codes(acc_p + leak_codes, cfg)
              - _adc_codes(acc_n + leak_codes, cfg))
-        y_acc = y_acc + bitw[a] * slcw[sl] * d.sum(dim=1)
+        for j in range(g):
+            sums[a, s0 + j] = d[j].sum(dim=1)
+    # the float32 shift-add in the (pulse, slice) order of the scan
+    y_acc = torch.zeros((bsz, n_pad), dtype=torch.float32, device=dev)
+    for a in range(bits.shape[0]):
+        for sl in range(s):
+            y_acc = y_acc + bitw[a] * slcw[sl] * sums[a, sl]
     y = y_acc * x_scale * pw.w_scale[..., :n_pad]
     return y[:, : pw.n].reshape(*lead, pw.n)
 
@@ -259,3 +273,108 @@ def linear(x: torch.Tensor, w: torch.Tensor, cfg: EngineConfig
     """Program-and-run convenience op (QAT / fidelity studies);
     differentiable through the straight-through quantizers."""
     return matmul(x, program(w, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Analog execution (conductance domain, non-idealities)
+# ---------------------------------------------------------------------------
+
+def _analog_adc_scales(cfg: EngineConfig) -> tuple[float, float]:
+    """``matmul_analog``'s ADC LSB (A) and its ADC codes per cell code.
+
+    Full scale is every summed cell at G_set, V_read.  The differential
+    subtraction cancels the common g_reset pedestal, so one cell-code
+    step is the *spacing* conductance."""
+    p, q = cfg.params, cfg.quant
+    g_fs = 1.0 / (p.r_set + p.r_on_transistor)
+    i_fs = cfg.rows_per_adc * p.v_read * g_fs
+    lsb = i_fs / (2.0 ** q.adc_bits - 1.0)
+    base = 2 ** q.bits_per_cell
+    g_step = (1.0 / (1.0 / p.g_set + p.r_on_transistor)
+              - 1.0 / (1.0 / p.g_reset + p.r_on_transistor)) / (base - 1)
+    return lsb, (p.v_read * g_step) / lsb
+
+
+def _analog_code_value(x: torch.Tensor, pw: ProgrammedLinear,
+                       cfg: EngineConfig) -> torch.Tensor:
+    """How far one ADC code at the heaviest (pulse, slice) weight moves
+    each output of ``matmul_analog(x, pw, cfg)``, (B, N) float64: the
+    most that one code flipped at a rounding midpoint can move it."""
+    q = cfg.quant
+    _, x_scale = quant.quantize_inputs(x.reshape(-1, x.shape[-1]), q)
+    heaviest = 2.0 ** (q.in_bits - 1) * (2 ** q.bits_per_cell) ** (
+        q.n_slices - 1)
+    per_code = heaviest / _analog_adc_scales(cfg)[1]
+    return (per_code * x_scale.double()
+            * pw.w_scale[..., :pw.n].double().to(x_scale.device))
+
+
+def matmul_analog(generator: Optional[torch.Generator], x: torch.Tensor,
+                  pw: ProgrammedLinear, cfg: EngineConfig,
+                  noise: bool = True, ir_comp: bool = False
+                  ) -> torch.Tensor:
+    """Conductance-domain execution with Table-I non-idealities.
+
+    Each (slice, row-tile) is a physical plane pair; cell codes map to
+    conductances in [g_reset, g_set]; inputs map to read voltages; column
+    currents pass a current-domain ADC.  ``noise`` draws the Table-I
+    variability from ``generator`` (on ``x``'s device); ``ir_comp``
+    applies the first-order column attenuation of a nominal all-SET tile,
+    a dense nodal solve of one (tile_rows, N_pad) plane.  Meant for small
+    fidelity studies (the digital twin is the production path).
+    """
+    p = cfg.params
+    q = cfg.quant
+    lead = x.shape[:-1]
+    dev = x.device
+    bits, x_scale = _pulse_trains(x, pw, cfg)           # (b, B, T, R)
+    s, t, r, n_pad = pw.pos.shape
+    v_pulses = bits * p.v_read                           # 0 / V_read drives
+
+    g_pos = quant.slices_to_conductance(pw.pos, q, p.g_reset, p.g_set)
+    g_neg = quant.slices_to_conductance(pw.neg, q, p.g_reset, p.g_set)
+    if noise:
+        if generator is None:
+            raise ValueError("matmul_analog(noise=True) needs a generator")
+        span = p.g_set - p.g_reset
+        tol = p.r_set_tol - p.r_reset_tol
+        sig_p = p.r_reset_tol + tol * true_div(g_pos - p.g_reset, span)
+        sig_n = p.r_reset_tol + tol * true_div(g_neg - p.g_reset, span)
+        z_p = memristor._normal(generator, g_pos.shape, dev)
+        z_n = memristor._normal(generator, g_neg.shape, dev)
+        g_pos = g_pos * (1.0 + sig_p * z_p)
+        g_neg = g_neg * (1.0 + sig_n * z_n)
+
+    # access transistor in series
+    g_pos = torch.reciprocal(torch.reciprocal(g_pos) + p.r_on_transistor)
+    g_neg = torch.reciprocal(torch.reciprocal(g_neg) + p.r_on_transistor)
+
+    i_p = torch.einsum("abtr,strn->asbtn", v_pulses, g_pos)
+    i_n = torch.einsum("abtr,strn->asbtn", v_pulses, g_neg)
+
+    if ir_comp:
+        # first-order column attenuation for a nominal all-SET tile
+        g_nom = torch.full((r, n_pad), p.g_set, dtype=torch.float32,
+                           device=dev)
+        v_nom = torch.full((r,), p.v_read, dtype=torch.float32, device=dev)
+        atten = ir_drop.attenuation_map(g_nom, v_nom, p.r_wire)
+        i_p = i_p * atten
+        i_n = i_n * atten
+
+    if cfg.mode == "expansion" and t % 2 == 0 and t >= 2:
+        i_p = i_p.reshape(*i_p.shape[:3], t // 2, 2, n_pad).sum(dim=4)
+        i_n = i_n.reshape(*i_n.shape[:3], t // 2, 2, n_pad).sum(dim=4)
+
+    # current-domain ADC: full scale = every summed cell at G_set, V_read
+    levels = 2.0 ** q.adc_bits - 1.0
+    lsb, adc_codes_per_cell_code = _analog_adc_scales(cfg)
+    i_p = torch.clamp(torch.round(true_div(i_p, lsb)), 0.0, levels)
+    i_n = torch.clamp(torch.round(true_div(i_n, lsb)), 0.0, levels)
+
+    # ADC codes back to cell-code units for the shift-add
+    y_codes = true_div(i_p - i_n, adc_codes_per_cell_code)
+    bitw = quant.bit_weights(q, dev)
+    slcw = quant.slice_weights(q, dev)
+    y_int = torch.einsum("asbtn,a,s->bn", y_codes, bitw, slcw)
+    y = y_int * x_scale * pw.w_scale[..., :n_pad]
+    return y[:, : pw.n].reshape(*lead, pw.n)

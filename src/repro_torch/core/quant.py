@@ -8,7 +8,9 @@ equal to the reference's on the same float inputs.
 
 * weights  -> symmetric int, split into differential (+/-) cell planes,
 * inputs   -> two's-complement bit-serial pulse trains,
-* read-out -> per-column ADC with saturation, then signed shift-add.
+* read-out -> per-column ADC with saturation, then signed shift-add,
+* cell codes -> device conductances (``slices_to_conductance``) for the
+  conductance-domain path.
 
 Divisions by a Python number go through :func:`true_div`: on CUDA,
 ``tensor / python_float`` multiplies by the reciprocal, which is not the
@@ -115,6 +117,16 @@ def to_slices(w_int: torch.Tensor, cfg: QuantConfig,
     return planes[0], planes[1]
 
 
+def slices_to_conductance(slices: torch.Tensor, cfg: QuantConfig,
+                          g_reset: float, g_set: float) -> torch.Tensor:
+    """Map cell codes [0, levels-1] to device conductances [g_reset,
+    g_set]: linear conductance spacing (single-bit cells hit exactly
+    {g_reset, g_set})."""
+    levels = 2 ** cfg.bits_per_cell
+    frac = true_div(slices.to(torch.float32), levels - 1)
+    return g_reset + frac * (g_set - g_reset)
+
+
 # -- inputs -------------------------------------------------------------------
 
 def quantize_inputs(x: torch.Tensor, cfg: QuantConfig
@@ -158,3 +170,15 @@ def slice_weights(cfg: QuantConfig, device=None) -> torch.Tensor:
     base = 2 ** cfg.bits_per_cell
     return _constant(tuple(float(base ** s) for s in range(cfg.n_slices)),
                      torch.device(device or "cpu"))
+
+
+# -- ADC ----------------------------------------------------------------------
+
+def adc(i_col: torch.Tensor, cfg: QuantConfig, i_full_scale: float
+        ) -> torch.Tensor:
+    """Uniform ADC with saturation: current -> dequantized level, STE
+    gradient.  ``i_full_scale`` is the column full-scale current
+    (tile_rows * max cell current); codes occupy [0, 2^adc_bits - 1]."""
+    levels = 2.0 ** cfg.adc_bits - 1.0
+    x = torch.clamp(true_div(i_col, i_full_scale), 0.0, 1.0) * levels
+    return true_div(ste_round(x), levels) * i_full_scale

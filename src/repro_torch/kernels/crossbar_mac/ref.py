@@ -63,6 +63,55 @@ def adc(acc: torch.Tensor, adc_bits: int, full_scale: float) -> torch.Tensor:
                              dtype=acc.dtype, device=acc.device)
 
 
+#: float32 bytes of one differential side's cell planes that a plain MAC
+#: converts and reads at once: a pulse meets this many slices in one
+#: product
+PLANE_GROUP_BYTES = 1 << 28
+
+
+def slice_group_sums(pulses: torch.Tensor, pos: torch.Tensor,
+                     neg: torch.Tensor):
+    """The pre-ADC column sums of every pulse against every cell plane,
+    a group of slices at a time: the one product of both plain MACs.
+
+    ``pulses`` (P, B, T, R) float32 0/1 bit-planes; ``pos``/``neg`` (S,
+    T, R, N) cell codes.  Yields ``(s0, a, acc_p, acc_n)``: pulse ``a``
+    against slices ``s0 .. s0 + G - 1``, each (G, B, T, N) float32.  A
+    group holds as many slices as ``PLANE_GROUP_BYTES`` of float32 planes
+    a side allows and is converted once; groups run outermost, so the
+    caller reorders what the (pulse, slice) order needs.  The sums are
+    integers <= R * (base - 1), exact in f32 in any order, so each
+    slice's sums are those of one product per slice; and each slice's
+    (B, T, N) block is laid out T-major, as a slice's einsum lays it
+    out, so a float sum over T that follows runs in the same order."""
+    s, t, r, n = pos.shape
+    group = max(1, min(s, PLANE_GROUP_BYTES // (4 * t * r * n)))
+    xs = pulses.transpose(1, 2)                          # (P, T, B, R)
+    for s0 in range(0, s, group):
+        posf = pos[s0:s0 + group].to(torch.float32)
+        negf = neg[s0:s0 + group].to(torch.float32)
+        for a in range(xs.shape[0]):
+            yield (s0, a, torch.matmul(xs[a], posf).transpose(1, 2),
+                   torch.matmul(xs[a], negf).transpose(1, 2))
+
+
+def _bit_planes(x_int, pos, neg, in_bits: int, rows_per_adc: int):
+    """``x_int``'s two's-complement bit-planes, LSB first, as (P, B, T,
+    R) float32, with ``pos`` and ``neg`` viewed as (S, T, R, N)."""
+    s, kr, n = pos.shape
+    b, t = x_int.shape[0], kr // rows_per_adc
+    u = torch.remainder(x_int.to(torch.int32) + (1 << in_bits), 1 << in_bits)
+    u = u.reshape(b, t, rows_per_adc)
+    pulses = torch.stack([((u >> p) & 1).to(torch.float32)
+                          for p in range(in_bits)])
+    return (pulses, pos.reshape(s, t, rows_per_adc, n),
+            neg.reshape(s, t, rows_per_adc, n))
+
+
+def _bit_weight(p: int, in_bits: int) -> int:
+    return 2 ** p if p < in_bits - 1 else -(2 ** p)
+
+
 def crossbar_mac_codes_ref(x_int, pos, neg, *, in_bits: int, adc_bits: int,
                            bits_per_cell: int, rows_per_adc: int,
                            full_scale_rows: Optional[int] = None,
@@ -75,7 +124,6 @@ def crossbar_mac_codes_ref(x_int, pos, neg, *, in_bits: int, adc_bits: int,
     if kr % rows_per_adc:
         raise ValueError(f"{kr} rows are not a multiple of rows_per_adc "
                          f"{rows_per_adc}")
-    t = kr // rows_per_adc
     base = 2 ** bits_per_cell
     if full_scale_rows is None:
         full_scale_rows = rows_per_adc
@@ -83,21 +131,15 @@ def crossbar_mac_codes_ref(x_int, pos, neg, *, in_bits: int, adc_bits: int,
     dev = x_int.device
     leak = torch.as_tensor(leak_codes, dtype=torch.float32).to(dev)
 
-    u = torch.remainder(x_int.to(torch.int32) + (1 << in_bits), 1 << in_bits)
-    u = u.reshape(b, t, rows_per_adc)
-    # pre-ADC sums are integers <= 256 * 3: exact in f32 in any order
-    posf = pos.to(torch.float32).reshape(s, t, rows_per_adc, n)
-    negf = neg.to(torch.float32).reshape(s, t, rows_per_adc, n)
     out = torch.zeros((b, n), dtype=torch.int64, device=dev)
-    for p in range(in_bits):
-        bitw = 2 ** p if p < in_bits - 1 else -(2 ** p)
-        xb = ((u >> p) & 1).to(torch.float32)             # (B, T, R)
-        for si in range(s):
-            ap = torch.einsum("btr,trn->btn", xb, posf[si])
-            an = torch.einsum("btr,trn->btn", xb, negf[si])
-            d = (adc_codes(ap + leak, adc_bits, full_scale)
-                 - adc_codes(an + leak, adc_bits, full_scale))
-            out += (bitw * base ** si) * d.sum(dim=1)
+    # exact integers: any order of the (pulse, slice) sum will do
+    for s0, p, ap, an in slice_group_sums(
+            *_bit_planes(x_int, pos, neg, in_bits, rows_per_adc)):
+        d = (adc_codes(ap + leak, adc_bits, full_scale)
+             - adc_codes(an + leak, adc_bits, full_scale))
+        for j in range(d.shape[0]):
+            out += (_bit_weight(p, in_bits) * base ** (s0 + j)
+                    * d[j].sum(dim=1))
     return out
 
 
@@ -120,7 +162,6 @@ def crossbar_mac_ref(x_int, pos, neg, *, in_bits: int, adc_bits: int,
     if kr % rows_per_adc:
         raise ValueError(f"{kr} rows are not a multiple of rows_per_adc "
                          f"{rows_per_adc}")
-    t = kr // rows_per_adc
     base = 2 ** bits_per_cell
     if full_scale_rows is None:
         full_scale_rows = rows_per_adc
@@ -128,20 +169,17 @@ def crossbar_mac_ref(x_int, pos, neg, *, in_bits: int, adc_bits: int,
     dev = x_int.device
     leak = torch.as_tensor(leak_codes, dtype=torch.float32).to(dev)
 
-    u = torch.remainder(x_int.to(torch.int32) + (1 << in_bits), 1 << in_bits)
-    u = u.reshape(b, t, rows_per_adc)
-    posf = pos.to(torch.float32).reshape(s, t, rows_per_adc, n)
-    negf = neg.to(torch.float32).reshape(s, t, rows_per_adc, n)
-
+    sums = torch.empty((in_bits, s, b, n), dtype=torch.float32, device=dev)
+    for s0, p, ap, an in slice_group_sums(
+            *_bit_planes(x_int, pos, neg, in_bits, rows_per_adc)):
+        d = (adc(ap + leak, adc_bits, full_scale)
+             - adc(an + leak, adc_bits, full_scale))
+        for j in range(d.shape[0]):
+            sums[p, s0 + j] = d[j].sum(dim=1)
+    # the float32 shift-add in the (pulse, slice) order of the scan
     out = torch.zeros((b, n), dtype=torch.float32, device=dev)
     for p in range(in_bits):
-        bitw = float(2 ** p) if p < in_bits - 1 else -float(2 ** p)
-        xb = ((u >> p) & 1).to(torch.float32)             # (B, T, R)
         for si in range(s):
-            slcw = float(base ** si)
-            ap = torch.einsum("btr,trn->btn", xb, posf[si])
-            an = torch.einsum("btr,trn->btn", xb, negf[si])
-            d = (adc(ap + leak, adc_bits, full_scale)
-                 - adc(an + leak, adc_bits, full_scale))
-            out = out + bitw * slcw * d.sum(dim=1)
+            out = out + (float(_bit_weight(p, in_bits)) * float(base ** si)
+                         * sums[p, si])
     return out

@@ -197,3 +197,109 @@ def test_kernel_wrapper_counts_only_kernel_launches():
                          bits_per_cell=1, rows_per_adc=16)
     # a CPU tensor runs the plain version: no kernel launch is counted
     assert tkernel.LAUNCHES["crossbar_mac"] == before
+
+
+def _slice_loop_matmul(x, pw, cfg, leak_codes):
+    """``engine.matmul_reference`` as one (pulse, slice) product at a
+    time, the reference scan's own step: the oracle of the grouped
+    reads."""
+    q = cfg.quant
+    bits, x_scale = teng._pulse_trains(x, pw, cfg)
+    bitw, slcw = tq.bit_weights(q, x.device), tq.slice_weights(q, x.device)
+    s, t, r, n_pad = pw.pos.shape
+    bsz = bits.shape[1]
+    pair = cfg.mode == "expansion" and t % 2 == 0 and t >= 2
+    y_acc = torch.zeros((bsz, n_pad), dtype=torch.float32)
+    for idx in range(bits.shape[0] * s):
+        a, sl = idx // s, idx % s
+        acc_p = torch.einsum("btr,trn->btn", bits[a],
+                             pw.pos[sl].to(torch.float32))
+        acc_n = torch.einsum("btr,trn->btn", bits[a],
+                             pw.neg[sl].to(torch.float32))
+        if pair:
+            acc_p = acc_p.reshape(bsz, t // 2, 2, n_pad).sum(dim=2)
+            acc_n = acc_n.reshape(bsz, t // 2, 2, n_pad).sum(dim=2)
+        d = (teng._adc_codes(acc_p + leak_codes, cfg)
+             - teng._adc_codes(acc_n + leak_codes, cfg))
+        y_acc = y_acc + bitw[a] * slcw[sl] * d.sum(dim=1)
+    y = y_acc * x_scale * pw.w_scale[..., :n_pad]
+    return y[:, : pw.n]
+
+
+def _slice_loop_mac(x_int, pos, neg, *, in_bits, adc_bits, bits_per_cell,
+                    rows_per_adc, leak_codes, codes):
+    """``crossbar_mac_ref`` (or, with ``codes``, ``crossbar_mac_codes_ref``)
+    as one (bit, slice) product at a time: the oracle of the grouped
+    reads."""
+    cref = tkernel.ref
+    s, kr, n = pos.shape
+    b, t = x_int.shape[0], kr // rows_per_adc
+    base = 2 ** bits_per_cell
+    full_scale = float(rows_per_adc * (base - 1))
+    leak = torch.as_tensor(leak_codes, dtype=torch.float32)
+    u = torch.remainder(x_int + (1 << in_bits), 1 << in_bits)
+    u = u.reshape(b, t, rows_per_adc)
+    posf = pos.to(torch.float32).reshape(s, t, rows_per_adc, n)
+    negf = neg.to(torch.float32).reshape(s, t, rows_per_adc, n)
+    out = torch.zeros((b, n), dtype=torch.int64 if codes else torch.float32)
+    conv = cref.adc_codes if codes else cref.adc
+    for p in range(in_bits):
+        bitw = 2 ** p if p < in_bits - 1 else -(2 ** p)
+        xb = ((u >> p) & 1).to(torch.float32)
+        for si in range(s):
+            ap = torch.einsum("btr,trn->btn", xb, posf[si])
+            an = torch.einsum("btr,trn->btn", xb, negf[si])
+            d = (conv(ap + leak, adc_bits, full_scale)
+                 - conv(an + leak, adc_bits, full_scale))
+            if codes:
+                out += (bitw * base ** si) * d.sum(dim=1)
+            else:
+                out = out + float(bitw) * float(base ** si) * d.sum(dim=1)
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 2, None])
+@pytest.mark.parametrize("mode,k,n,tile_rows,w_bits,bpc", [
+    ("deepnet", 80, 40, 16, 5, 2), ("expansion", 80, 40, 16, 7, 2),
+    ("expansion", 48, 70, 16, 4, 1), ("deepnet", 100, 24, 32, 8, 2)])
+def test_plain_mac_reads_slice_groups_bit_for_bit(mode, k, n, tile_rows,
+                                                  w_bits, bpc, group,
+                                                  monkeypatch):
+    """``matmul_reference`` reads a pulse against a group of slices at
+    once (``ref.slice_group_sums``, ``group`` slices a product, None for
+    all); one slice per product, the reference scan's own step, gives the
+    same bits.  The (48, 16) case has three row tiles: no pairs."""
+    rng = np.random.default_rng(21 + k + n)
+    cfg = teng.EngineConfig(tile_rows=tile_rows, tile_cols=32, mode=mode,
+                            quant=tq.QuantConfig(w_bits=w_bits, adc_bits=6,
+                                                 bits_per_cell=bpc))
+    pw = teng.program(torch.from_numpy(
+        (rng.standard_normal((k, n)) * 0.3).astype(np.float32)), cfg)
+    x = torch.from_numpy(rng.standard_normal((3, k)).astype(np.float32))
+    s, t, r, n_pad = pw.pos.shape
+    if group is not None:
+        assert s > group
+        monkeypatch.setattr(tkernel.ref, "PLANE_GROUP_BYTES",
+                            group * 4 * t * r * n_pad)
+    assert torch.equal(teng.matmul_reference(x, pw, cfg, leak_codes=0.37),
+                       _slice_loop_matmul(x, pw, cfg, 0.37))
+
+
+@pytest.mark.parametrize("group", [1, 3, None])
+@pytest.mark.parametrize("codes", [False, True])
+def test_plain_mac_ref_reads_slice_groups_bit_for_bit(codes, group,
+                                                      monkeypatch):
+    """``crossbar_mac_ref`` and ``crossbar_mac_codes_ref`` read a bit
+    against a group of slices at once; one slice per product gives the
+    same bits (S 4, in groups of 1, of 3 and 1, and all at once)."""
+    x, pos, neg = (torch.from_numpy(a) for a in _operands(5, 6, 96, 40, 4,
+                                                          2))
+    kw = dict(in_bits=8, adc_bits=6, bits_per_cell=2, rows_per_adc=32)
+    if group is not None:
+        monkeypatch.setattr(tkernel.ref, "PLANE_GROUP_BYTES",
+                            group * 4 * 96 * 40)
+    fn = (tkernel.ref.crossbar_mac_codes_ref if codes
+          else tkernel.ref.crossbar_mac_ref)
+    assert torch.equal(fn(x, pos, neg, leak_codes=0.37, **kw),
+                       _slice_loop_mac(x, pos, neg, leak_codes=0.37,
+                                       codes=codes, **kw))

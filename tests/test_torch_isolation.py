@@ -1,7 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``, nor
-``ml_dtypes`` (the card machine has none: fp8 and bf16 arrays cross from
-numpy as raw bytes)."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) import neither JAX nor
+anything of the reference package ``repro``, nor ``ml_dtypes`` (the card
+machine has none: fp8 and bf16 arrays cross from numpy as raw bytes)."""
 import ast
 import pathlib
 import subprocess
@@ -13,7 +13,7 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imports(path):
