@@ -156,7 +156,24 @@ Phases, each of which fails the run (exit code 1, no result line):
              prompts, 32 new), digital, ``chunked_gla`` held against
              ``naive_gla`` at their shapes; each with finite logits, its
              prefill ms, median decode-step ms, tokens/s, programming s
-             and peak memory logged; last
+             and peak memory logged; then the training slice
+             (``phase_train``): (1) ``launch/train.py``'s ``main`` on
+             qwen3-4b FULL at 8 of 36 layers (``TRAIN_ARGV``: bf16
+             compute over float32 masters, 4 x 512 tokens in 2
+             microbatches, 12 steps), every loss and grad norm finite
+             and the last loss below the first (the median step ms of
+             steps 3-12, tokens/s, peak memory, the losses logged); (2)
+             qwen3-4b and phi3.5-moe SMOKE at float32 on the card and on
+             the CPU from the same params and batches (``TRAIN_PARITY``,
+             within ``TRAIN_LOSS_RTOL`` and ``TRAIN_PARAM_RTOL``); (3) with
+             deterministic algorithms, 2k steps of ``launch/train.py``
+             against k, a checkpoint, ``restore_or_init`` and k more, the
+             final state bit for bit, keep-3 and a stale ``.tmp``
+             collected;
+             (4) ``examples/torch_crossstack_deploy.py``'s crossbar
+             reads (its precision sweep and its resident prefill) on the
+             MAC kernel, one launch a read, each bit for bit the exact
+             plain MAC's, then the four serve examples' ``main``; last
              the 36-layer serve on one model programmed once (the
              CLI's setup): captured (its step time: the warm-up, the
              capture and the replays; its launches are the kernels
@@ -192,6 +209,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1441,8 +1459,6 @@ def _deepnet_mlp_at_width(torch, dev):
 def phase_physics(torch, dev):
     """The device physics and the two array modes on the card, (a)-(e)
     of the module docstring."""
-    import importlib.util
-
     from repro_torch.core import engine
 
     t_phase = time.perf_counter()
@@ -1459,10 +1475,7 @@ def phase_physics(torch, dev):
     out["analog"] = _analog_at_wq(torch, dev, w, pw, cfg)
     del w, pw
     out["deepnet_mlp"] = _deepnet_mlp_at_width(torch, dev)
-    spec = importlib.util.spec_from_file_location(
-        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
-    quickstart = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(quickstart)
+    quickstart = _example("quickstart")
     _reset_counts()
     qs = quickstart.main(dev)
     torch.cuda.synchronize()
@@ -3088,6 +3101,244 @@ def phase_multiplex(torch, dev):
     return out
 
 
+# -- the train phase: the trainer, card against CPU, resume, deploy -----------
+
+#: the trainer's cell: qwen3-4b FULL cut to 8 of its 36 layers (36 need
+#: ~88 GB of float32 masters, moments, bf16 copy and grads), bf16
+#: compute, 4 x 512 tokens in 2 microbatches, 12 steps at a peak lr of
+#: 1e-4 (the CLI's default 1e-3 is sized for SMOKE models: at this
+#: width the loss ends above where it began)
+TRAIN_ARGV = ["--arch", ARCH, "--layers", "8", "--steps", "12",
+              "--seq-len", "512", "--batch", "4", "--microbatches", "2",
+              "--lr", "1e-4", "--log-every", "100"]
+#: card against CPU (float32 compute, TF32 off): each step's loss within
+#: TRAIN_LOSS_RTOL x |loss|, the final params within TRAIN_PARAM_RTOL x
+#: max|p| of each leaf (AdamW's m / sqrt(v) turns a last-bit difference
+#: of a gradient near zero into a step of up to lr)
+TRAIN_PARITY = (("qwen3-4b", 8), ("phi3.5-moe", 8))
+TRAIN_LOSS_RTOL = 2.0 ** -16
+TRAIN_PARAM_RTOL = 2.0 ** -8
+#: the resume check: 2k steps against k, save, restore_or_init, k more
+RESUME_K = 4
+SERVE_EXAMPLES = ("serve_batch", "hotswap_deploy", "multiplex_serve",
+                  "planebank_serve")
+
+
+def _example(name):
+    """``examples/torch_<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _train_full_width(torch):
+    """(1) ``launch/train.py``'s ``main`` at ``TRAIN_ARGV`` on the card."""
+    from repro_torch import tree
+    from repro_torch.launch import train as train_cli
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(TRAIN_ARGV, record=rec)
+    wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.leaves(state))
+    del state
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rec]
+    norms = [r["grad_norm"] for r in rec]
+    log(f"  (1) losses {[round(v, 4) for v in losses]}")
+    check(len(rec) == 12 and all(math.isfinite(v) for v in losses + norms),
+          f"train: losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0],
+          f"train: the last loss {losses[-1]} is not below the first "
+          f"{losses[0]}")
+    step_ms = statistics.median(r["s"] for r in rec[2:]) * 1e3
+    tokens = 4 * 512
+    out = {"argv": TRAIN_ARGV, "n_params": n_params,
+           "state_gib": state_bytes / 2 ** 30, "peak_gib": peak,
+           "step_ms": step_ms, "first_step_ms": rec[0]["s"] * 1e3,
+           "tok_per_s": tokens / (step_ms / 1e3), "wall_s": wall,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
+           "losses": losses}
+    log(f"  (1) qwen3-4b 8 layers, {n_params / 1e9:.3f} B params: step "
+        f"{step_ms:.1f} ms (median of steps 3-12; step 1 "
+        f"{out['first_step_ms']:.0f} ms), {out['tok_per_s']:.0f} tokens/s, "
+        f"state {out['state_gib']:.2f} GiB, peak {peak:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norm {norms[0]:.3f} -> "
+        f"{norms[-1]:.3f}")
+    return out
+
+
+def _card_against_cpu(torch, dev):
+    """(2) SMOKE qwen3-4b and phi3.5-moe, float32 compute, the same
+    params and batches on the card and on the CPU."""
+    import dataclasses as dc
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    out = {}
+    for arch, steps in TRAIN_PARITY:
+        cfg = dc.replace(get_config(arch, smoke=True), dtype=torch.float32)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=33,
+                                      global_batch=8), device="cpu")
+        runs = {}
+        for where in ("cpu", dev):
+            model = build_model(cfg, device=where)
+            step = trainer.make_train_step(
+                model, opt.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=steps),
+                compute_dtype=torch.float32)
+            state = trainer.init_state(build_model(cfg, device="cpu"), 0)
+            state = tree.map(lambda t: t.to(where), state)
+            losses = []
+            for i in range(steps):
+                batch = {k: v.to(where) for k, v in data.batch_at(i).items()}
+                state, met = step(state, batch)
+                losses.append(float(met["loss"]))
+            runs[str(where)] = (losses, tree.map(lambda t: t.cpu(),
+                                                 state.params))
+        (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        param_rel = max(float((a - b).abs().max() / b.abs().max().clamp(
+            min=1e-30)) for a, b in zip(tree.leaves(pg), tree.leaves(pc)))
+        check(loss_rel <= TRAIN_LOSS_RTOL and param_rel <= TRAIN_PARAM_RTOL,
+              f"train {arch}: card against CPU, loss rel {loss_rel:.3g}, "
+              f"params rel {param_rel:.3g}")
+        out[arch] = {"loss_rel": loss_rel, "param_rel": param_rel,
+                     "losses": lg}
+        log(f"  (2) {arch} SMOKE float32, {steps} steps: card against CPU, "
+            f"losses within {loss_rel:.3g} "
+            f"(2^{math.log2(loss_rel or 2**-60):.1f}), "
+            f"params within {param_rel:.3g} x max|p| "
+            f"(2^{math.log2(param_rel or 2**-60):.1f})")
+    return out
+
+
+def _resume(torch):
+    """(3) deterministic algorithms on: 2k uninterrupted steps against k,
+    save, ``restore_or_init``, k more, through ``launch/train.py``; keep-K
+    and the GC of a stale ``.tmp`` in the phase's own directory.  The
+    accumulating ``index_put_`` of the embedding's backward takes its
+    deterministic kernel; cuBLAS only warns (its determinism wants
+    ``CUBLAS_WORKSPACE_CONFIG`` set before it loads, which would change
+    every other phase's workspace; one stream and the same shapes pick
+    the same products here), and the check holds the result."""
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as train_cli
+    k = RESUME_K
+    base = ["--smoke", "--seq-len", "64", "--batch", "8", "--ckpt-every",
+            "1", "--log-every", "100"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(io.StringIO()) as said:
+            whole = train_cli.main(base + ["--steps", str(2 * k)])
+            ckpt = str(Path(tmp) / "ckpt")
+            train_cli.main(base + ["--steps", str(k), "--ckpt-dir", ckpt])
+            stale = Path(ckpt) / "step_000000999.tmp"
+            stale.mkdir()
+            resumed = train_cli.main(base + ["--steps", str(2 * k),
+                                             "--ckpt-dir", ckpt])
+            steps_left = CheckpointManager(ckpt).all_steps()
+            stale_gone = not stale.exists()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [key for (key, a), b in zip(tree.leaves_with_keys(resumed),
+                                         tree.leaves(whole))
+              if not torch.equal(a, b)]
+    check(f"[resume] from step {k}" in said.getvalue() and not differ,
+          f"resume: leaves {differ[:4]} differ from the uninterrupted run")
+    check(steps_left == [2 * k - 2, 2 * k - 1, 2 * k] and stale_gone,
+          f"resume: checkpoints {steps_left}, stale .tmp gone {stale_gone}")
+    log(f"  (3) resume at step {k} of {2 * k}: every leaf of the final "
+        f"TrainState equals the uninterrupted run's; kept steps "
+        f"{steps_left}, the stale .tmp collected")
+    return {"k": k, "kept": steps_left}
+
+
+def _deploy_and_examples(torch, dev):
+    """(4) ``torch_crossstack_deploy.py``'s reads on the MAC kernel, each
+    bit for bit the exact plain MAC's, and the four serve examples."""
+    deploy = _example("crossstack_deploy")
+    with contextlib.redirect_stdout(io.StringIO()):
+        model, data, params, digital = deploy.train(dev)
+    _reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = deploy.deploy(model, data, params)
+    torch.cuda.synchronize()
+    counted, plain, _ = _read_counts()
+    n_reads = len(got["reads"]) + got["n_resident"]
+    check(counted["crossbar_mac"] == n_reads and not any(plain.values()),
+          f"deploy: MAC launches {counted}, plain {plain}, reads {n_reads}")
+    with _exact_plain_mac(torch), contextlib.redirect_stdout(io.StringIO()):
+        exact = deploy.deploy(model, data, params)
+    differ = [i for i, (a, b) in enumerate(zip(got["reads"], exact["reads"]))
+              if not torch.equal(a, b)]
+    check(not differ and torch.equal(got["logits_x"], exact["logits_x"])
+          and got["sweep"] == exact["sweep"],
+          f"deploy: reads {differ[:4]} (or the resident prefill) differ "
+          f"from the exact plain MAC's")
+    check(all(math.isfinite(v) for v in got["sweep"].values())
+          and got["prefill_rel_dev"] < 0.1,
+          f"deploy: sweep {got['sweep']}, prefill rel dev "
+          f"{got['prefill_rel_dev']}")
+    out = {"launches": counted["crossbar_mac"], "digital_loss": digital,
+           "base_loss": got["base_loss"],
+           "sweep": {f"{m}_{b}": v for (m, b), v in got["sweep"].items()},
+           "prefill_rel_dev": got["prefill_rel_dev"]}
+    log(f"  (4) deploy: {counted['crossbar_mac']} MAC launches "
+        f"({len(got['reads'])} engine.linear reads, {got['n_resident']} "
+        f"resident), each bit for bit the exact plain MAC's; held-out "
+        f"loss {got['base_loss']:.4f}, w8 {got['sweep'][('deepnet', 8)]:.4f}"
+        f", w2 {got['sweep'][('deepnet', 2)]:.4f}; prefill rel dev "
+        f"{got['prefill_rel_dev']:.4f}")
+    del model, params, got, exact
+    out["examples_s"] = {}
+    for name in SERVE_EXAMPLES:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = _example(name).main(dev)
+        out["examples_s"][name] = time.perf_counter() - t0
+        if "versions" in res:
+            check(res["versions"]["B"] == 2, f"{name}: {res['versions']}")
+        if "version" in res:
+            check(res["version"] == 2, f"{name}: version {res['version']}")
+    log("  (4) the serve examples ran: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["examples_s"].items()))
+    return out
+
+
+def phase_train(torch, dev):
+    """The training slice on the card, (1)-(4) of the module docstring."""
+    t_phase = time.perf_counter()
+    out = {"full_width": _train_full_width(torch),
+           "card_vs_cpu": _card_against_cpu(torch, dev),
+           "resume": _resume(torch),
+           "deploy": _deploy_and_examples(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  train phase: {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 4d: prefix sharing and preemption at full width --------------------
 
 #: the prefix-sharing and preemption serves: qwen3-4b at full width, 8
@@ -3535,6 +3786,12 @@ def main() -> int:
                 f"{a} ({n or 'all'} layers, {bk})"
                 for a, n, bk, *_ in FAMILY_SERVES))
         report["families"] = phase_family_serves(torch, dev)
+        phase = "train"
+        log("  training: qwen3-4b at full width, 8 layers, through "
+            "launch/train.py; the card against the CPU; a resume; the "
+            "deploy example's reads on the MAC kernel and the serve "
+            "examples")
+        report["train"] = phase_train(torch, dev)
         log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state
@@ -3597,6 +3854,7 @@ def main() -> int:
          "mux_serve_launches": mux_l["crossbar_mac"],
          "deepnet_mlp_launches": report["physics"]["deepnet_mlp"][
              "launches"],
+         "deploy_launches": report["train"]["deploy"]["launches"],
          "b64_ms": head64["ms"], "b64_device_ms": head64["device_ms"],
          "b64_bound_ms": head64["bound_ms"],
          "step_device_ms": witness["trace_captured"][

@@ -2,7 +2,7 @@
 
 Each ``configs/<id>.py`` exports FULL (the published configuration) and
 SMOKE (a reduced same-family config for CPU tests), copied field for
-field from the reference's, less its training-only and JAX-only fields.
+field from the reference's, less its JAX-only fields.
 The port knows all ten architectures of the reference: dense (qwen3-4b,
 qwen3-8b, minitron-4b, nemotron-4-340b), MoE (phi3.5-moe, grok-1-314b),
 VLM (qwen2-vl-72b), encoder-decoder (whisper-base) and recurrent

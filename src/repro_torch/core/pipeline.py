@@ -138,9 +138,8 @@ def deepnet_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ``cfg.use_kernel``).  Engine mode must be "deepnet" so each ADC
     conversion spans a single plane.
     """
-    if cfg.mode != "deepnet":
-        raise ValueError(f"deepnet_mlp requires deep-net engine mode, "
-                         f"got {cfg.mode!r}")
+    if cfg.mode != "deepnet":   # the reference's assert, kept under -O
+        raise AssertionError("deepnet_mlp requires deep-net engine mode")
     h = x
     n = len(weights)
     for l, w in enumerate(weights):

@@ -35,8 +35,9 @@ serve/hotswap.py): once ``--swap-after`` requests have finished, the new
 weights program onto the staging planes, ``--swap-chunks`` row-tile
 chunks between steps, and an atomic flip promotes them with zero dropped
 requests.  SPEC is ``ft:<scale>`` (the serving params plus a scaled
-fine-tune delta), ``seed:<int>`` (a fresh init) or ``init`` (the serving
-params themselves).
+fine-tune delta), ``seed:<int>`` (a fresh init), ``init`` (the serving
+params themselves) or a checkpoint directory (its latest step, written
+by either package's ``CheckpointManager``).
 
 ``--multiplex SPEC,SPEC[,SPEC...]`` (crossbar backend only) serves N
 checkpoints (tenants A, B, C, ...) from the plane banks of one executor:
@@ -113,7 +114,9 @@ def parse_mode_policy(spec):
 
 def resolve_swap_params(spec: str, model, params):
     """``--hot-swap`` / ``--multiplex`` spec resolution: ``init`` (the
-    serving params, tenant A's) | ``seed:<int>`` | ``ft:<scale>``."""
+    serving params, tenant A's) | ``seed:<int>`` | ``ft:<scale>`` | a
+    checkpoint directory (its latest step, restored into the structure of
+    ``params``: a params tree saved by either package)."""
     if spec == "init":
         return params
     if spec.startswith("seed:"):
@@ -129,11 +132,11 @@ def resolve_swap_params(spec: str, model, params):
             raise SystemExit(f"--hot-swap: {spec!r} needs a float scale")
         return finetune_delta(params, scale=scale)
     if os.path.isdir(spec):
-        raise SystemExit(
-            f"--hot-swap: {spec!r} is a checkpoint directory; the port has "
-            f"no checkpoint manager yet (ROADMAP.md, A.11)")
-    raise SystemExit(f"--hot-swap: unknown spec {spec!r} (want init, "
-                     f"ft:<scale> or seed:<int>)")
+        from repro_torch.checkpoint.manager import CheckpointManager
+        return CheckpointManager(spec).restore(target=params)
+    raise SystemExit(f"--hot-swap: unknown spec {spec!r} "
+                     f"(want init, ft:<scale>, seed:<int>, or a "
+                     f"checkpoint dir)")
 
 
 def _print_mode_report(rep) -> None:
@@ -361,8 +364,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "count >= 2 per weight")
     ap.add_argument("--hot-swap", default=None, metavar="SPEC",
                     help="second checkpoint to deploy mid-serving "
-                         "(ft:<scale> | seed:<int> | init); requires "
-                         "--backend crossbar")
+                         "(ft:<scale> | seed:<int> | init | a checkpoint "
+                         "dir); requires --backend crossbar")
     ap.add_argument("--multiplex", default=None,
                     metavar="SPEC,SPEC[,SPEC...]",
                     help="serve N checkpoints (tenants A,B,C,...) from "

@@ -1,8 +1,9 @@
 """Model building blocks (PyTorch): RMSNorm and LayerNorm, RoPE and
 Qwen2-VL's M-RoPE, GQA attention (qk-norm, dense and paged KV caches,
 chunked, causal, bidirectional and cross), the SwiGLU, squared-ReLU and
-GELU MLPs, the token-dropping MoE block, and the reference's rounding of
-``jax.nn.sigmoid``, ``jax.nn.silu`` and ``jax.nn.softplus``.
+GELU MLPs, the token-dropping MoE block and its load-balance loss, and
+the reference's rounding of ``jax.nn.sigmoid``, ``jax.nn.silu`` and
+``jax.nn.softplus``.
 
 Pure functions over explicit param dicts, as in ``repro.models.layers``;
 initializers take an explicit ``torch.Generator`` and device.  The
@@ -573,3 +574,16 @@ def moe_block(p, x, cfg: MoEConfig):
     y = torch.zeros((b, s, d), dtype=x.dtype, device=x.device)
     y.scatter_add_(1, tok_s[..., None].expand(b, s * k, d), ys)
     return y, gates
+
+
+def moe_aux_loss(gates: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance loss, ``E * sum_e f_e * p_e``: ``p_e``
+    the mean gate of expert e, ``f_e`` the share of tokens whose largest
+    gate is e's (the lower index among equal gates, as ``jnp.argmax``)."""
+    e = gates.shape[-1]
+    lead = tuple(range(gates.dim() - 1))
+    p_e = gates.mean(dim=lead)
+    hard = torch.nn.functional.one_hot(torch.argmax(gates, dim=-1),
+                                       e).to(gates.dtype)
+    f_e = hard.mean(dim=lead)
+    return e * torch.sum(f_e * p_e)

@@ -4,9 +4,10 @@ encoder-decoder (whisper: LayerNorm blocks, cross-attention), RWKV6 and
 the Zamba2 hybrid.
 
 ``build_model(cfg, device=None)`` returns a ``Model`` with the
-reference's functional API for inference:
+reference's functional API:
 
   init(seed) -> params
+  loss_fn(params, batch) -> (loss, metrics)             [train shapes]
   prefill(params, batch, cache) -> (logits, cache)
   decode_step(params, tokens, cache) -> (logits, cache)
   init_cache(batch, max_len[, src_len]) / init_paged_cache(...) /
@@ -14,8 +15,10 @@ reference's functional API for inference:
 
 The model lives on one device, CUDA unless ``device="cpu"`` is asked
 for.  The crossbar backend serves the transformer families; the
-recurrent ones are digital, as in the reference.  The training path is
-a later slice of the port.
+recurrent ones are digital, as in the reference.  ``loss_fn`` is the
+training path: digital on any backend (as in the reference), under
+autograd, each layer under ``cfg.remat``; ``prefill`` and
+``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ class ModelConfig:
     attn_every: int = 6            # zamba2 shared-attention period
     q_chunk: int = 0               # chunked attention (0 = off)
     lin_chunk: int = 16            # GLA chunk for rwkv/mamba
+    remat: str = "none"            # none | full | dots (training only)
     dtype: Any = torch.bfloat16    # activation/compute dtype
     kv_dtype: Any = None           # KV-cache storage dtype (None = dtype);
     # torch.float8_e4m3fn halves the cache, upcast to dtype inside the dot
@@ -135,6 +139,7 @@ class Model:
     # paged-KV serving (transformer families; encdec's refuses)
     init_paged_cache: Any = None
     copy_paged_page: Any = None
+    loss_fn: Any = None
 
 
 def _stack(trees):
@@ -193,18 +198,21 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         return torch.arange(sq, device=device)[None].expand(b, sq)
 
     def _trunk(p, x, positions, caches=None, cross_kv=None):
+        remat = cfg.remat if caches is None else "none"
         with xbar.scope("blocks"):
             return T.stack_apply(p["blocks"], bc, x, positions,
-                                 caches=caches, cross_kv=cross_kv)
+                                 caches=caches, cross_kv=cross_kv,
+                                 remat_policy=remat)
 
-    def _encode(p, batch):
+    def _encode(p, batch, remat="none"):
         """The encoder over ``enc_emb``, bidirectional; its final norm is
         an RMSNorm under any block norm, as in the reference."""
         enc = batch["enc_emb"].to(cfg.dtype)
         b, s = enc.shape[:2]
         pos = torch.arange(s, device=device)[None].expand(b, s)
         with xbar.scope("enc_blocks"):
-            h, _ = T.stack_apply(p["enc_blocks"], enc_bc, enc, pos)
+            h, _, _ = T.stack_apply(p["enc_blocks"], enc_bc, enc, pos,
+                                    remat_policy=remat)
         return L.rmsnorm(h, p["enc_ln_f"])
 
     def _cross_kv(p, enc_out):
@@ -232,6 +240,26 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         if cfg.family == "vlm" and "vis_emb" in batch:
             x = torch.cat([batch["vis_emb"].to(cfg.dtype), x], dim=1)
         return x
+
+    def loss_fn(params, batch):
+        """Mean next-token cross entropy over ``batch["labels"]`` (masked
+        by ``loss_mask`` if given), plus ``0.01 * aux / n_layers`` for
+        an MoE; the VLM's visual prefix is dropped before the head."""
+        x = _embed_inputs(params, batch)
+        cross_kv = None
+        if cfg.family == "encdec":
+            cross_kv = _cross_kv(params, _encode(params, batch, cfg.remat))
+        pos = _positions(batch, x.shape[1])
+        h, _, aux = _trunk(params, x, pos, cross_kv=cross_kv)
+        h = L.rmsnorm(h, params["ln_f"])
+        if cfg.family == "vlm" and "vis_emb" in batch:
+            h = h[:, batch["vis_emb"].shape[1]:]
+        logits = _logits(params, h)
+        loss = T.xent_loss(logits, batch["labels"], batch.get("loss_mask"),
+                           vocab=cfg.vocab)
+        if cfg.moe is not None:
+            loss = loss + torch.div(0.01 * aux, cfg.n_layers)
+        return loss, {"loss": loss, "aux": aux}
 
     def init_cache(batch: int, max_len: int, src_len: int = 0):
         one = L.init_cache(bc.attn, batch, max_len,
@@ -276,8 +304,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         cross_kv = None
         if cfg.family == "encdec":
             cross_kv = _cross_kv(params, _encode(params, batch))
-        h, new_layers = _trunk(params, x, pos, caches=cache["layers"],
-                               cross_kv=cross_kv)
+        h, new_layers, _ = _trunk(params, x, pos, caches=cache["layers"],
+                                  cross_kv=cross_kv)
         h = L.rmsnorm(h, params["ln_f"])
         cache = dict(cache, layers=new_layers)
         if cfg.family == "encdec":
@@ -295,8 +323,8 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
             pos = pos[..., None].expand(*pos.shape, 3)
         ckv = cache.get("cross_kv")
         cross_kv = (ckv["k"], ckv["v"]) if ckv is not None else None
-        h, new_layers = _trunk(params, x, pos, caches=cache["layers"],
-                               cross_kv=cross_kv)
+        h, new_layers, _ = _trunk(params, x, pos, caches=cache["layers"],
+                                  cross_kv=cross_kv)
         h = L.rmsnorm(h, params["ln_f"])
         return _logits(params, h), dict(cache, layers=new_layers)
 
@@ -323,7 +351,7 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
     return Model(cfg, device, init, _on_crossbar(prefill),
                  _on_crossbar(decode_step), init_cache, executor=executor,
                  init_paged_cache=init_paged_cache,
-                 copy_paged_page=copy_paged_page)
+                 copy_paged_page=copy_paged_page, loss_fn=loss_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -346,11 +374,13 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
                              device),
         }
 
-    def _run(params, x, states, decode):
+    def _run(params, x, states, decode, remat="none"):
+        one = T.remat(lambda p_l, xc, st_l: R.block(p_l, rc, xc, st_l,
+                                                    decode=decode), remat)
         outs = []
         for layer in range(cfg.n_layers):
-            x, new_st = R.block(_index(params["blocks"], layer), rc, x,
-                                _index(states, layer), decode=decode)
+            x, new_st = one(_index(params["blocks"], layer), x,
+                            _index(states, layer))
             outs.append(new_st)
         return x, _stack(outs)
 
@@ -364,6 +394,14 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
         h = L.rmsnorm(h, params["ln_f"])
         return T.unembed(params["embed"], h, head=params["head"])
 
+    def loss_fn(params, batch):
+        x = T.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+        states = init_cache(x.shape[0])["layers"]
+        h, _ = _run(params, x, states, decode=False, remat=cfg.remat)
+        loss = T.xent_loss(_head(params, h), batch["labels"],
+                           batch.get("loss_mask"), vocab=cfg.vocab)
+        return loss, {"loss": loss}
+
     def prefill(params, batch, cache):
         x = T.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
         h, new_states = _run(params, x, cache["layers"], decode=False)
@@ -375,7 +413,7 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
         return _head(params, h), {"layers": new_states}
 
     return Model(cfg, device, init, _no_grad(prefill), _no_grad(decode_step),
-                 init_cache)
+                 init_cache, loss_fn=loss_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -420,22 +458,37 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
                 "mamba": zeros((n_super, cfg.attn_every), m_state),
                 "tail": zeros((max(trailing, 1),), m_state)}
 
-    def _run(params, x, cache, positions, decode):
+    def _run(params, x, cache, positions, decode, remat="none"):
         """Each super-block: the shared attention block on its own KV
         cache (written in place), then ``attn_every`` Mamba2 blocks; then
-        the trailing Mamba2 blocks."""
-        new_m = []
-        for i in range(n_super):
-            attn_cache = _index(cache["attn"], i)
-            x, _ = T.block(params["shared_attn"], bc, x, positions,
-                           cache=attn_cache)
+        the trailing Mamba2 blocks.  ``cache["attn"]`` None (the loss
+        path) gives each application a fresh zero cache of the window's
+        depth inside the super-block, as the reference's ``loss_fn``
+        passes, so that autograd (and a recomputing ``remat``) sees
+        each cache written once."""
+
+        def super_body(p_super, m_states, xc, attn_cache):
+            if attn_cache is None:
+                attn_cache = L.init_cache(
+                    bc.attn, xc.shape[0], xc.shape[1],
+                    dtype=cfg.kv_dtype or cfg.dtype, device=device)
+            xc, _, _ = T.block(params["shared_attn"], bc, xc, positions,
+                               cache=attn_cache)
             sts = []
             for j in range(cfg.attn_every):
-                x, st = S.mamba2_block(
-                    _index(_index(params["supers"], i), j), mc, x,
-                    _index(_index(cache["mamba"], i), j), decode=decode)
+                xc, st = S.mamba2_block(_index(p_super, j), mc, xc,
+                                        _index(m_states, j), decode=decode)
                 sts.append(st)
-            new_m.append(_stack(sts))
+            return xc, _stack(sts)
+
+        super_body = T.remat(super_body, remat)
+        new_m = []
+        for i in range(n_super):
+            attn_cache = (None if cache["attn"] is None
+                          else _index(cache["attn"], i))
+            x, sts = super_body(_index(params["supers"], i),
+                                _index(cache["mamba"], i), x, attn_cache)
+            new_m.append(sts)
         new_tail = cache["tail"]
         if trailing > 0:
             sts = []
@@ -451,6 +504,16 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
     def _head(params, h):
         h = L.rmsnorm(h, params["ln_f"])
         return T.unembed(params["embed"], h, head=params["head"])
+
+    def loss_fn(params, batch):
+        x = T.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+        b, sq = batch["tokens"].shape
+        cache = dict(init_cache(b, 0), attn=None)
+        pos = torch.arange(sq, device=device)[None].expand(b, sq)
+        h, _ = _run(params, x, cache, pos, decode=False, remat=cfg.remat)
+        loss = T.xent_loss(_head(params, h), batch["labels"],
+                           batch.get("loss_mask"), vocab=cfg.vocab)
+        return loss, {"loss": loss}
 
     def prefill(params, batch, cache):
         x = T.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
@@ -469,7 +532,7 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
         return _head(params, h), new_cache
 
     return Model(cfg, device, init, _no_grad(prefill), _no_grad(decode_step),
-                 init_cache)
+                 init_cache, loss_fn=loss_fn)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

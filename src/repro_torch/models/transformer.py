@@ -1,5 +1,6 @@
 """Decoder-only (dense and MoE) and encoder-decoder transformer stacks
-(PyTorch).
+(PyTorch), the cross-entropy loss and the layer rematerialisation
+policies.
 
 Layer-stacked parameters (a leading ``layers`` axis, as in the
 reference) applied by an unrolled Python loop: crossbar tiles are
@@ -8,9 +9,11 @@ addressed by layer NAME, which the crossbar backend needs anyway.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import executor as xbar
 from repro_torch.models import layers as L
@@ -61,7 +64,8 @@ def block(p, cfg: BlockConfig, x, positions, cache=None, cross_kv=None,
           cross_len=None):
     """Pre-norm residual block: attention, cross-attention onto
     ``cross_kv`` (encoder-decoder blocks), then the MLP or MoE block.
-    Returns (x, new_cache)."""
+    Returns (x, new_cache, aux): ``aux`` is the MoE block's load-balance
+    loss (f32 zero for an MLP block)."""
     with xbar.scope("attn"):
         h, new_cache = L.attention(p["attn"], cfg.attn,
                                    _norm(cfg, x, p["ln1"]), positions,
@@ -73,13 +77,15 @@ def block(p, cfg: BlockConfig, x, positions, cache=None, cross_kv=None,
                                _norm(cfg, x, p["ln_x"]), None,
                                cross_kv=cross_kv, kv_len=cross_len)
         x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe is not None:
         # plain products, outside any scope: no expert is programmed
-        h, _ = L.moe_block(p["moe"], _norm(cfg, x, p["ln2"]), cfg.moe)
+        h, gates = L.moe_block(p["moe"], _norm(cfg, x, p["ln2"]), cfg.moe)
+        aux = L.moe_aux_loss(gates)
     else:
         with xbar.scope("mlp"):
             h = L.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg.act)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 # -- stacked layers ------------------------------------------------------------
@@ -119,8 +125,41 @@ def _tree_zip(fn, a, b):
         fn(a, b)
 
 
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep every matmul's output, recompute the
+    rest (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)."""
+    if op in _MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+def remat(fn, policy: str):
+    """``fn`` under the reference's rematerialisation ``policy``: "none"
+    keeps every activation, "full" recomputes the whole of ``fn`` in the
+    backward pass (``torch.utils.checkpoint``), "dots" recomputes all but
+    the matmul outputs (a selective checkpoint).  Outside autograd (no
+    grad mode, or no input that needs a gradient) ``fn`` runs as it is."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(policy)
+    extra = ({} if policy == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_matmuls)})
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **extra)
+
+    return wrapped
+
+
 def stack_apply(stacked_p, cfg: BlockConfig, x, positions, caches=None,
-                cross_kv=None, cross_len=None):
+                cross_kv=None, cross_len=None, remat_policy: str = "none"):
     """Apply the blocks in order (unrolled; each layer's tiles are named
     ``<scope>.<layer>.<module>.<weight>``).
 
@@ -128,9 +167,23 @@ def stack_apply(stacked_p, cfg: BlockConfig, x, positions, caches=None,
     Each layer updates its K/V pages and its fill marker in place through
     views of the stacked tensors; the returned caches are the same dict.
     cross_kv: stacked (k, v), each (L, B, S_src, kv_eff, hd), or None.
-    Returns (x, caches).
+    remat_policy: each layer under :func:`remat` (the training path; a
+    cache's in-place writes must not be recomputed, so caches take
+    "none").
+    Returns (x, caches, aux), ``aux`` the layers' load-balance losses
+    summed in layer order from an f32 zero, as the reference's scan.
     """
+    if caches is not None and remat_policy != "none":
+        raise ValueError("remat recomputes in-place cache writes; the "
+                         "cached (inference) path takes remat 'none'")
     n_layers = stacked_p["attn"]["wq"].shape[0]
+
+    def one_layer(p_l, xc, xkv_l, cache_l):
+        return block(p_l, cfg, xc, positions, cache=cache_l, cross_kv=xkv_l,
+                     cross_len=cross_len)
+
+    one_layer = remat(one_layer, remat_policy)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(n_layers):
         p_l = _tree_map(lambda a, ll=layer: a[ll], stacked_p)
         cache_l = ({k: c[layer] for k, c in caches.items()}
@@ -138,9 +191,9 @@ def stack_apply(stacked_p, cfg: BlockConfig, x, positions, caches=None,
         xkv_l = ((cross_kv[0][layer], cross_kv[1][layer])
                  if cross_kv is not None else None)
         with xbar.scope(layer):   # names this layer's resident tiles
-            x, _ = block(p_l, cfg, x, positions, cache=cache_l,
-                         cross_kv=xkv_l, cross_len=cross_len)
-    return x, caches
+            x, _, a = one_layer(p_l, x, xkv_l, cache_l)
+        aux = aux + a
+    return x, caches, aux
 
 
 # -- embeddings / head ----------------------------------------------------------
@@ -156,3 +209,23 @@ def embed(p, tokens):
 def unembed(p, x, head=None):
     w = head if head is not None else p["tok"].T
     return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+
+def xent_loss(logits, labels, mask=None, vocab: Optional[int] = None):
+    """Cross entropy with f32 accumulation over a (possibly padded)
+    vocab: the padding columns get -1e30 before the logsumexp, and a
+    ``mask`` weights each position (the mean over the mask's sum, at
+    least 1)."""
+    lg = logits.to(torch.float32)
+    if vocab is not None and vocab < lg.shape[-1]:
+        pad = torch.zeros((lg.shape[-1],), dtype=torch.float32,
+                          device=lg.device)
+        pad[vocab:] = -1e30
+        lg = lg + pad
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.div(nll.sum(), torch.clamp(mask.sum(), min=1.0))
+    return nll.mean()

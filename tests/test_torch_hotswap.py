@@ -409,5 +409,5 @@ def test_cli_metrics_out_holds_the_swap_spans_and_metrics(tmp_path, capsys):
     assert "telemetry: wrote" in out and "Prometheus snapshot" in out
     with pytest.raises(SystemExit, match="crossbar"):
         serve_cli.main(["--smoke", "--device", "cpu", "--hot-swap", "init"])
-    with pytest.raises(SystemExit, match="checkpoint manager"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         _cli("--hot-swap", str(tmp_path))

@@ -25,6 +25,20 @@ def _imports(path):
             yield node.module or ""
 
 
+#: the training slice's modules (ROADMAP A.11): each stands alone too
+TRAINING = ["train/optimizer.py", "train/trainer.py", "data/pipeline.py",
+            "checkpoint/manager.py", "launch/ft.py", "launch/train.py",
+            "tree.py"]
+
+
+def test_the_training_modules_are_checked():
+    files = set(FILES)
+    assert all(ROOT / "src" / "repro_torch" / m in files for m in TRAINING)
+    assert {ROOT / "examples" / f"torch_{e}.py" for e in (
+        "train_lm", "crossstack_deploy", "serve_batch", "hotswap_deploy",
+        "multiplex_serve", "planebank_serve")} <= files
+
+
 def _forbidden(name):
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "repro", "ml_dtypes")
@@ -42,7 +56,11 @@ def test_package_imports_with_jax_blocked():
             "sys.modules['repro'] = None; sys.modules['ml_dtypes'] = None; "
             "import repro_torch, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.kernels.crossbar_mac.ops, "
-            "repro_torch.kernels.paged_attention; print('ok')")
+            "repro_torch.kernels.paged_attention, "
+            "repro_torch.train.optimizer, repro_torch.train.trainer, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
+            "repro_torch.launch.ft, repro_torch.launch.train; "
+            "print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},

@@ -448,8 +448,22 @@ def test_deepnet_mlp_smoke_widths(mlp_case):
         for a, b in zip(tq.quantize_inputs(_t(h), cfg.quant),
                         jq.quantize_inputs(jnp.asarray(h), jcfg.quant)):
             _equal(a, b)
-    with pytest.raises(ValueError, match="deep-net"):
+    with pytest.raises(AssertionError, match="deep-net"):
         tpipe.deepnet_mlp(_t(x), [_t(ws[0])], teng.EngineConfig())
+
+
+def test_deepnet_mlp_refuses_expansion_mode_as_the_reference():
+    """Outside deep-net mode both packages refuse with the same
+    ``AssertionError`` and message."""
+    x = np.zeros((2, 8), np.float32)
+    w = np.zeros((8, 4), np.float32)
+    with pytest.raises(AssertionError) as want:
+        jpipe.deepnet_mlp(jnp.asarray(x), [jnp.asarray(w)],
+                          jeng.EngineConfig(mode="expansion"))
+    with pytest.raises(AssertionError) as got:
+        tpipe.deepnet_mlp(_t(x), [_t(w)],
+                          teng.EngineConfig(mode="expansion"))
+    assert str(got.value) == str(want.value)
 
 
 # -- engine.matmul_analog -----------------------------------------------------
