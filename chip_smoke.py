@@ -128,7 +128,7 @@ Phases, each of which fails the run (exit code 1, no result line):
              window, per-tenant tokens/s and peak memory logged), and a
              dedicated single-tenant serve of B's checkpoint (B's
              streams); then the prefix-sharing and preemption serves at
-             full width and 8 layers (``PP_SHARE``, ``PP_PREEMPT``): the
+             full width and 4 layers (``PP_SHARE``, ``PP_PREEMPT``): the
              CLI's shared serve captured, on one programmed model the
              same eager and unshared (equal streams), a preempting serve
              under 8 pages against ample pages (equal streams), and on a
@@ -136,7 +136,7 @@ Phases, each of which fails the run (exit code 1, no result line):
              24 pages against the plain serve (equal streams), every
              count of shared pages, skipped tokens, COW copies and
              evictions equal to the CPU's on the same arguments; then the
-             fp8 cache at full width and 8 layers on one programmed model
+             fp8 cache at full width and 4 layers on one programmed model
              (``kv_dtype=float8_e4m3fn``, bf16 compute): the scratch lane
              at ``PP_PREEMPT`` captured and eager, the streamed lane at
              ``PP_SHARE`` shared captured and eager and unshared (equal
@@ -144,7 +144,7 @@ Phases, each of which fails the run (exit code 1, no result line):
              retrace), the K/V pool half the bf16 serve's bytes at equal
              pages, the token agreement with the bf16-cache serves
              logged; then the other decoder LMs (``ARCH_SERVES``):
-             minitron-4b at 16 of its 32 layers and phi3.5-moe at 4, each on
+             minitron-4b at 8 of its 32 layers and phi3.5-moe at 4, each on
              one model programmed once, captured (one capture, no
              retrace) and eager with identical streams, with tokens/s,
              step ms, programming s and peak memory logged; then the
@@ -173,7 +173,19 @@ Phases, each of which fails the run (exit code 1, no result line):
              (4) ``examples/torch_crossstack_deploy.py``'s crossbar
              reads (its precision sweep and its resident prefill) on the
              MAC kernel, one launch a read, each bit for bit the exact
-             plain MAC's, then the four serve examples' ``main``; last
+             plain MAC's, then the four serve examples' ``main``; then
+             the distribution slice (``phase_dist``): (a)
+             ``launch/train.py --mesh local`` at world 1 on NCCL
+             (``DIST_TRAIN``, qwen3-4b SMOKE, 3 steps) against the same
+             steps on plain tensors without rules; (b)
+             ``compressed_psum`` and ``tp_bf16_matmul`` at world 1 on
+             CUDA tensors, bitwise their formulas; (c) the MoE block at
+             top_k 4 (``DIST_MOE``): two runs bitwise, within
+             ``MOE_RTOL`` x max|y| of the CPU; (d) ``dryrun.run_cell``
+             for qwen3-4b FULL on the fake 16 x 16 mesh
+             (``DIST_DRYRUN``: decode_32k at 36 layers, train_4k cut to
+             1 for time), per rank peak, flops, collective bytes and wall
+             logged, the card's allocated bytes unmoved; last
              the 36-layer serve on one model programmed once (the
              CLI's setup): captured (its step time: the warm-up, the
              capture and the replays; its launches are the kernels
@@ -2347,10 +2359,11 @@ def phase_hotswap(torch, dev):
 #: two of its four at a time, so the page budget binds on B's lane only
 #: the other decoder LMs served at full width through the CLI's entry
 #: points: minitron-4b (squared ReLU, a group of 3, the 256,000-column
-#: head) at 16 of its 32 layers (all 32 fit, ~47 GB, but take ~42 s to
-#: program, and chip_smoke passed 1000 s with them); phi3.5-moe (16
-#: experts, top 2) at 4 layers, ~27 GB (its f32 experts are 5 GB a layer)
-ARCH_SERVES = (("minitron-4b", 16), ("phi3.5-moe", 4))
+#: head) at 8 of its 32 layers (all 32 fit, ~47 GB, but take ~42 s to
+#: program; 16 took 30.4 s, and chip_smoke passed 1000 s with them and
+#: the dist phase); phi3.5-moe (16 experts, top 2) at 4 layers, ~27 GB
+#: (its f32 experts are 5 GB a layer)
+ARCH_SERVES = (("minitron-4b", 8), ("phi3.5-moe", 4))
 
 
 def _serve_argv(arch, layers=None):
@@ -3339,11 +3352,225 @@ def phase_train(torch, dev):
     return out
 
 
+# -- phase 4c': distribution and the dry run --------------------------------
+
+#: --mesh local at world 1 (NCCL) against the same steps without rules
+DIST_TRAIN = ["--smoke", "--steps", "3", "--seq-len", "32", "--batch", "8",
+              "--log-every", "100"]
+#: the MoE block on the card: top_k 4 of 8 experts, float32, TF32 off
+DIST_MOE = dict(b=4, s=64, d=256, f=512, e=8, k=4)
+MOE_RTOL = 1e-5
+#: the dry run's cells on the fake 16 x 16 mesh: qwen3-4b FULL at full
+#: width; decode at all 36 layers, train cut to 1 to fit the phase's 30
+#: s (a full-depth train cell runs 36 layers x 4 microbatches eagerly)
+DIST_DRYRUN = (("decode_32k", None), ("train_4k", 1))
+
+
+def _train_without_rules(torch, argv_steps=3):
+    """``DIST_TRAIN``'s run on plain tensors on the card (no mesh, no
+    rules): the trainer as ``launch/train.py`` builds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = build_model(cfg)
+    step = trainer.make_train_step(
+        model, opt.AdamWConfig(lr=1e-3, warmup_steps=10,
+                               total_steps=argv_steps), donate=True)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=33,
+                                  global_batch=8), device=model.device)
+    state, losses = trainer.init_state(model, 0), []
+    for i in range(argv_steps):
+        state, met = step(state, data.batch_at(i))
+        losses.append(float(met["loss"]))
+    return losses, state
+
+
+def _dist_collectives(torch, dev):
+    """``compressed_psum`` and ``tp_bf16_matmul`` at world 1 (NCCL) on
+    CUDA tensors, bitwise against their formulas (one rank: the
+    all-reduce returns its input)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import optimizer as opt
+    mesh = make_local_mesh()
+    check(dist.get_backend() == "nccl" and mesh.device_type == "cuda",
+          f"dist: --mesh local's group is {dist.get_backend()} on "
+          f"{mesh.device_type}")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        g = torch.randn(4096, device=dev, generator=gen)
+        err = 0.01 * torch.randn(4096, device=dev, generator=gen)
+        mean, new_err = opt.compressed_psum(g, None, err)
+        q, scale = opt.quantize_grad_int8(g + err)
+        deq = opt.dequantize_grad(q, scale)
+        psum_ok = (torch.equal(mean, torch.div(deq, torch.ones(
+            (), device=dev))) and torch.equal(new_err, (g + err) - deq))
+        mm = init_device_mesh("cuda", (1, 1),
+                              mesh_dim_names=("data", "model"))
+        rules = shd.ShardingRules(rules=dict(shd.fsdp_rules().rules,
+                                             _tp_bf16_reduce=True))
+        h = torch.randn(8, 16, 2560, device=dev, generator=gen).to(
+            torch.bfloat16)
+        w = (torch.randn(2560, 1024, device=dev, generator=gen)
+             / 50).to(torch.bfloat16)
+        with shd.use_rules(rules, mm):
+            y = shd.tp_bf16_matmul(h, w)
+        want = torch.einsum("bsf,fd->bsd", h.float(), w.float()).to(
+            torch.bfloat16)
+        tp_ok = isinstance(y, torch.Tensor) and torch.equal(y, want)
+    finally:
+        dist.destroy_process_group()
+    check(psum_ok, "dist: compressed_psum at world 1 differs from "
+          "dequantize(quantize(g + err)) and its residual")
+    check(tp_ok, "dist: tp_bf16_matmul at world 1 differs from the bf16 "
+          "cast of the float32 product")
+    log("  (b) compressed_psum (4,096 values) and tp_bf16_matmul (8 x 16 x "
+        "2560 @ 2560 x 1024) at world 1 on NCCL: bitwise their formulas")
+    return {"compressed_psum": psum_ok, "tp_bf16_matmul": tp_ok}
+
+
+def _moe_top4(torch, dev):
+    """The MoE block at top_k 4 on the card: two runs bitwise equal (the
+    combine's fixed order), within ``MOE_RTOL`` x max|y| of the CPU's."""
+    from repro_torch.models import layers as L
+    c = DIST_MOE
+    cfg = L.MoEConfig(c["e"], c["k"], 1.25, "swiglu")
+    gen = torch.Generator().manual_seed(5)
+    p = {"router": torch.randn(c["d"], c["e"], generator=gen) / 16,
+         "wi": torch.randn(c["e"], c["d"], c["f"], generator=gen) / 16,
+         "wg": torch.randn(c["e"], c["d"], c["f"], generator=gen) / 16,
+         "wo": torch.randn(c["e"], c["f"], c["d"], generator=gen) / 22}
+    x = torch.randn(c["b"], c["s"], c["d"], generator=gen)
+    want, _ = L.moe_block(p, x, cfg)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    runs = [L.moe_block(pd, x.to(dev), cfg)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    err = float((runs[0].cpu() - want).abs().max())
+    lim = MOE_RTOL * float(want.abs().max())
+    check(same and err <= lim,
+          f"dist: MoE top_k 4 on the card: runs equal {same}, "
+          f"max|err| {err:.3g} against {lim:.3g}")
+    log(f"  (c) MoE top_k 4 of 8 on the card (B {c['b']} S {c['s']} d "
+        f"{c['d']}, float32): two runs bitwise equal; max|err| against "
+        f"the CPU {err:.3g} (limit {lim:.3g})")
+    return {"bitwise_runs": same, "max_abs_err": err, "limit": lim}
+
+
+def _dryrun_hand_count(torch):
+    """The op record on this machine's torch against a hand count: a
+    (8 x 16) @ (16 x 4) product split over "model" of a fake (2, 2) mesh,
+    all-reduced: one all-reduce of 8 x 4 float32 values, 2 x 8 x 8 x 4
+    flops on a rank (the sharding propagation's reruns not counted)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hlo_analysis as hlo
+    with dryrun.fake_world(4):
+        mesh = dryrun.make_mesh((2, 2), ("data", "model"))
+        with dryrun.fake_tensors():
+            x = DTensor.from_local(torch.empty(8, 8), mesh,
+                                   [Replicate(), Shard(1)], run_check=False,
+                                   shape=(8, 16), stride=(16, 1))
+            w = DTensor.from_local(torch.empty(8, 4), mesh,
+                                   [Replicate(), Shard(0)], run_check=False,
+                                   shape=(16, 4), stride=(4, 1))
+            rec = hlo.OpRecord()
+            with rec:
+                (x @ w).redistribute(mesh, [Replicate(), Replicate()])
+    colls = hlo.collective_bytes(rec)
+    check(colls == {"all-reduce": {"bytes": 128.0, "count": 1}}
+          and rec.flops == 512,
+          f"dist: the op record's hand count: {colls}, {rec.flops} flops, "
+          f"ops {dict(rec.ops)}")
+
+
+def _dryrun_cells(torch, out_dir):
+    """``dryrun.run_cell`` for qwen3-4b FULL on the fake 16 x 16 mesh;
+    the card's allocated bytes must not move."""
+    from repro_torch.launch import dryrun
+    _dryrun_hand_count(torch)
+    out = {}
+    for shape, layers in DIST_DRYRUN:
+        before = torch.cuda.memory_allocated()
+        peak0 = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        res = dryrun.run_cell("qwen3-4b", shape, False,
+                              str(out_dir / "dryrun"), extrapolate=False,
+                              n_layers=layers)
+        wall = time.perf_counter() - t0
+        check(torch.cuda.memory_allocated() == before
+              and torch.cuda.max_memory_allocated() == peak0,
+              f"dist: the dry run of {shape} allocated on the card")
+        m, coll = res["memory"], res["collective_bytes_total"]
+        check(m["peak_bytes_per_device"] > 0 and res["cost"]["flops"] > 0
+              and coll > 0, f"dist: dry run {shape}: {res['memory']}")
+        out[shape] = {"n_layers": res["n_layers"], "wall_s": wall,
+                      "peak_gib": m["peak_bytes_per_device"] / 2**30,
+                      "flops": res["cost"]["flops"],
+                      "bytes_accessed": res["cost"]["bytes_accessed"],
+                      "collective_bytes": coll,
+                      "collectives": res["collectives"],
+                      "run_s": res["run_s"]}
+        kinds = ", ".join(f"{k} {int(v['count'])}"
+                          for k, v in res["collectives"].items())
+        log(f"  (d) dry run qwen3-4b {shape}, 16x16 fake mesh, "
+            f"{res['n_layers']} of 36 layers: per rank peak "
+            f"{out[shape]['peak_gib']:.3f} GiB, flops "
+            f"{res['cost']['flops']:.4g}, collectives "
+            f"{coll / 2**20:.1f} MiB ({kinds}), wall {wall:.1f} s")
+    return out
+
+
+def phase_dist(torch, dev, out_dir):
+    """The distribution slice on the card: (a) ``launch/train.py --mesh
+    local`` at world 1 (NCCL) against the same steps without rules; (b)
+    the two collectives at world 1; (c) the MoE block at top_k 4; (d) the
+    dry run of qwen3-4b FULL on the fake 16 x 16 mesh."""
+    from repro_torch.launch import train as train_cli
+    t_phase = time.perf_counter()
+    rec = []
+    # the embedding's backward accumulates with atomics on the card: both
+    # runs take the deterministic kernels (cuBLAS only warns; _resume)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(DIST_TRAIN, record=rec)
+        plain, _ = _train_without_rules(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    meshed = [r["loss"] for r in rec]
+    same = meshed == plain
+    check(all(math.isfinite(v) for v in meshed) and len(meshed) == 3,
+          f"dist: --mesh local losses {meshed}")
+    diff = max(abs(a - b) for a, b in zip(meshed, plain))
+    log(f"  (a) launch/train.py --mesh local, world 1 (NCCL), qwen3-4b "
+        f"SMOKE, 3 steps: losses {meshed}; without rules {plain}; "
+        f"{'bitwise' if same else f'max |diff| {diff:.3g}'}")
+    check(same, f"dist: --mesh local losses {meshed} against {plain}")
+    out = {"mesh_local": {"losses": meshed, "plain": plain,
+                          "bitwise": same, "max_abs_diff": diff},
+           "collectives": _dist_collectives(torch, dev),
+           "moe_top4": _moe_top4(torch, dev),
+           "dryrun": _dryrun_cells(torch, out_dir)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  dist phase: {out['phase_s']:.1f} s")
+    return out
+
+
 # -- phase 4d: prefix sharing and preemption at full width --------------------
 
-#: the prefix-sharing and preemption serves: qwen3-4b at full width, 8
-#: layers (the multiplex cell's depth), bf16, the CUDA kernels, paged KV
-PP_ARGV = ["--arch", ARCH, "--layers", "8", "--backend", "crossbar",
+#: the prefix-sharing and preemption serves: qwen3-4b at full width, 4
+#: layers (8 through PR 26, cut for chip_smoke's time: the pool's counts
+#: depend on lengths and tokens, not depth), bf16, the CUDA kernels,
+#: paged KV
+PP_ARGV = ["--arch", ARCH, "--layers", "4", "--backend", "crossbar",
            "--use-kernel", "--kv", "paged", "--requests", "8", "--slots",
            "4", "--prompt-len", "16", "--chunk", "4"]
 #: sharing: a 60-token common head before each 16-token prompt, request i
@@ -3445,7 +3672,7 @@ def _pp_log(key, sv):
 
 
 def phase_prefix_preempt(torch, dev):
-    """Prefix sharing and preemption at full width, 8 layers: the CLI's
+    """Prefix sharing and preemption at full width, 4 layers: the CLI's
     shared serve captured; on one programmed model the same serve eager
     and captured without ``--prefix-share`` (all three streams equal), a
     preempting serve under an 8-page budget and a serve with ample pages
@@ -3559,7 +3786,7 @@ def _agreement(a, b):
 
 
 def phase_kv_fp8(torch, dev, pp):
-    """The fp8 KV cache at full width, 8 layers, bfloat16 compute, through
+    """The fp8 KV cache at full width, 4 layers, bfloat16 compute, through
     ``BatchScheduler`` (the reference reaches fp8 through ``ModelConfig``,
     not its CLI): one programmed model with
     ``kv_dtype=torch.float8_e4m3fn``, the scratch lane at ``PP_PREEMPT``'s
@@ -3581,7 +3808,7 @@ def phase_kv_fp8(torch, dev, pp):
     out = {}
     base = get_config(ARCH)
     cfg = dataclasses.replace(
-        base, n_layers=8, backend="crossbar", paged_kernel=True,
+        base, n_layers=4, backend="crossbar", paged_kernel=True,
         xbar=dataclasses.replace(base.xbar, use_kernel=True),
         paged_stream_pages=FP8_STREAM_PAGES, paged_block_pages=16,
         kv_dtype=torch.float8_e4m3fn)
@@ -3769,10 +3996,10 @@ def main() -> int:
         log("  multiplexing two tenants at full width, 8 layers")
         report["multiplex"] = phase_multiplex(torch, dev)
         phase = "prefix_preempt"
-        log("  prefix sharing and preemption at full width, 8 layers")
+        log("  prefix sharing and preemption at full width, 4 layers")
         report["prefix_preempt"] = phase_prefix_preempt(torch, dev)
         phase = "kv_fp8"
-        log("  the fp8 KV cache at full width, 8 layers, both lanes")
+        log("  the fp8 KV cache at full width, 4 layers, both lanes")
         report["kv_fp8"] = phase_kv_fp8(torch, dev,
                                         report["prefix_preempt"])
         log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
@@ -3792,6 +4019,10 @@ def main() -> int:
             "deploy example's reads on the MAC kernel and the serve "
             "examples")
         report["train"] = phase_train(torch, dev)
+        phase = "dist"
+        log("  distribution: --mesh local on NCCL, the collectives at world "
+            "1, the MoE block at top_k 4, the dry run on a fake 16x16 mesh")
+        report["dist"] = phase_dist(torch, dev, out_dir)
         log(f"  ({time.perf_counter() - t_start:.1f} s so far)")
         phase = "serve"
         # last: the serves after a trace ran slower (the profiler's state

@@ -35,8 +35,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch import tree
+from repro_torch.distributed.sharding import spec_leaves
 
 _STEP_RE = re.compile(r"^step_(\d{9})$")
 
@@ -46,6 +48,8 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
     writes to the leaf do not reach it), and its dtype's name: a
     bfloat16 leaf as its raw 16-bit words."""
     t = leaf if torch.is_tensor(leaf) else torch.as_tensor(np.asarray(leaf))
+    if isinstance(t, DTensor):         # a sharded leaf: gather it whole
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -75,6 +79,8 @@ class CheckpointManager:
         daemon thread (``blocking`` waits for the write)."""
         host = [(key,) + _to_host(leaf)
                 for key, leaf in tree.leaves_with_keys(state)]
+        if _rank() != 0:    # every rank gathers its shards; rank 0 writes
+            return
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, host), daemon=True)
@@ -134,10 +140,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target: Any, step: Optional[int] = None) -> Any:
+    def restore(self, target: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``target``: each leaf in the
         checkpoint's dtype, on the device of ``target``'s leaf (the CPU
-        for a leaf that is no tensor)."""
+        for a leaf that is no tensor).
+
+        shardings: optional matching tree of ``(mesh, placements)``
+        pairs (``sharding.sharding_tree``) — the elastic path: each leaf
+        is read whole on every rank and placed onto its placements on
+        the (possibly different) mesh, each rank keeping its own shard
+        (no communication).
+        """
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -145,12 +159,35 @@ class CheckpointManager:
         with open(os.path.join(root, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {leaf["key"]: leaf for leaf in manifest["leaves"]}
+        flat = tree.leaves_with_keys(target)
+        shards = (spec_leaves(shardings) if shardings is not None
+                  else [None] * len(flat))
+        if len(shards) != len(flat):
+            raise ValueError(f"{len(shards)} shardings for {len(flat)} "
+                             f"leaves")
         out = []
-        for key, leaf in tree.leaves_with_keys(target):
+        for (key, leaf), shard in zip(flat, shards):
             if key not in by_key:
                 raise KeyError(f"checkpoint missing leaf {key}")
             entry = by_key[key]
             arr = np.load(os.path.join(root, entry["file"]))
+            if shard is not None:
+                mesh, placements = shard
+                full = _from_host(arr, entry["dtype"], _mesh_device(mesh))
+                out.append(distribute_tensor(full, mesh, placements,
+                                             src_data_rank=None))
+                continue
             dev = leaf.device if torch.is_tensor(leaf) else "cpu"
             out.append(_from_host(arr, entry["dtype"], dev))
         return tree.unflatten(target, out)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

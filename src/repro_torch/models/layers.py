@@ -6,8 +6,10 @@ the reference's rounding of ``jax.nn.sigmoid``, ``jax.nn.silu`` and
 ``jax.nn.softplus``.
 
 Pure functions over explicit param dicts, as in ``repro.models.layers``;
-initializers take an explicit ``torch.Generator`` and device.  The
-reference's logical sharding constraints have no counterpart here.
+initializers take an explicit ``torch.Generator`` and device.
+Activations carry the reference's logical sharding constraints
+(``distributed/sharding.py``: the identity without installed rules), and
+``cache_specs``/``paged_cache_specs`` give the caches' logical axes.
 """
 from __future__ import annotations
 
@@ -16,8 +18,12 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.executor import crossbar_linear
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import logical_constraint as lc
+from repro_torch.distributed.sharding import tp_bf16_matmul
 from repro_torch.kernels.paged_attention.ref import as_bytes, take_pages
 
 Params = Dict[str, Any]
@@ -175,7 +181,7 @@ def _qkv_proj(x, w, name):
     """q/k/v projection, routable onto resident crossbar tiles."""
     return crossbar_linear(
         x, w, name,
-        digital=lambda: torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype)))
+        digital=lambda: shd.einsum("bsd,dhk->bshk", x, w.to(x.dtype)))
 
 
 def _project_qkv(p, cfg: AttnConfig, x, positions):
@@ -191,6 +197,9 @@ def _project_qkv(p, cfg: AttnConfig, x, positions):
     elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = lc(q, ("batch", None, "act_heads", None))
+    k = lc(k, ("batch", None, "act_kv_heads", None))
+    v = lc(v, ("batch", None, "act_kv_heads", None))
     return q, k, v
 
 
@@ -215,8 +224,8 @@ def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None,
     dev = q.device
     qg = q.reshape(b, sq, kv, g, hd)
     scale = hd ** -0.5
-    logits = torch.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
-                          k.to(torch.float32)) * scale
+    logits = shd.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
+                        k.to(torch.float32)) * scale
     if cfg.causal and not cross:
         qpos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
                 + torch.arange(sq, device=dev)[None])         # (B or 1, sq)
@@ -226,7 +235,7 @@ def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None,
         valid = torch.arange(sk, device=dev)[None, :] < kv_len[:, None]
         logits = torch.where(valid[:, None, None, None], logits, -1e30)
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
+    out = shd.einsum("bkgst,btkh->bskgh", w.to(v.dtype), v)
     return out.reshape(b, sq, hq, hd)
 
 
@@ -317,20 +326,26 @@ def attention(p, cfg: AttnConfig, x, positions, cache=None, cross_kv=None,
         q, k, v = _project_qkv(p, cfg, x, positions)
         pos = cache["len"].clone()                        # (B,)
         ck, cv = cache["k"], cache["v"]
-        dense_append(ck, k, pos)
-        dense_append(cv, v, pos)
+        if isinstance(ck, DTensor) and torch.is_grad_enabled():
+            # a sharded cache under autograd (the dry run's training
+            # cells): written out of place, so autograd sees the writes
+            ck = cache["k"] = _sharded_append(ck, k, pos, in_place=False)
+            cv = cache["v"] = _sharded_append(cv, v, pos, in_place=False)
+        else:
+            dense_append(ck, k, pos)
+            dense_append(cv, v, pos)
         new_len = cache["len"].add_(sq)
         out = _chunked_sdpa(q, ck, cv, cfg, kv_len=new_len, q_offset=pos)
         new_cache = cache
     y = crossbar_linear(
         out, p["wo"], "wo",
-        digital=lambda: torch.einsum("bshk,hkd->bsd", out,
-                                     p["wo"].to(x.dtype)))
-    return y, new_cache
+        digital=lambda: shd.einsum("bshk,hkd->bsd", out,
+                                   p["wo"].to(x.dtype)))
+    return lc(y, ("batch", "seq", "act_embed")), new_cache
 
 
-def dense_append(c: torch.Tensor, x: torch.Tensor, pos: torch.Tensor
-                 ) -> None:
+def dense_append(c: torch.Tensor, x: torch.Tensor, pos: torch.Tensor,
+                 offset: int = 0) -> None:
     """Write window ``x`` (B, sq, ...) into the dense cache ``c`` (B,
     S_max, ...) at row b's positions ``pos[b] + j``, in place, cast as
     :func:`cache_cast` casts; positions at or past ``S_max`` are dropped.
@@ -338,31 +353,95 @@ def dense_append(c: torch.Tensor, x: torch.Tensor, pos: torch.Tensor
     dropped position is routed to ``S_max - 1`` and carries the value that
     slot ends with (the window's own entry for it, else the slot's old
     value), so every write to it is the same write.  An fp8 cache moves
-    as bytes."""
+    as bytes.  ``offset``: ``c`` holds the positions from ``offset`` on
+    (a sequence shard), so positions before it are dropped too.  A
+    DTensor cache is written shard by shard (:func:`_sharded_append`)."""
+    if isinstance(c, DTensor):
+        return _sharded_append(c, x, pos)
     b, sq = x.shape[:2]
     depth = c.shape[1]
     dev = x.device
     x = as_bytes(cache_cast(x, c.dtype))
     c = as_bytes(c)
     rows = torch.arange(b, device=dev)
-    s_idx = pos[:, None].to(torch.int64) + torch.arange(sq, device=dev)[None]
+    start = pos.to(torch.int64)
+    if offset:
+        start = start - offset
+    s_idx = start[:, None] + torch.arange(sq, device=dev)[None]
     keep = s_idx < depth                                  # (B, sq)
+    if offset:
+        keep = keep & (s_idx >= 0)
     # the window position that lands on the last slot, if any
-    j_last = depth - 1 - pos.to(torch.int64)              # (B,)
+    j_last = depth - 1 - start                            # (B,)
     hit = (j_last >= 0) & (j_last < sq)
     last = torch.where(hit.reshape(b, *[1] * (x.dim() - 2)),
                        x[rows, j_last.clamp(0, sq - 1)], c[:, depth - 1])
     val = torch.where(keep.reshape(b, sq, *[1] * (x.dim() - 2)), x,
                       last[:, None])
-    c[rows[:, None].expand(b, sq), s_idx.clamp(max=depth - 1)] = val
+    dest = (torch.where(keep, s_idx, depth - 1) if offset
+            else s_idx.clamp(max=depth - 1))
+    c[rows[:, None].expand(b, sq), dest] = val
+
+
+def _sharded_append(c, x, pos, in_place: bool = True):
+    """:func:`dense_append` on a DTensor cache: every rank writes the
+    window into its own shard (DTensor has no sharding of an in-place
+    ``index_put_`` that keeps the cache's placements).  The window is
+    brought to the cache's placements with its sequence dim whole, the
+    fill markers to the cache's batch split; a rank holding a sequence
+    shard writes only the positions that fall in it.  ``in_place=False``
+    writes a copy of each shard and returns the new cache (autograd
+    cannot follow a write into a DTensor's shard in place)."""
+    mesh = c.device_mesh
+    cp = list(c.placements)
+    xp = [Replicate() if (p.is_shard() and p.dim == 1) else p for p in cp]
+    pp = [Shard(0) if (p.is_shard() and p.dim == 0) else Replicate()
+          for p in cp]
+    x = _on_mesh(x, mesh).redistribute(mesh, xp)
+    pos = _on_mesh(pos, mesh).redistribute(mesh, pp)
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i, p in enumerate(cp):
+        if p.is_shard() and p.dim == 1:
+            shard = shard * mesh.size(i) + coord[i]
+    local = c.to_local()
+    if not in_place:
+        local = local.clone()
+    dense_append(local, x.to_local(), pos.to_local(),
+                 offset=shard * local.shape[1])
+    if in_place:
+        return None
+    return DTensor.from_local(local, mesh, cp, run_check=False,
+                              shape=c.shape, stride=c.stride())
+
+
+def _on_mesh(t, mesh):
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def init_cache(cfg: AttnConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device=None, like=None):
+    """A zero dense cache; ``like`` (an activation of the step) makes it
+    on ``like``'s placements under installed rules (``sharding.zeros``:
+    each rank makes only its shard)."""
     shape = (batch, max_len, cfg.kv_eff, cfg.head_dim)
+    if isinstance(like, DTensor):
+        specs = cache_specs(cfg)
+        return {"k": shd.zeros(shape, specs["k"], like, dtype),
+                "v": shd.zeros(shape, specs["v"], like, dtype),
+                "len": shd.zeros((batch,), specs["len"], like, torch.int32)}
     return {"k": cache_zeros(shape, dtype, device),
             "v": cache_zeros(shape, dtype, device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def cache_specs(cfg: AttnConfig):
+    return {"k": ("batch", "kv_seq", "act_kv_heads", None),
+            "v": ("batch", "kv_seq", "act_kv_heads", None),
+            "len": ("batch",)}
 
 
 def paged_init_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -380,6 +459,13 @@ def paged_init_cache(cfg: AttnConfig, batch: int, max_len: int,
             "len": torch.zeros((batch,), dtype=torch.int32, device=device),
             "pt": torch.zeros((batch, max_len // page_size),
                               dtype=torch.int32, device=device)}
+
+
+def paged_cache_specs(cfg: AttnConfig):
+    # the page axis is unsharded: pages are lane-local working state
+    return {"k": (None, None, "act_kv_heads", None),
+            "v": (None, None, "act_kv_heads", None),
+            "len": ("batch",), "pt": ("batch", None)}
 
 
 def paged_copy_page(layers, src: int, dst: int):
@@ -467,16 +553,23 @@ def _activate(h: torch.Tensor, act: str) -> torch.Tensor:
 
 def mlp(p, x, act: str = "swiglu"):
     h = crossbar_linear(x, p["wi"], "wi",
-                        digital=lambda: x @ p["wi"].to(x.dtype))
+                        digital=lambda: shd.matmul(x, p["wi"].to(x.dtype)))
     if act == "swiglu":
         g = crossbar_linear(x, p["wg"], "wg",
-                            digital=lambda: x @ p["wg"].to(x.dtype))
+                            digital=lambda: shd.matmul(x, p["wg"].to(x.dtype)))
         h = silu(g) * h
     else:
         h = _activate(h, act)
-    return crossbar_linear(
-        h, p["wo"], "wo",
-        digital=lambda: torch.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype)))
+    h = lc(h, ("batch", None, "act_mlp"))
+
+    def _wo_digital():
+        y = tp_bf16_matmul(h, p["wo"].to(x.dtype))  # opt-in (a rule)
+        if y is None:
+            y = shd.einsum("bsf,fd->bsd", h, p["wo"].to(x.dtype))
+        return y
+
+    y = crossbar_linear(h, p["wo"], "wo", digital=_wo_digital)
+    return lc(y, ("batch", "seq", "act_embed"))
 
 
 # -- Mixture of Experts --------------------------------------------------------
@@ -506,7 +599,7 @@ def moe_route(p, x, cfg: MoEConfig):
     index first among equal gates (as ``jax.lax.top_k`` breaks ties;
     ``torch.topk`` does not), with their gates renormalised.  Returns
     (gates (B, S, E), top_g (B, S, k), top_e (B, S, k))."""
-    logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype))
+    logits = shd.einsum("bsd,de->bse", x, p["router"].to(x.dtype))
     gates = torch.softmax(logits.to(torch.float32), dim=-1)
     top_g, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
     top_g, top_e = top_g[..., :cfg.top_k], top_e[..., :cfg.top_k]
@@ -525,16 +618,14 @@ def moe_block(p, x, cfg: MoEConfig):
 
     Every shape is fixed by ``x``'s (no host sync, no mask indexing), so
     a CUDA graph can hold the block.  The dispatch buffer receives one
-    nonzero value per kept slot and each token exactly ``top_k`` values,
-    so for ``top_k <= 2`` both scatter-adds are exact in any order
-    (``0 + a + b == 0 + b + a``); CUDA's ``scatter_add_`` has no fixed
-    order, so a larger ``top_k`` is refused there."""
+    nonzero value per kept slot (a dropped assignment adds a zero), so
+    its scatter-add is exact in any order.  The combine sums each token's
+    ``top_k`` weighted outputs in a fixed order, the order in which the
+    reference's scatter applies them (ascending position in the sorted
+    list, from a zero start): the same bits on the CPU and the card for
+    any ``top_k``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    if k > 2 and x.is_cuda:
-        raise NotImplementedError(
-            f"moe top_k={k}: the combine's scatter-add sums {k} values in "
-            f"no fixed order on CUDA (exact only for top_k <= 2)")
     c = max(1, int(-(-s * k * cfg.capacity_factor // e)))
 
     gates, top_g, top_e = moe_route(p, x, cfg)
@@ -555,25 +646,46 @@ def moe_block(p, x, cfg: MoEConfig):
 
     xs = torch.gather(x, 1, tok_s[..., None].expand(b, s * k, d))
     xs = torch.where(keep[..., None], xs, 0.0)
-    buf = torch.zeros((b, e * c, d), dtype=x.dtype, device=x.device)
+    buf = shd.zeros((b, e * c, d), ("batch", None, "act_embed"), x)
     buf.scatter_add_(1, dest[..., None].expand(b, s * k, d), xs)
     buf = buf.reshape(b, e, c, d)
+    buf = lc(buf, ("batch", None, None, "act_embed"))
 
-    h = torch.einsum("becd,edf->becf", buf, p["wi"].to(x.dtype))
+    h = shd.einsum("becd,edf->becf", buf, p["wi"].to(x.dtype))
     if cfg.act == "swiglu":
-        g = torch.einsum("becd,edf->becf", buf, p["wg"].to(x.dtype))
+        g = shd.einsum("becd,edf->becf", buf, p["wg"].to(x.dtype))
         h = silu(g) * h
     else:
         h = _activate(h, cfg.act)
-    out = torch.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
+    h = lc(h, ("batch", None, None, "act_mlp"))
+    out = shd.einsum("becf,efd->becd", h, p["wo"].to(x.dtype))
     out = out.reshape(b, e * c, d)
 
-    # gather back to sorted slots, weight by gates, unsort via scatter-add
+    # gather back to sorted slots, weight by gates, unsort, combine
     ys = torch.gather(out, 1, dest[..., None].expand(b, s * k, d))
     ys = ys * (gts_s * keep)[..., None].to(x.dtype)
-    y = torch.zeros((b, s, d), dtype=x.dtype, device=x.device)
-    y.scatter_add_(1, tok_s[..., None].expand(b, s * k, d), ys)
-    return y, gates
+    y = moe_combine(ys, order, k)
+    return lc(y, ("batch", "seq", "act_embed")), gates
+
+
+def moe_combine(ys: torch.Tensor, order: torch.Tensor, k: int
+                ) -> torch.Tensor:
+    """Each token's sum of its ``k`` rows of ``ys`` (B, S*k, d), the
+    sorted list whose position j came from flat assignment ``order[:, j]``
+    (token ``order // k``).  The rows are added from a zero start in
+    ascending j, the order of the reference's scatter-add (so ``-0.0``
+    comes out ``+0.0`` as there); a gather of (B, S, k, d) and k adds, in
+    one fixed order on any device."""
+    b, n, d = ys.shape
+    j = torch.arange(n, device=ys.device).expand(b, n)
+    at = torch.empty_like(order).scatter_(1, order, j)     # inverse perm
+    at = torch.sort(at.reshape(b, n // k, k), dim=-1).values
+    parts = torch.gather(ys, 1, at.reshape(b, n, 1).expand(b, n, d))
+    parts = parts.reshape(b, n // k, k, d)
+    y = shd.zeros((b, n // k, d), ("batch", "seq", "act_embed"), ys)
+    for i in range(k):
+        y = y + parts[:, :, i]
+    return y
 
 
 def moe_aux_loss(gates: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+
 
 def chunked_gla(q, k, v, log_w, u: Optional[torch.Tensor] = None,
                 chunk: int = 16, state0: Optional[torch.Tensor] = None
@@ -57,21 +59,22 @@ def chunked_gla(q, k, v, log_w, u: Optional[torch.Tensor] = None,
 
     # ---- 1. intra-chunk: a scan over positions, all chunks at once
     read_before = u is not None
-    s_loc = torch.zeros((b, nc, h, dk, dv), dtype=q.dtype, device=q.device)
+    s_loc = shd.zeros((b, nc, h, dk, dv),
+                      ("batch", None, "lin_heads", None, "lin_dv"), q)
     ys = []
     for j in range(chunk):
         qj, kj, vj, wj = cq[:, :, j], ck[:, :, j], cv[:, :, j], w[:, :, j]
         if read_before:
-            ys.append(torch.einsum("bnhk,bnhkv->bnhv", qj, s_loc))
+            ys.append(shd.einsum("bnhk,bnhkv->bnhv", qj, s_loc))
             s_loc = wj[..., None] * s_loc + kj[..., None] * vj[..., None, :]
         else:
             s_loc = wj[..., None] * s_loc + kj[..., None] * vj[..., None, :]
-            ys.append(torch.einsum("bnhk,bnhkv->bnhv", qj, s_loc))
+            ys.append(shd.einsum("bnhk,bnhkv->bnhv", qj, s_loc))
     y_intra = torch.stack(ys, dim=2)                   # (B, nc, L, H, dv)
 
     # u bonus (RWKV6): the current token reads (u * k_t) v_t
     if u is not None:
-        bonus = torch.einsum("bnlhk,hk,bnlhk->bnlh", cq, u, ck)
+        bonus = shd.einsum("bnlhk,hk,bnlhk->bnlh", cq, u, ck)
         y_intra = y_intra + bonus[..., None] * cv
 
     # ---- 2. inter-chunk: running (decay, state) combination
@@ -96,7 +99,7 @@ def chunked_gla(q, k, v, log_w, u: Optional[torch.Tensor] = None,
         # S_{t-1} saw decays w_1..w_{t-1} only: exclusive cumulative decay
         cum = cum - clw
     q_scaled = cq * torch.exp(cum)
-    y_inter = torch.einsum("bnlhk,bnhkv->bnlhv", q_scaled, prev)
+    y_inter = shd.einsum("bnlhk,bnhkv->bnlhv", q_scaled, prev)
 
     y = (y_intra + y_inter).reshape(b, s, h, dv)[:, :s_orig]
     final = dec[:, -1, ..., None] * state0 + states[-1]
@@ -110,9 +113,9 @@ def gla_decode_step(q, k, v, log_w, state, u: Optional[torch.Tensor] = None):
     kv = k[..., None] * v[..., None, :]
     new_state = w[..., None] * state + kv
     if u is not None:   # RWKV6: read S_{t-1} + bonus, then update
-        y = torch.einsum("bhk,bhkv->bhv", q, state + u[None, ..., None] * kv)
+        y = shd.einsum("bhk,bhkv->bhv", q, state + u[None, ..., None] * kv)
     else:               # Mamba2: update, then read
-        y = torch.einsum("bhk,bhkv->bhv", q, new_state)
+        y = shd.einsum("bhk,bhkv->bhv", q, new_state)
     return y, new_state
 
 
@@ -130,10 +133,10 @@ def naive_gla(q, k, v, log_w, u: Optional[torch.Tensor] = None,
         kv = k[:, t, ..., None].to(f32) * v[:, t, :, None, :].to(f32)
         qt = q[:, t].to(f32)
         if u is not None:
-            ys.append(torch.einsum("bhk,bhkv->bhv", qt,
-                                   st + u[None, ..., None] * kv))
+            ys.append(shd.einsum("bhk,bhkv->bhv", qt,
+                                 st + u[None, ..., None] * kv))
             st = w[..., None] * st + kv
         else:
             st = w[..., None] * st + kv
-            ys.append(torch.einsum("bhk,bhkv->bhv", qt, st))
+            ys.append(shd.einsum("bhk,bhkv->bhv", qt, st))
     return torch.stack(ys, dim=1), st

@@ -6,12 +6,12 @@ the Zamba2 hybrid.
 ``build_model(cfg, device=None)`` returns a ``Model`` with the
 reference's functional API:
 
-  init(seed) -> params
+  init(seed) -> params                  param_specs() -> logical axes
   loss_fn(params, batch) -> (loss, metrics)             [train shapes]
   prefill(params, batch, cache) -> (logits, cache)
   decode_step(params, tokens, cache) -> (logits, cache)
-  init_cache(batch, max_len[, src_len]) / init_paged_cache(...) /
-  copy_paged_page(...)
+  init_cache(batch, max_len[, src_len]) / cache_specs() /
+  init_paged_cache(...) / paged_cache_specs() / copy_paged_page(...)
 
 The model lives on one device, CUDA unless ``device="cpu"`` is asked
 for.  The crossbar backend serves the transformer families; the
@@ -31,6 +31,8 @@ from repro_torch.core import executor as xbar
 from repro_torch.core.engine import EngineConfig
 from repro_torch.core.executor import CrossbarExecutor
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import logical_constraint as lc
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
@@ -140,6 +142,10 @@ class Model:
     init_paged_cache: Any = None
     copy_paged_page: Any = None
     loss_fn: Any = None
+    # logical axes (distributed/sharding.py), trees of tuples, no tensor
+    param_specs: Any = None
+    cache_specs: Any = None
+    paged_cache_specs: Any = None
 
 
 def _stack(trees):
@@ -191,6 +197,29 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
             p["enc_ln_f"] = torch.ones((cfg.d_model,), device=device)
         return p
 
+    def param_specs():
+        p: Dict[str, Any] = {}
+        p["embed"] = {"tok": ("vocab", "embed")}
+        p["blocks"] = T.stack_specs(bc)
+        p["ln_f"] = (None,)
+        if not cfg.tie_embeddings:
+            p["head"] = ("embed", "vocab")
+        if cfg.family == "encdec":
+            p["enc_blocks"] = T.stack_specs(enc_bc)
+            p["enc_ln_f"] = (None,)
+        return p
+
+    def cache_specs():
+        out = {"layers": T.prefix_specs(L.cache_specs(bc.attn), "layers")}
+        if cfg.family == "encdec":
+            kv_spec = ("layers", "batch", "kv_seq", "act_kv_heads", None)
+            out["cross_kv"] = {"k": kv_spec, "v": kv_spec}
+        return out
+
+    def paged_cache_specs():
+        return {"layers": T.prefix_specs(L.paged_cache_specs(bc.attn),
+                                         "layers")}
+
     def _positions(batch, sq):
         if cfg.family == "vlm":
             return batch["positions_thw"]
@@ -222,18 +251,20 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
         xw = p["blocks"]["xattn"]
         ks, vs = [], []
         for layer in range(cfg.n_layers):
-            ks.append(torch.einsum("bsd,dhk->bshk", enc_out,
-                                   xw["wk"][layer].to(enc_out.dtype)))
-            vs.append(torch.einsum("bsd,dhk->bshk", enc_out,
-                                   xw["wv"][layer].to(enc_out.dtype)))
+            ks.append(shd.einsum("bsd,dhk->bshk", enc_out,
+                                 xw["wk"][layer].to(enc_out.dtype)))
+            vs.append(shd.einsum("bsd,dhk->bshk", enc_out,
+                                 xw["wv"][layer].to(enc_out.dtype)))
         return torch.stack(ks), torch.stack(vs)
 
     def _logits(p, x):
+        x = lc(x, ("batch", "seq_act", "act_embed"))  # SP gather point
         if cfg.tie_embeddings:   # digital, even on the crossbar backend
             return T.unembed(p["embed"], x)
-        return xbar.crossbar_linear(
+        logits = xbar.crossbar_linear(
             x, p["head"], "head",
             digital=lambda: T.unembed(p["embed"], x, head=p["head"]))
+        return lc(logits, ("batch", None, "vocab"))
 
     def _embed_inputs(p, batch):
         x = T.embed(p["embed"], batch["tokens"]).to(cfg.dtype)
@@ -351,7 +382,9 @@ def _build_transformer(cfg: ModelConfig, device: torch.device) -> Model:
     return Model(cfg, device, init, _on_crossbar(prefill),
                  _on_crossbar(decode_step), init_cache, executor=executor,
                  init_paged_cache=init_paged_cache,
-                 copy_paged_page=copy_paged_page, loss_fn=loss_fn)
+                 copy_paged_page=copy_paged_page, loss_fn=loss_fn,
+                 param_specs=param_specs, cache_specs=cache_specs,
+                 paged_cache_specs=paged_cache_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +406,14 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
             "head": L.normal(gen, (cfg.d_model, pv), cfg.d_model ** -0.5,
                              device),
         }
+
+    def param_specs():
+        return {"embed": {"tok": ("vocab", "embed")},
+                "blocks": T.prefix_specs(R.block_specs(rc), "layers"),
+                "ln_f": (None,), "head": ("embed", "vocab")}
+
+    def cache_specs():
+        return {"layers": T.prefix_specs(R.state_specs(rc), "layers")}
 
     def _run(params, x, states, decode, remat="none"):
         one = T.remat(lambda p_l, xc, st_l: R.block(p_l, rc, xc, st_l,
@@ -413,7 +454,8 @@ def _build_rwkv(cfg: ModelConfig, device: torch.device) -> Model:
         return _head(params, h), {"layers": new_states}
 
     return Model(cfg, device, init, _no_grad(prefill), _no_grad(decode_step),
-                 init_cache, loss_fn=loss_fn)
+                 init_cache, loss_fn=loss_fn, param_specs=param_specs,
+                 cache_specs=cache_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +487,20 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
                              device),
         }
 
+    def param_specs():
+        ms = S.mamba2_block_specs(mc)
+        return {"embed": {"tok": ("vocab", "embed")},
+                "shared_attn": T.block_specs(bc),
+                "supers": T.prefix_specs(ms, "layers", "layers"),
+                "tail": T.prefix_specs(ms, "layers"),
+                "ln_f": (None,), "head": ("embed", "vocab")}
+
+    def cache_specs():
+        mcs = S.mamba2_state_specs(mc)
+        return {"attn": T.prefix_specs(L.cache_specs(bc.attn), "layers"),
+                "mamba": T.prefix_specs(mcs, "layers", "layers"),
+                "tail": T.prefix_specs(mcs, "layers")}
+
     def init_cache(batch: int, max_len: int):
         attn = L.init_cache(bc.attn, batch, max_len,
                             dtype=cfg.kv_dtype or cfg.dtype, device=device)
@@ -471,7 +527,7 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
             if attn_cache is None:
                 attn_cache = L.init_cache(
                     bc.attn, xc.shape[0], xc.shape[1],
-                    dtype=cfg.kv_dtype or cfg.dtype, device=device)
+                    dtype=cfg.kv_dtype or cfg.dtype, device=device, like=xc)
             xc, _, _ = T.block(params["shared_attn"], bc, xc, positions,
                                cache=attn_cache)
             sts = []
@@ -532,7 +588,8 @@ def _build_zamba(cfg: ModelConfig, device: torch.device) -> Model:
         return _head(params, h), new_cache
 
     return Model(cfg, device, init, _no_grad(prefill), _no_grad(decode_step),
-                 init_cache, loss_fn=loss_fn)
+                 init_cache, loss_fn=loss_fn, param_specs=param_specs,
+                 cache_specs=cache_specs)
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:

@@ -16,6 +16,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import logical_constraint as lc
 from repro_torch.models import layers as L
 from repro_torch.models.lin_attn import chunked_gla, gla_decode_step
 
@@ -67,8 +69,8 @@ def _shift(x, last):
 def _decay(p, xw):
     """Data-dependent decay (Finch): log w = -exp(w0 + lora(xw)) <= 0,
     the low-rank product in xw's dtype, the rest in float32."""
-    t = xw @ p["wd_a"].to(xw.dtype)
-    lora = torch.einsum("bsr,rhk->bshk", t, p["wd_b"].to(xw.dtype))
+    t = shd.matmul(xw, p["wd_a"].to(xw.dtype))
+    lora = shd.einsum("bsr,rhk->bshk", t, p["wd_b"].to(xw.dtype))
     return -torch.exp(p["w0"].to(torch.float32)
                       + torch.tanh(lora).to(torch.float32) * 0.5)
 
@@ -84,11 +86,13 @@ def time_mix(p, cfg: RWKVConfig, x, shift_last, gla_state=None,
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
 
     def proj(xi, w):
-        return torch.einsum("bsd,dhk->bshk", xi, w.to(x.dtype))
+        return shd.einsum("bsd,dhk->bshk", xi, w.to(x.dtype))
 
     r, k, v, g = (proj(xr, p["wr"]), proj(xk, p["wk"]), proj(xv, p["wv"]),
                   proj(xg, p["wg"]))
     log_w = _decay(p, xw)                                  # (B,S,H,hd) f32
+    r = lc(r, ("batch", "seq", "lin_heads", None))
+    v = lc(v, ("batch", "seq", "lin_heads", "lin_dv"))
     u = p["u"].to(f32)
     if decode:
         y, new_state = gla_decode_step(
@@ -99,12 +103,16 @@ def time_mix(p, cfg: RWKVConfig, x, shift_last, gla_state=None,
         y, new_state = chunked_gla(r.to(f32), k.to(f32), v.to(f32), log_w,
                                    u, chunk=min(cfg.chunk, s),
                                    state0=gla_state)
-    y = y.reshape(b, s, h * hd)
+    # the norm spans every head's dv: a dv split is gathered first, in
+    # y and the gate (folding a split dim into another is beyond some
+    # DTensor versions)
+    whole = ("batch", "seq", "lin_heads", None)
+    y = lc(y, whole).reshape(b, s, h * hd)
     y = L.rmsnorm(y, p["ln_x"])                            # group-norm-ish
-    y = y.to(x.dtype) * L.silu(g.reshape(b, s, h * hd))
-    out = torch.einsum("bshk,hkd->bsd", y.reshape(b, s, h, hd),
-                       p["wo"].to(x.dtype))
-    return out, (x[:, -1], new_state)
+    y = y.to(x.dtype) * L.silu(lc(g, whole).reshape(b, s, h * hd))
+    out = shd.einsum("bshk,hkd->bsd", y.reshape(b, s, h, hd),
+                     p["wo"].to(x.dtype))
+    return lc(out, ("batch", "seq", "act_embed")), (x[:, -1], new_state)
 
 
 def channel_mix_init(gen, cfg: RWKVConfig, device):
@@ -120,10 +128,11 @@ def channel_mix(p, x, shift_last):
     mu = p["mu"].to(x.dtype)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
-    k = L.relu2(xk @ p["wk"].to(x.dtype))
-    kv = k @ p["wv"].to(x.dtype)
-    y = L.sigmoid(xr @ p["wr"].to(x.dtype)) * kv
-    return y, x[:, -1]
+    k = L.relu2(shd.matmul(xk, p["wk"].to(x.dtype)))
+    k = lc(k, ("batch", "seq", "act_mlp"))
+    kv = shd.matmul(k, p["wv"].to(x.dtype))
+    y = L.sigmoid(shd.matmul(xr, p["wr"].to(x.dtype))) * kv
+    return lc(y, ("batch", "seq", "act_embed")), x[:, -1]
 
 
 def block_init(gen, cfg: RWKVConfig, device):
@@ -131,6 +140,21 @@ def block_init(gen, cfg: RWKVConfig, device):
             "ln2": torch.ones((cfg.d_model,), device=device),
             "tm": time_mix_init(gen, cfg, device),
             "cm": channel_mix_init(gen, cfg, device)}
+
+
+def block_specs(cfg: RWKVConfig):
+    """The logical axes of one block (the reference's, leaf for leaf)."""
+    tms = {"mu": (None, None), "wr": ("embed", "lin_heads", None),
+           "wk": ("embed", "lin_heads", None),
+           "wv": ("embed", "lin_heads", "lin_dv"),
+           "wg": ("embed", "lin_heads", "lin_dv"),
+           "wo": ("lin_heads", "lin_dv", "embed"),
+           "w0": ("lin_heads", None), "wd_a": ("embed", None),
+           "wd_b": (None, "lin_heads", None), "u": ("lin_heads", None),
+           "ln_x": (None,)}
+    cms = {"mu": (None, None), "wk": ("embed", "mlp"),
+           "wv": ("mlp", "embed"), "wr": ("embed", None)}
+    return {"ln1": (None,), "ln2": (None,), "tm": tms, "cm": cms}
 
 
 def block(p, cfg: RWKVConfig, x, state, decode: bool = False):
@@ -158,3 +182,8 @@ def init_state(cfg: RWKVConfig, batch: int, dtype=torch.bfloat16,
                                     device=device),
             "gla": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
                                device=device)}
+
+
+def state_specs(cfg: RWKVConfig):
+    return {"tm_shift": ("batch", None), "cm_shift": ("batch", None),
+            "gla": ("batch", "lin_heads", None, "lin_dv")}

@@ -13,6 +13,8 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import logical_constraint as lc
 from repro_torch.models import layers as L
 from repro_torch.models.lin_attn import chunked_gla, gla_decode_step
 
@@ -77,7 +79,8 @@ def mamba2(p, cfg: Mamba2Config, x, state: Dict[str, Any],
     di, n, h, hd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
     f32 = torch.float32
 
-    proj = x @ p["w_in"].to(x.dtype)
+    proj = lc(shd.matmul(x, p["w_in"].to(x.dtype)),
+              ("batch", "seq", "act_ssm"))
     z, xbc, dt_raw = torch.split(proj, [di, di + 2 * n, h], dim=-1)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    state["conv"])
@@ -103,7 +106,9 @@ def mamba2(p, cfg: Mamba2Config, x, state: Dict[str, Any],
     y = y + xin.to(f32) * p["d_skip"][None, None, :, None]
     y = y.reshape(b, s, di).to(x.dtype)
     y = L.rmsnorm(y * L.silu(z), p["norm"])
-    return y @ p["w_out"].to(x.dtype), {"conv": conv_state, "ssm": ssm}
+    out = shd.matmul(y, p["w_out"].to(x.dtype))
+    return (lc(out, ("batch", "seq", "act_embed")),
+            {"conv": conv_state, "ssm": ssm})
 
 
 def mamba2_state(cfg: Mamba2Config, batch: int, dtype=torch.bfloat16,
@@ -119,9 +124,23 @@ def mamba2_state(cfg: Mamba2Config, batch: int, dtype=torch.bfloat16,
                                device=device)}
 
 
+def mamba2_state_specs(cfg: Mamba2Config):
+    return {"conv": ("batch", None, "act_ssm"),
+            "ssm": ("batch", "ssm_heads", None, None)}
+
+
 def mamba2_block_init(gen, cfg: Mamba2Config, device):
     return {"ln": torch.ones((cfg.d_model,), device=device),
             "mixer": mamba2_init(gen, cfg, device)}
+
+
+def mamba2_block_specs(cfg: Mamba2Config):
+    """The logical axes of one block (the reference's, leaf for leaf)."""
+    mixer = {"w_in": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+             "conv_b": ("ssm_inner",), "a_log": ("ssm_heads",),
+             "dt_bias": ("ssm_heads",), "d_skip": ("ssm_heads",),
+             "norm": ("ssm_inner",), "w_out": ("ssm_inner", "embed")}
+    return {"ln": (None,), "mixer": mixer}
 
 
 def mamba2_block(p, cfg: Mamba2Config, x, state, decode: bool = False):

@@ -16,6 +16,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import executor as xbar
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import logical_constraint as lc
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnConfig, MoEConfig
 
@@ -65,27 +67,75 @@ def block(p, cfg: BlockConfig, x, positions, cache=None, cross_kv=None,
     """Pre-norm residual block: attention, cross-attention onto
     ``cross_kv`` (encoder-decoder blocks), then the MLP or MoE block.
     Returns (x, new_cache, aux): ``aux`` is the MoE block's load-balance
-    loss (f32 zero for an MLP block)."""
+    loss (f32 zero for an MLP block).
+
+    Megatron-SP gather points, as the reference: the attention and MLP
+    inputs are constrained to "seq_act" (the sequence gathered) and the
+    residual adds to "seq"; with the default rules both map to None."""
+    def gather_sp(h):
+        return lc(h, ("batch", "seq_act", "act_embed"))
+
     with xbar.scope("attn"):
         h, new_cache = L.attention(p["attn"], cfg.attn,
-                                   _norm(cfg, x, p["ln1"]), positions,
-                                   cache=cache)
-    x = x + h
+                                   gather_sp(_norm(cfg, x, p["ln1"])),
+                                   positions, cache=cache)
+    x = x + lc(h, ("batch", "seq", "act_embed"))
     if cfg.cross_attn:
         with xbar.scope("xattn"):
             h, _ = L.attention(p["xattn"], cfg.attn,
-                               _norm(cfg, x, p["ln_x"]), None,
+                               gather_sp(_norm(cfg, x, p["ln_x"])), None,
                                cross_kv=cross_kv, kv_len=cross_len)
-        x = x + h
+        x = x + lc(h, ("batch", "seq", "act_embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe is not None:
         # plain products, outside any scope: no expert is programmed
-        h, gates = L.moe_block(p["moe"], _norm(cfg, x, p["ln2"]), cfg.moe)
+        h, gates = L.moe_block(p["moe"], gather_sp(_norm(cfg, x, p["ln2"])),
+                               cfg.moe)
         aux = L.moe_aux_loss(gates)
     else:
         with xbar.scope("mlp"):
-            h = L.mlp(p["mlp"], _norm(cfg, x, p["ln2"]), cfg.act)
-    return x + h, new_cache, aux
+            h = L.mlp(p["mlp"], gather_sp(_norm(cfg, x, p["ln2"])), cfg.act)
+    return x + lc(h, ("batch", "seq", "act_embed")), new_cache, aux
+
+
+def block_specs(cfg: BlockConfig) -> Params:
+    """Logical-axis specs of one block, with no tensor made (the
+    reference's, leaf for leaf)."""
+    norm_spec = (None,) if cfg.norm == "rms" else {"w": (None,), "b": (None,)}
+    attn_s: Params = {"wq": ("embed", "heads", None),
+                      "wk": ("embed", "kv_heads", None),
+                      "wv": ("embed", "kv_heads", None),
+                      "wo": ("heads", None, "embed")}
+    if cfg.attn.qk_norm:
+        attn_s["q_norm"] = (None,)
+        attn_s["k_norm"] = (None,)
+    s: Params = {"ln1": norm_spec, "attn": attn_s, "ln2": norm_spec}
+    if cfg.moe is not None:
+        s["moe"] = {"router": ("embed", None),
+                    "wi": ("experts", "embed", "expert_mlp"),
+                    "wo": ("experts", "expert_mlp", "embed")}
+        if cfg.moe.act == "swiglu":
+            s["moe"]["wg"] = ("experts", "embed", "expert_mlp")
+    else:
+        s["mlp"] = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+        if cfg.act == "swiglu":
+            s["mlp"]["wg"] = ("embed", "mlp")
+    if cfg.cross_attn:
+        s["ln_x"] = norm_spec
+        s["xattn"] = dict(attn_s)
+    return s
+
+
+def prefix_specs(specs, *names):
+    """Every spec leaf of ``specs`` with ``names`` in front (a stacked
+    tree's leading axes)."""
+    if type(specs) is tuple:
+        return tuple(names) + specs
+    return {k: prefix_specs(v, *names) for k, v in specs.items()}
+
+
+def stack_specs(cfg: BlockConfig) -> Params:
+    return prefix_specs(block_specs(cfg), "layers")
 
 
 # -- stacked layers ------------------------------------------------------------
@@ -203,12 +253,14 @@ def embed_init(gen, vocab: int, d_model: int, device) -> Params:
 
 
 def embed(p, tokens):
-    return p["tok"][tokens.to(torch.int64)]
+    e = shd.embedding(p["tok"], tokens.to(torch.int64))
+    return lc(e, ("batch", "seq", "act_embed"))
 
 
 def unembed(p, x, head=None):
     w = head if head is not None else p["tok"].T
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    logits = shd.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    return lc(logits, ("batch", None, "vocab"))
 
 
 def xent_loss(logits, labels, mask=None, vocab: Optional[int] = None):
@@ -222,8 +274,8 @@ def xent_loss(logits, labels, mask=None, vocab: Optional[int] = None):
                           device=lg.device)
         pad[vocab:] = -1e30
         lg = lg + pad
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
+    lse = shd.logsumexp(lg)
+    gold = shd.pick(lg, labels.to(torch.int64))
     nll = lse - gold
     if mask is not None:
         nll = nll * mask

@@ -8,8 +8,8 @@ arithmetic op for op: every step rounds to float32 as ``jnp`` does, and
 the leaves are walked in ``jax.tree``'s order (dict keys sorted), so
 ``global_norm`` adds the leaves in the reference's order.
 
-``compressed_psum`` (the error-feedback int8 all-reduce) needs a
-process group and comes with the port's distribution slice.
+``compressed_psum`` is the error-feedback int8 all-reduce over a
+process group (``torch.distributed``), the reference's over a mesh axis.
 """
 from __future__ import annotations
 
@@ -165,3 +165,23 @@ def quantize_grad_int8(g: torch.Tensor
 
 def dequantize_grad(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def compressed_psum(g: torch.Tensor, group, err: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 all-reduce: quantize (g + carried error) to
+    int8 codes, all-reduce the dequantized codes over ``group`` (a
+    ``torch.distributed`` process group; None for the default one), and
+    carry the quantization residual to the next step.  Returns (the mean
+    over the group's ranks, the new error); the error must be threaded
+    through the train state, as the reference's.  Each rank passes its
+    own local ``g`` and ``err`` (plain tensors)."""
+    import torch.distributed as dist
+    g_corr = g.to(torch.float32) + err
+    q, scale = quantize_grad_int8(g_corr)
+    deq_local = dequantize_grad(q, scale)
+    new_err = g_corr - deq_local
+    summed = deq_local.clone()
+    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+    n = _f32(dist.get_world_size(group), summed.device)
+    return torch.div(summed, n), new_err

@@ -10,8 +10,9 @@ gradient is taken with respect to that copy, as the reference
 differentiates through its cast.  The step builds new tensors and writes
 none of the state's in place unless asked to (``donate``).
 
-``state_specs`` (the sharded layout of the state) comes with the port's
-distribution slice.
+``state_specs`` is the state's logical layout (the params' specs for
+the masters and both moments); under installed sharding rules the
+compute copy is pinned to its master's placements.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import sharding as shd
 from repro_torch.models.model import Model
 from repro_torch.train import optimizer as opt
 
@@ -37,12 +39,37 @@ def init_state(model: Model, seed: int = 0,
     return TrainState(params=params, opt=opt.init(params, opt_state_dtype))
 
 
+def state_specs(model: Model) -> TrainState:
+    """The logical axes of a ``TrainState``: ``m`` and ``v`` shard
+    exactly like their params; ``step`` is a scalar."""
+    ps = model.param_specs()
+    return TrainState(params=ps, opt=opt.OptState(m=ps, v=ps, step=()))
+
+
 def _split_microbatch(batch, n: int, i: int):
     def sl(x):
+        if isinstance(x, shd.DTensor) and any(
+                p.is_shard(0) for p in x.placements):
+            return _split_rows(x, n, i)
         per = x.shape[0] // n
         return x[i * per:(i + 1) * per]
 
     return {k: sl(v) for k, v in batch.items()}
+
+
+def _split_rows(x, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of a batch split over ranks on its rows:
+    each rank's own i-th share of its rows (a slice of the split dim
+    itself would gather the batch whole on every rank).  The microbatch
+    takes rows from every rank, so its rows are not the reference's
+    contiguous ones; the accumulated step sums the same rows."""
+    local = x.to_local()
+    per = local.shape[0] // n
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    return shd.DTensor.from_local(
+        local[i * per:(i + 1) * per], x.device_mesh, x.placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=shd.contiguous_stride(shape))
 
 
 def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
@@ -66,10 +93,20 @@ def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
     del unroll_accum
 
     def cast(params):
-        return tree.map(
+        c = tree.map(
             lambda x: (x.detach().to(compute_dtype)
                        if x.dtype == torch.float32 and x.dim() >= 2
-                       else x.detach()).requires_grad_(), params)
+                       else x.detach()), params)
+        # pin the cast copy to its float32 master's placements, so the
+        # cast happens shard-local and the per-layer gathers move bf16
+        # (a DTensor cast keeps its placements already; the constraint
+        # holds the layout wherever the rules say otherwise)
+        rules = shd.current_rules()
+        if rules is not None:
+            c = shd.map_specs(
+                lambda names, x, m: _pin(x, m), model.param_specs(), c,
+                params)
+        return tree.map(lambda x: x.requires_grad_(), c)
 
     def value_and_grad(params_c, batch):
         leaves = tree.leaves(params_c)
@@ -87,8 +124,8 @@ def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
             leaves = tree.leaves(params_c)
-            gacc = [torch.zeros(p.shape, dtype=grad_accum_dtype,
-                                device=p.device) for p in leaves]
+            gacc = [torch.zeros_like(p, dtype=grad_accum_dtype)
+                    for p in leaves]
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             for i in range(microbatches):
@@ -116,6 +153,14 @@ def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
         return TrainState(new_params, new_opt), dict(metrics, **stats)
 
     return train_step
+
+
+def _pin(x, master):
+    """``x`` on ``master``'s placements (a DTensor master), else as is."""
+    if isinstance(master, shd.DTensor) and isinstance(x, shd.DTensor) and (
+            tuple(x.placements) != tuple(master.placements)):
+        return x.redistribute(master.device_mesh, master.placements)
+    return x
 
 
 def make_eval_step(model: Model):

@@ -31,6 +31,19 @@ TRAINING = ["train/optimizer.py", "train/trainer.py", "data/pipeline.py",
             "tree.py"]
 
 
+#: the distribution slice's modules (ROADMAP A.12): each stands alone too
+DISTRIBUTION = ["distributed/sharding.py", "configs/inputs.py",
+                "launch/mesh.py", "launch/dryrun.py", "launch/hillclimb.py",
+                "launch/probe_costs.py", "launch/forensics.py",
+                "launch/hlo_analysis.py", "launch/policy.py"]
+
+
+def test_the_distribution_modules_are_checked():
+    files = set(FILES)
+    assert all(ROOT / "src" / "repro_torch" / m in files
+               for m in DISTRIBUTION)
+
+
 def test_the_training_modules_are_checked():
     files = set(FILES)
     assert all(ROOT / "src" / "repro_torch" / m in files for m in TRAINING)
@@ -59,7 +72,12 @@ def test_package_imports_with_jax_blocked():
             "repro_torch.kernels.paged_attention, "
             "repro_torch.train.optimizer, repro_torch.train.trainer, "
             "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
-            "repro_torch.launch.ft, repro_torch.launch.train; "
+            "repro_torch.launch.ft, repro_torch.launch.train, "
+            "repro_torch.distributed.sharding, repro_torch.configs.inputs, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb, repro_torch.launch.probe_costs, "
+            "repro_torch.launch.forensics, repro_torch.launch.hlo_analysis, "
+            "repro_torch.launch.policy; "
             "print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),

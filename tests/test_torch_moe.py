@@ -62,12 +62,52 @@ def _capacity(cfg, s=S):
                         // cfg.n_experts)))
 
 
+@pytest.mark.parametrize("top_k", [2, 3, 4])
 @pytest.mark.parametrize("act", ["swiglu", "gelu", "relu2"])
-def test_moe_block_matches_the_reference(act):
+def test_moe_block_matches_the_reference(act, top_k):
     rng = np.random.default_rng(0)
-    cfg = layers.MoEConfig(E, 2, 1.25, act)
+    cfg = layers.MoEConfig(E, top_k, 1.25, act)
     x = rng.standard_normal((B, S, D)).astype(np.float32)
     _close(*_both(_params(rng, act), x, cfg))
+
+
+def _sorted_rows(rng, k, dtype, b=B, s=S, d=D):
+    """Weighted rows ``ys`` of a sorted assignment list and its ``order``
+    (each token's k experts distinct, as top-k's are)."""
+    ids = np.stack([rng.permutation(E)[:k] for _ in range(b * s)])
+    order = torch.argsort(torch.from_numpy(ids.reshape(b, s * k)), dim=-1,
+                          stable=True)
+    ys = torch.from_numpy(
+        rng.standard_normal((b, s * k, d)).astype(np.float32)).to(dtype)
+    ys[0, 0, :2] = -0.0                 # a zero start turns -0.0 to +0.0
+    return ys, order
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("top_k", [3, 4])
+def test_combine_is_bitwise_the_scatter_add(top_k):
+    """The fixed-order combine gives, at float32, the bits of the CPU
+    ``scatter_add_`` it replaced; at bfloat16 those of the reference's
+    scatter (each add rounded to bf16, where the CPU ``scatter_add_``
+    accumulated in float32 and rounded once)."""
+    rng = np.random.default_rng(3)
+    ys, order = _sorted_rows(rng, top_k, torch.float32)
+    tok = (order // top_k)[..., None].expand(ys.shape)
+    old = torch.zeros((B, S, D)).scatter_add_(1, tok, ys)
+    assert torch.equal(_bits(layers.moe_combine(ys, order, top_k)),
+                       _bits(old))
+    yb = ys.to(torch.bfloat16)
+    ref = jax.vmap(lambda acc, t, v: acc.at[t].add(v))(
+        jnp.zeros((B, S, D), jnp.bfloat16), jnp.asarray(order.numpy()
+                                                       // top_k),
+        jnp.asarray(yb.float().numpy()).astype(jnp.bfloat16))
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).to(
+        torch.bfloat16)
+    assert torch.equal(_bits(layers.moe_combine(yb, order, top_k)),
+                       _bits(ref))
 
 
 def test_equal_gates_pick_the_lower_experts():
