@@ -32,15 +32,18 @@ Phases, each of which fails the run (exit code 1, no result line):
              each carries, beside the call time, the device time of its
              kernels alone (``torch.profiler``); the bf16 scratch lane
              also holds an 8192-token window on a cluster of 8 CTAs
-             (past one CTA's capacity), its capacity and the float32
-             lane's logged.  With fp8 (float8_e4m3fn) K/V pools, q at
+             (past one CTA's capacity), both lanes' capacity logged, and
+             the float32 scratch lane runs at ``F32_CASES`` (its serving
+             table, 4096 and 8192 tokens on a cluster, 32 query rows per
+             KV head at 2048).  With fp8 (float8_e4m3fn) K/V pools, q at
              bf16 and at float32, both lanes at their serving shapes and
              the long shape, and at q bf16 the prefix-sharing serve's
              aliased 128-token table, must equal the same lane on the
-             pages upcast to q's type bit for bit; past the on-chip capacity (float32
-             at 8192 tokens, bf16 at 65,536 at B 1) the scratch lane keeps
-             its logits in a global workspace, one launch through the
-             dispatcher and none of the streamed lane's.
+             pages upcast to q's type bit for bit; past the on-chip
+             capacity (float32 and bf16 at 65,536 tokens, B 1) the
+             scratch lane keeps its logits in a global workspace, one
+             launch through the dispatcher and none of the streamed
+             lane's.
              The deep-net streaming kernel is driven through its entry
              point ``stream_linear`` at every qwen3-4b projection and
              held bitwise against the programmed read (``engine.linear``
@@ -477,8 +480,8 @@ PAGED_KERNELS = {"scratch": ("paged_scratch_kernel",
 #: the long-context shape: windows up to 4096 tokens, 8,336 attended
 LONG_CASE = dict(max_len=4096, kv_len=[4096, 3000, 1200, 40],
                  block_pages=16)
-#: past one CTA's capacity (~6,064 tokens at 8 query rows per KV head):
-#: the bf16 scratch lane on a cluster of 8 CTAs, qwen3-4b's heads, B 4
+#: past one CTA's capacity (~6,000 tokens at 8 query rows per KV head):
+#: either scratch lane on a cluster of 8 CTAs, qwen3-4b's heads, B 4
 CLUSTER_CASE = dict(max_len=8192, kv_len=[8192, 6100, 3000, 17])
 #: the long-context serve's attention shape (phase 4): chunk 16, so each
 #: KV head serves g * sq = 32 query rows, two 16-row groups of the split
@@ -642,12 +645,21 @@ FP8_CASES = (
     ("prefix_share", "streamed", PP_PAGED_CASE["max_len"],
      PP_PAGED_CASE["kv_len"], PP_PAGED_CASE["block_pages"],
      PP_PAGED_CASE["shared_pages"], ("bf16",)))
-#: past the scratch lane's on-chip capacity, the logits in the global
-#: workspace: (tag, q and K/V type, B, table, fills); the bf16 window's
-#: K/V is 0.54 GB (65,536 tokens x 16 KV heads x 128 x 2 bytes x 2)
-GLOBAL_CASES = (("f32_8192", "float32", 4, CLUSTER_CASE["max_len"],
-                 CLUSTER_CASE["kv_len"]),
-                ("bf16_65536", "bfloat16", 1, 65536, [65536]))
+#: past the scratch lane's on-chip capacity (a cluster of 8 holds ~47,000
+#: tokens at B 1), the logits in the global workspace: (tag, q and K/V
+#: type, B, table, fills); the bf16 window's K/V is 0.54 GB (65,536 tokens
+#: x 16 KV heads x 128 x 2 bytes x 2), the float32 one's 1.07 GB
+GLOBAL_CASES = (("bf16_65536", "bfloat16", 1, 65536, [65536]),
+                ("f32_65536", "float32", 1, 65536, [65536]))
+#: the float32 scratch lane (q and K/V float32, qwen3-4b's heads, B 4):
+#: (tag, queries per row sq, table, fills) at the serving
+#: table, the long shape, 8192 tokens on a cluster of 8 and the long
+#: serve's shape (32 query rows per KV head)
+F32_CASES = (("serve", 4, 64, [64, 37, 12, 5]),
+             ("long", 4, LONG_CASE["max_len"], LONG_CASE["kv_len"]),
+             ("cluster", 4, CLUSTER_CASE["max_len"], CLUSTER_CASE["kv_len"]),
+             ("serve_long", SERVE_LONG_CASE["sq"], SERVE_LONG_CASE["max_len"],
+              SERVE_LONG_CASE["kv_len"]))
 #: the multiplexed serve's scratch lanes: (rows, fill of each row)
 MUX_PAGED_CASES = ((5, [64, 37, 12, 5, 31]), (3, [31, 20, 5]))
 #: the other archs' attention at both lanes' serving shapes, bf16: (tag,
@@ -696,9 +708,9 @@ def phase_paged_attention(torch, dev, flush):
     cap = {dt: kernel.scratch_capacity(b, sq, hq, kv, hd, ps, eb)
            for dt, eb in (("bf16", 2), ("f32", 4))}
     c = CLUSTER_CASE
-    check(cap["bf16"] >= c["max_len"] > cap["f32"],
+    check(min(cap.values()) >= c["max_len"],
           f"scratch lane capacity at B {b}, hq {hq}, kv {kv}: {cap} "
-          f"(want bf16 >= {c['max_len']} > f32)")
+          f"(want both >= {c['max_len']})")
     args = _paged_case(torch, dev, gen, b, sq, c["max_len"], ps, hq, kv, hd,
                        c["kv_len"], torch.bfloat16)
     out["scratch"]["cluster"] = _paged_measure(
@@ -706,9 +718,15 @@ def phase_paged_attention(torch, dev, flush):
         flush)
     out["scratch"]["capacity"] = cap
     log(f"  scratch lane capacity at B {b}, {hq // kv * sq} query rows per "
-        f"KV head: bf16 {cap['bf16']} tokens (a cluster of up to 8 CTAs), "
-        f"float32 {cap['f32']} (one CTA)")
+        f"KV head, a cluster of up to 8 CTAs: bf16 {cap['bf16']} tokens, "
+        f"float32 {cap['f32']}")
     del args
+    for tag, sq_f, max_len, kv_len in F32_CASES:  # the float32 lane
+        args = _paged_case(torch, dev, gen, b, sq_f, max_len, ps, hq, kv, hd,
+                           kv_len, torch.float32)
+        out["scratch"].setdefault("f32", {})[tag] = _paged_measure(
+            torch, kernel, ref, "scratch", args, 0, max_len, kv_len, flush)
+        del args
     c = SERVE_LONG_CASE
     serve_args = _paged_case(torch, dev, gen, b, c["sq"], c["max_len"], ps,
                              hq, kv, hd, c["kv_len"], torch.bfloat16)
@@ -4112,11 +4130,12 @@ def main() -> int:
             "max_abs_err": max([r["max_abs_err"]] + [
                 r[k]["max_abs_err"] for k in (
                     "long", "serve_long", "hd40", "mux_b5", "mux_b3",
-                    "prefix_share", "global_f32_8192", "global_bf16_65536",
+                    "prefix_share", "global_f32_65536", "global_bf16_65536",
                     *(c[0] for c in ARCH_PAGED_CASES))
                 if k in r] + [
                     c["max_abs_err"] for by_q in r["fp8"].values()
-                    for c in by_q.values()]),
+                    for c in by_q.values()] + [
+                    c["max_abs_err"] for c in r.get("f32", {}).values()]),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4146,6 +4165,13 @@ def main() -> int:
                     pre + "library_device_ms": c["library_device_ms"],
                     pre + "shape": f"B={c['b']} sq={c['sq']} "
                                    f"max_len={c['max_len']}"})
+        for tag, c in r.get("f32", {}).items():  # the float32 lane
+            kernels[-1].update({
+                f"f32_{tag}_{k}": c[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms")})
+            kernels[-1][f"f32_{tag}_shape"] = (f"B={c['b']} sq={c['sq']} "
+                                               f"max_len={c['max_len']}")
         for tag, *_ in GLOBAL_CASES:  # past the scratch lane's capacity
             if f"global_{tag}" in r:
                 g = r[f"global_{tag}"]

@@ -18,9 +18,10 @@
 // Numerics, as in the reference: logits in f32 (bf16 products are exact
 // in f32), times hd^-0.5; -1e30 for causal (q_offset + s < t) and length
 // (t >= kv_len) masking.  The scratch lane takes max, exp, sum and
-// divides, rounds the weights to T and accumulates P.V in f32 (over t in
-// order at float32, in the tensor cores' order at bf16) before rounding
-// to T.  The streamed lane keeps a running max m,
+// divides, rounds the weights to T and accumulates P.V in f32 (at float32
+// eight fixed subsets of t, each in order, then the subsets and the
+// cluster's partials added in a fixed order; in the tensor cores' order at
+// bf16) before rounding to T.  The streamed lane keeps a running max m,
 // denominator l and f32 accumulator per row and normalises at the end.
 //
 // What bounds both lanes on the H100: the bytes of K/V pages a row
@@ -59,27 +60,34 @@
 //
 // What the scratch design does: only Q and the f32 logits of the window
 // stay resident in shared memory; K, then V, stream through a cp.async
-// ring of token tiles, so it holds windows up to about (227 KB - Q - ring)
-// / (4 * g * sq) tokens.  At bf16 (`paged_scratch_mma_kernel`) both
-// products run on the tensor cores (mma.sync m16n8k16, P from the rounded
-// logits, V by ldmatrix.trans, the P.V sums in registers across tiles),
-// the ring has two to four stages, and a window of 512 tokens or more is
-// split over a cluster of 2 to 8 CTAs whose row max and sum meet in
-// distributed shared memory, so the softmax stays exact over the window.
-// At float32 (`paged_scratch_kernel`) the arithmetic and its order are
-// the lane's from before the ring: an fmaf chain over d, then over t
-// (TF32 would break the float32 contract).  Both take any head dim of
-// whole 16-byte chunks; the streamed lane is compiled for widths 16, 32,
-// 64, 80, 96, 128, 192 and 256 and runs any head dim up to 256 on the next
-// width up, the extra columns zero in shared memory.
+// ring of token tiles.  A window of 512 tokens or more is split over a
+// cluster of 2 to 8 CTAs (fewer where B x kv fills the card), each
+// scoring its share of the tokens into its own logits; each row's max
+// and sum meet in distributed shared memory, so the softmax stays exact
+// over the window (max, exp, sum, divide), and the CTAs' P.V partials are
+// added in rank order.  So a cluster holds windows up to about 8 x (227 KB
+// - Q - ring) / (4 * g * sq) tokens.  At bf16 (`paged_scratch_mma_kernel`)
+// both products run on the tensor cores (mma.sync m16n8k16, P from the
+// rounded logits, V by ldmatrix.trans, the P.V sums in registers across
+// tiles) over 64-token tiles.  At float32 (`paged_scratch_kernel`) both
+// run as fmaf on the CUDA cores (TF32 would break the float32 contract)
+// over 16 KB tiles, the reused operand in registers: a lane holds two Q
+// chunks of 8 rows, so each K chunk it loads feeds 32 fmaf (a half-warp's
+// partial dots meet in a shuffle butterfly), and 8 rows x 8 columns of
+// P.V sums, so each V chunk feeds 32 fmaf and each weight 8.
+// Both take any head dim of whole 16-byte chunks; the streamed lane is
+// compiled for widths 16, 32, 64, 80, 96, 128, 192 and 256 and runs any
+// head dim up to 256 on the next width up, the extra columns zero in
+// shared memory.
 //
 // Past the on-chip layout's capacity (the window's f32 logits no longer
 // fit beside the ring and Q), each scratch kernel keeps the logits in a
 // global workspace the wrapper allocates, one region per (row, KV head,
 // cluster rank), and reads the row's page table from device memory;
 // ring, Q and the cluster's row sums stay on chip, and the softmax is the
-// same exact max, exp, sum and divide over the whole window.  The lane
-// never reroutes to the streamed lane.
+// same exact max, exp, sum and divide over the whole window (at float32
+// each V tile's weights are divided and staged in shared memory once per
+// pass).  The lane never reroutes to the streamed lane.
 //
 // fp8 K/V (float8_e4m3fn pages, q in float32 or bf16): every kernel
 // copies the e4m3 tiles (16 values per 16-byte cp.async) into a staging
@@ -112,7 +120,6 @@ constexpr int kGroupRows = 16;      // query rows per streamed block (mma M)
 constexpr int kWarpTokens = 16;     // tokens per warp per tile
 constexpr int kTileTokens = kWarps * kWarpTokens;
 constexpr int kScratchTileBytes = 16384;
-constexpr int kScratchAcc = 8;      // P.V sums a scratch thread keeps
 // streamed ring depth: two stages (68 KB at bf16, hd 128) let three blocks
 // share an SM; a three-stage ring measured slower, as fewer warps then hide
 // the copies' latency.  Where two stages would pass 192 KB (float32 at hd
@@ -137,14 +144,6 @@ from_f<__nv_bfloat16>(float v) {
 // the weights of the scratch lane are cast to the value type before P.V
 template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
-}
-
-// the 16 bytes of a shared chunk as four f32 values, in order
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -363,21 +362,6 @@ __device__ __forceinline__ void widen_tile(const Fp8* src, T* dst, int tt,
   }
 }
 
-// Q rows r = j * sq + s of the group, as f32, qst floats apart
-template <typename T>
-__device__ void load_q(const T* __restrict__ q, int b, int h, const Geom& gm,
-                       int qst, float* Qs) {
-  const int g = gm.hq / gm.kv;
-  for (int i = threadIdx.x; i < g * gm.sq * gm.hd; i += blockDim.x) {
-    const int r = i / gm.hd;
-    const int d = i - r * gm.hd;
-    const int j = r / gm.sq;
-    const int s = r - j * gm.sq;
-    Qs[r * qst + d] = to_f(q[((static_cast<size_t>(b) * gm.sq + s) * gm.hq +
-                              h * g + j) * gm.hd + d]);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void store_out(T* __restrict__ out, int b, int h,
                                           const Geom& gm, int r, int d,
@@ -391,229 +375,11 @@ __device__ __forceinline__ void store_out(T* __restrict__ out, int b, int h,
 
 // -- scratch lane -----------------------------------------------------------
 
-// tokens per scratch tile: a multiple of 4 (the P.V loop reads weights
-// four tokens at a time), at most 64
+// tokens per scratch tile of the float32 lane (16 KB of f32): a multiple
+// of 4 (a warp takes tokens two at a time), at most 64
 __host__ __device__ inline int scratch_tile(int hd, int elem_bytes) {
   const int t = (kScratchTileBytes / (hd * elem_bytes)) & ~3;
   return t < 64 ? (t > 4 ? t : 4) : 64;
-}
-
-// Stream tokens [0, n) of one pool through a two-stage ring of tt-token
-// tiles whose tile 0 was already issued into slot s0; body(tile, t0,
-// count) runs on each tile once every thread's copies have landed.  The
-// last iteration issues tile 0 of `next` (if any) into the following
-// slot, so its copies fly while the caller works between two streams.
-// With e4m3 pools (KV = Fp8) each landed tile is first widened into
-// `wide`, the one T tile the body reads.
-template <typename T, typename KV, typename F>
-__device__ void scratch_ring(const KV* __restrict__ pool, const KV* next,
-                             const int* pages, int h, const Geom& gm, int n,
-                             int tt, KV* ring, T* wide, int s0, F&& body) {
-  const int n_tiles = (n + tt - 1) / tt;
-  const int stage = tt * gm.hd;
-  for (int it = 0; it < n_tiles; ++it) {
-    KV* following = ring + ((s0 + it + 1) & 1) * stage;
-    if (it + 1 < n_tiles)
-      issue_tile<KV>(pool, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd,
-                     (it + 1) * tt, tt, n, following, nullptr);
-    else if (next != nullptr)
-      issue_tile<KV>(next, nullptr, pages, 0, h, gm.ps, gm.kv, gm.hd, 0, tt,
-                     n, following, nullptr);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const KV* cur = ring + ((s0 + it) & 1) * stage;
-    if constexpr (sizeof(KV) != sizeof(T)) {
-      widen_tile<T>(cur, wide, tt, gm.hd);
-      __syncthreads();
-      body(static_cast<const T*>(wide), it * tt, min(tt, n - it * tt));
-    } else {
-      body(cur, it * tt, min(tt, n - it * tt));
-    }
-    __syncthreads();  // the slot is refilled by the next iteration
-  }
-}
-
-// The float32 scratch lane (bf16 runs paged_scratch_mma_kernel).  KV: the
-// pools' element type (float, or e4m3 widened in shared memory);
-// kGlobalL: the logits live in the global workspace `logits` (B x kv
-// regions of rows x depth rounded up to 4 floats) and the page table is
-// read from device memory, past the on-chip layout's capacity.
-template <typename KV, bool kGlobalL>
-__global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
-    const float* __restrict__ q, const KV* __restrict__ kp,
-    const KV* __restrict__ vp, const int32_t* __restrict__ pt,
-    const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
-    float* __restrict__ out, float* __restrict__ logits, Geom gm) {
-  using T = float;
-  constexpr bool kWiden = sizeof(KV) != sizeof(T);
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kVec = 16 / sizeof(T);
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int g = gm.hq / gm.kv;
-  const int rows = g * gm.sq;
-  const int hd = gm.hd;
-  const int depth = gm.p_seq * gm.ps;
-  const int len = kv_len[b];
-  const int qo = q_off[b];
-  const int n = tokens_needed(len, depth);
-  const int tt = scratch_tile(hd, sizeof(T));
-  const int mask = swz_mask(hd / kVec);
-  // layout: ring (2 tiles of KV) | the widened T tile (e4m3 pools) | Qs
-  // (rows x (hd + 4): 16-byte rows, four banks apart) | on chip: L (rows x
-  // lst, lst = n rounded up to 4) and the row's page table
-  const int qst = hd + 4;
-  const int lst = (n + 3) & ~3;
-  KV* ring = reinterpret_cast<KV*>(smem);
-  T* wide = reinterpret_cast<T*>(ring + 2 * tt * hd);
-  float* Qs = reinterpret_cast<float*>(wide + (kWiden ? tt * hd : 0));
-  float* L;
-  const int* pages;
-  if constexpr (kGlobalL) {
-    L = logits + (static_cast<size_t>(b) * gm.kv + h) * rows *
-                     ((depth + 3) & ~3);
-    pages = pt + static_cast<size_t>(b) * gm.p_seq;
-  } else {
-    L = Qs + rows * qst;
-    int* row_pages = reinterpret_cast<int*>(L + rows * ((depth + 3) & ~3));
-    load_pages(pt + static_cast<size_t>(b) * gm.p_seq, 0, n, gm.ps,
-               row_pages);
-    pages = row_pages;
-  }
-  load_q(q, b, h, gm, qst, Qs);
-  __syncthreads();
-  issue_tile<KV>(kp, nullptr, pages, 0, h, gm.ps, gm.kv, hd, 0, tt, n, ring,
-                 nullptr);
-  cp_async_commit();
-  const int n_tiles = (n + tt - 1) / tt;
-  // logits L[r][t] of every row against each K tile.  A thread runs four
-  // dots at once (independent fmaf chains, each over d in order) from
-  // 16-byte loads; the rows of one token are neighbouring threads, so a
-  // warp reads few K rows.
-  scratch_ring(kp, vp, pages, h, gm, n, tt, ring, wide, 0,
-               [&](const T* Ks, int t0, int cnt) {
-                 const int total = rows * cnt;
-                 for (int i0 = threadIdx.x; i0 < total; i0 += 4 * kThreads) {
-                   float dot[4];
-                   int tk[4], rk[4];
-#pragma unroll
-                   for (int u = 0; u < 4; ++u) {
-                     const int i = min(i0 + u * kThreads, total - 1);
-                     tk[u] = i / rows;
-                     rk[u] = i - tk[u] * rows;
-                     dot[u] = 0.0f;
-                   }
-                   for (int c = 0; c < hd / kVec; ++c) {
-#pragma unroll
-                     for (int u = 0; u < 4; ++u) {
-                       float kf[kVec];
-                       unpack(*reinterpret_cast<const uint4*>(
-                                     Ks + swz<T>(tk[u], c, hd, mask)),
-                                 kf);
-                       const float* qr = Qs + rk[u] * qst + c * kVec;
-#pragma unroll
-                       for (int e4 = 0; e4 < kVec; e4 += 4) {
-                         const float4 qv =
-                             *reinterpret_cast<const float4*>(qr + e4);
-                         dot[u] = fmaf(qv.x, kf[e4], dot[u]);
-                         dot[u] = fmaf(qv.y, kf[e4 + 1], dot[u]);
-                         dot[u] = fmaf(qv.z, kf[e4 + 2], dot[u]);
-                         dot[u] = fmaf(qv.w, kf[e4 + 3], dot[u]);
-                       }
-                     }
-                   }
-#pragma unroll
-                   for (int u = 0; u < 4; ++u) {
-                     if (i0 + u * kThreads < total)
-                       L[rk[u] * lst + t0 + tk[u]] = mask_logit(
-                           __fmul_rn(dot[u], gm.scale), t0 + tk[u],
-                           rk[u] % gm.sq, qo, len, gm.causal);
-                   }
-                 }
-               });
-  // exact softmax per row: max, exp, sum, divide (one warp per row),
-  // while V's first tile is on its way
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += kWarps) {
-    float* lr = L + r * lst;
-    float mx = kNegBig;
-    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, lr[t]);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int t = lane; t < n; t += 32) {
-      const float e = expf(lr[t] - mx);
-      lr[t] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int t = lane; t < n; t += 32) lr[t] = round_to<T>(lr[t] / sum);
-  }
-  __syncthreads();
-  // P.V: each thread keeps the kScratchAcc outputs base + tid + k *
-  // kThreads in registers while V streams by (wider groups take more
-  // passes over V), each summed over t in order.  When hd divides the
-  // block a thread's outputs share column d, so one V load feeds all of
-  // them; the weights come four tokens to a 16-byte load.
-  const bool one_col = kThreads % hd == 0;
-  int s0 = n_tiles & 1;
-  for (int base = 0; base < rows * hd; base += kThreads * kScratchAcc) {
-    int rk[kScratchAcc], dk[kScratchAcc];
-    float acc[kScratchAcc];
-#pragma unroll
-    for (int k = 0; k < kScratchAcc; ++k) {
-      const int o = base + threadIdx.x + k * kThreads;
-      rk[k] = o / hd;
-      dk[k] = o - rk[k] * hd;
-      acc[k] = 0.0f;
-    }
-    const bool more = base + kThreads * kScratchAcc < rows * hd;
-    scratch_ring(vp, more ? vp : nullptr, pages, h, gm, n, tt, ring, wide,
-                 s0,
-                 [&](const T* Vs, int t0, int cnt) {
-      // V[t][d] of this tile
-      auto vat = [&](int t, int d) {
-        return to_f(Vs[swz<T>(t, d / kVec, hd, mask) + d % kVec]);
-      };
-      int t = 0;
-      for (; t + 4 <= cnt; t += 4) {
-        float v[4];
-        if (one_col) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) v[e] = vat(t + e, dk[0]);
-        }
-#pragma unroll
-        for (int k = 0; k < kScratchAcc; ++k) {
-          if (rk[k] < rows) {
-            if (!one_col) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) v[e] = vat(t + e, dk[k]);
-            }
-            const float4 w =
-                *reinterpret_cast<const float4*>(L + rk[k] * lst + t0 + t);
-            acc[k] = fmaf(w.x, v[0], acc[k]);
-            acc[k] = fmaf(w.y, v[1], acc[k]);
-            acc[k] = fmaf(w.z, v[2], acc[k]);
-            acc[k] = fmaf(w.w, v[3], acc[k]);
-          }
-        }
-      }
-      for (; t < cnt; ++t) {
-#pragma unroll
-        for (int k = 0; k < kScratchAcc; ++k) {
-          if (rk[k] < rows)
-            acc[k] = fmaf(L[rk[k] * lst + t0 + t], vat(t, dk[k]), acc[k]);
-        }
-      }
-    });
-    s0 = (s0 + n_tiles) & 1;
-#pragma unroll
-    for (int k = 0; k < kScratchAcc; ++k) {
-      if (rk[k] < rows) store_out(out, b, h, gm, rk[k], dk[k], acc[k]);
-    }
-  }
-  cp_async_wait<0>();
 }
 
 // -- scratch lane, bf16: tensor cores, the window split over a cluster -------
@@ -1007,6 +773,461 @@ __global__ void __launch_bounds__(kThreads) paged_scratch_mma_kernel(
       for (int k = 0; k < cs; ++k)
         v += *cluster.map_shared_rank(part + row * hdp + col, k);
       store_out(out, b, h, gm, row, col, v);
+    }
+    cluster.sync();  // the partials stay until every CTA has read them
+  }
+}
+
+// -- scratch lane, float32: CUDA cores, the window split over a cluster ------
+
+constexpr int kRowTile = 8;   // rows a thread keeps: a token's logits (Q.K),
+                              // a column's sums (P.V)
+constexpr int kDBlock = 32;   // 16-byte chunks a half-warp spans, two a lane
+constexpr int kQLoads = 4;    // 16-byte Q loads a thread keeps in flight
+// ring stages: a deeper ring measured no faster (the tiles had landed
+// when waited for) and keeps fewer CTAs on an SM
+constexpr int kF32Stages = 2;
+
+// f32 logit row stride for m tokens: whole tiles of tt tokens (P.V reads a
+// tile's weights, zero past m), plus 4, so that the kRowTile rows of one
+// token fall on distinct banks (rows stay 16-byte aligned)
+__host__ __device__ inline int scratch_f32_lst(int m, int tt) {
+  return (m + tt - 1) / tt * tt + 4;
+}
+
+// layout: ring (stages tiles of K/V elements) | the widened f32 tile
+// (e4m3 pools) | Qs (rows x hd), later the P.V partials (Q is read only
+// before the first V tile, the partials written only after) | on chip: L
+// (rows x lst) | row max, sum and the window's sum | global: the staged
+// weights of a tile (kRowTile x tt) | on chip: the CTA's page-table
+// entries.  With global_l the logits and the page table stay in device
+// memory.
+struct F32Layout {
+  size_t ring, wide, qs, l, red, pw, pages, total;
+};
+__host__ __device__ inline F32Layout scratch_f32_layout(
+    int rows, int hd, int depth, int ps, int stages, int cs, int kv_bytes,
+    bool global_l) {
+  const size_t tt = scratch_tile(hd, 4);
+  const int share = scratch_share(depth, cs);
+  F32Layout o;
+  o.ring = 0;
+  o.wide = o.ring + static_cast<size_t>(stages) * tt * hd * kv_bytes;
+  o.qs = o.wide + (kv_bytes != 4 ? tt * hd * 4 : 0);
+  o.l = o.qs + static_cast<size_t>(rows) * hd * 4;
+  o.red = o.l + (global_l ? 0
+                          : static_cast<size_t>(rows) *
+                                scratch_f32_lst(share, static_cast<int>(tt)) *
+                                4);
+  o.pw = o.red + static_cast<size_t>((3 * rows + 3) & ~3) * 4;
+  o.pages = o.pw + (global_l ? kRowTile * tt * 4 : 0);
+  o.total = o.pages + (global_l ? 0
+                                : static_cast<size_t>((share + ps - 1) / ps +
+                                                      1) * 4);
+  return o;
+}
+
+// floats of the global logits workspace of one (row, KV head, rank)
+__host__ __device__ inline size_t scratch_f32_global_l(int rows, int hd,
+                                                       int depth, int cs) {
+  return static_cast<size_t>(rows) *
+         scratch_f32_lst(scratch_share(depth, cs), scratch_tile(hd, 4));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The sums over the 16 lanes of each half-warp of p[0..7] (the half's
+// partial dots of 8 rows): lane l ends with row (l >> 1) & 7's, in a fixed
+// butterfly (the lanes differing in bit 3, then 2, 1 and 0), so every
+// call sums in the same order
+__device__ __forceinline__ float half_warp_rows8(const float (&p)[kRowTile],
+                                                 int lane) {
+  const bool b3 = lane & 8, b2 = lane & 4, b1 = lane & 2;
+  float v4[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float give = b3 ? p[i] : p[4 + i];
+    v4[i] = (b3 ? p[4 + i] : p[i]) + __shfl_xor_sync(~0u, give, 8);
+  }
+  float v2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float give = b2 ? v4[i] : v4[2 + i];
+    v2[i] = (b2 ? v4[2 + i] : v4[i]) + __shfl_xor_sync(~0u, give, 4);
+  }
+  const float v = (b1 ? v2[1] : v2[0]) +
+                  __shfl_xor_sync(~0u, b1 ? v2[0] : v2[1], 2);
+  return v + __shfl_xor_sync(~0u, v, 1);
+}
+
+// The float32 scratch lane.  The same function as paged_scratch_mma_kernel
+// at float32: the f32 logits of the window, an exact softmax per row (max,
+// exp, sum, divide), then P.V, every product an fmaf on the CUDA cores
+// (TF32 would break the float32 contract of 1e-5).
+//   * a window is split over a cluster of cs CTAs (gridDim.z,
+//     scratch_cluster), each scoring a share of the tokens
+//     (scratch_share) into its own logits; each row's max, then its sum
+//     of exp, are combined across the cluster through distributed shared
+//     memory (the sums in rank order), and the CTAs' P.V partials are
+//     summed in rank order;
+//   * K tiles, then V tiles (once per P.V pass), flow through one
+//     cp.async ring of `stages` tiles of scratch_tile tokens, so V's
+//     first tiles land while the softmax runs;
+//   * shared memory delivers 128 bytes a cycle, a warp's 16-byte load 512,
+//     so both products keep their reused operand in registers and load
+//     each K or V element once per warp: a warp takes two tokens at a time,
+//     one to each half, and each lane of a half two 16-byte chunks (4 dp
+//     and 4 dp + 64 of each 128 columns).  Q.K: the lane's Q chunks of 8
+//     rows stay in registers (loaded once where rows <= 8 and hd <= 128),
+//     each K chunk feeds 32 fmaf, and the half's 16 partial dots of each
+//     row meet in a fixed shuffle butterfly before __fmul_rn by the scale
+//     and the masks; P.V: the lane keeps 8 rows x 8 columns of sums, each
+//     weight (one 4-byte load for the half) feeds 8 fmaf and each V chunk
+//     32; at a pass's end the two halves, then the four warps in order,
+//     are added (more rows, or more than 128 columns, take more passes
+//     over V);
+//   * KV = Fp8: e4m3 tiles land in a ring of a quarter of the bytes and
+//     are widened into one f32 tile before the math (the same sums: fp8
+//     pages give the lane on upcast pages bit for bit); kGlobalL: the
+//     logits live in the workspace `logits` (scratch_f32_global_l floats
+//     per CTA) and the page table in device memory, past the on-chip
+//     capacity, and each V tile's weights of the pass are divided and
+//     staged in shared memory once, read from there by every column.
+template <typename KV, bool kGlobalL>
+__global__ void __launch_bounds__(kThreads) paged_scratch_kernel(
+    const float* __restrict__ q, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const int32_t* __restrict__ pt,
+    const int32_t* __restrict__ kv_len, const int32_t* __restrict__ q_off,
+    float* __restrict__ out, float* __restrict__ logits, Geom gm,
+    int stages) {
+  using T = float;
+  constexpr bool kWiden = sizeof(KV) != sizeof(T);
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int cs = gridDim.z;           // the cluster spans blockIdx.z
+  const int rank = blockIdx.z;
+  const int g = gm.hq / gm.kv;
+  const int rows = g * gm.sq;
+  const int hd = gm.hd;
+  const int cpr = hd / 4;
+  const int mask = swz_mask(cpr);
+  // Q (rows x hd f32, 16-byte chunk i at Qs + 4 i): a thread's first
+  // kQLoads chunks are in flight while kv_len and the page table are read
+  const int q_chunks = rows * cpr;
+  auto q_src = [&](int i) {
+    const int r = i / cpr;
+    const int j = r / gm.sq;
+    return q + ((static_cast<size_t>(b) * gm.sq + r - j * gm.sq) * gm.hq +
+                h * g + j) * hd + (i - r * cpr) * 4;
+  };
+  float4 qv[kQLoads];
+#pragma unroll
+  for (int u = 0; u < kQLoads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i < q_chunks) qv[u] = ld4(q_src(i));
+  }
+  const int depth = gm.p_seq * gm.ps;
+  const int len = kv_len[b];
+  const int qo = q_off[b];
+  const int n = tokens_needed(len, depth);
+  const int share = scratch_share(n, cs);
+  const int tb0 = min(n, rank * share);       // this CTA's tokens [tb0, te0)
+  const int te0 = min(n, tb0 + share);
+  const int m = te0 - tb0;
+  const int tt = scratch_tile(hd, 4);
+  const int lst = scratch_f32_lst(m, tt);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int half = lane >> 4;         // the token of a pair this lane takes
+  const int dp = lane & 15;           // its chunks dp and dp + 16 of each 32
+  const F32Layout lay = scratch_f32_layout(rows, hd, depth, gm.ps, stages,
+                                           cs, sizeof(KV), kGlobalL);
+  const int stage = tt * hd;
+  KV* ring = reinterpret_cast<KV*>(smem + lay.ring);
+  T* wide = reinterpret_cast<T*>(smem + lay.wide);
+  float* Qs = reinterpret_cast<float*>(smem + lay.qs);
+  float* part = Qs;  // the P.V partials, once Q is no longer read
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  float* pw = reinterpret_cast<float*>(smem + lay.pw);
+  float* L;
+  const int* pages;
+  if constexpr (kGlobalL) {
+    L = logits + ((static_cast<size_t>(b) * gm.kv + h) * cs + rank) *
+                     scratch_f32_global_l(rows, hd, depth, cs);
+    pages = pt + static_cast<size_t>(b) * gm.p_seq + tb0 / gm.ps;
+  } else {
+    L = reinterpret_cast<float*>(smem + lay.l);
+    int* cta_pages = reinterpret_cast<int*>(smem + lay.pages);
+    load_pages(pt + static_cast<size_t>(b) * gm.p_seq, tb0, te0, gm.ps,
+               cta_pages);
+    pages = cta_pages;
+  }
+  if (m > 0) {
+#pragma unroll
+    for (int u = 0; u < kQLoads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < q_chunks) *reinterpret_cast<float4*>(Qs + 4 * i) = qv[u];
+    }
+    for (int i = threadIdx.x + kQLoads * kThreads; i < q_chunks;
+         i += kThreads)
+      *reinterpret_cast<float4*>(Qs + 4 * i) = ld4(q_src(i));
+  } else if (cs > 1) {  // a CTA with no tokens adds zero partials
+    for (int i = threadIdx.x; i < rows * hd; i += kThreads) part[i] = 0.0f;
+  }
+  __syncthreads();  // the page entries, before the first issue
+
+  const int n_tiles = (m + tt - 1) / tt;
+  const int col_blocks = (cpr + kDBlock - 1) / kDBlock;
+  const int passes = (rows + kRowTile - 1) / kRowTile * col_blocks;
+  const int total = n_tiles * (1 + passes);
+  auto issue = [&](int it) {
+    if (it < total) {
+      const KV* pool = it < n_tiles ? kp : vp;
+      const int tile = it < n_tiles ? it : (it - n_tiles) % n_tiles;
+      issue_tile<KV>(pool, nullptr, pages, tb0, h, gm.ps, gm.kv, hd,
+                     tb0 + tile * tt, tt, te0, ring + (it % stages) * stage,
+                     nullptr);
+    }
+    cp_async_commit();
+  };
+  // tile `it` once every thread's copies have landed (widened from e4m3)
+  auto landed = [&](int it) -> const T* {
+    cp_async_wait_upto(stages - 1);
+    __syncthreads();
+    if constexpr (kWiden) {
+      widen_tile<T>(ring + (it % stages) * stage, wide, tt, hd);
+      __syncthreads();
+      return wide;
+    } else {
+      return ring + (it % stages) * stage;
+    }
+  };
+  // every logit is in L: exact softmax per row (one warp per row), the
+  // max and the sum over the whole window (red: this CTA's max, its sum,
+  // the window's sum).  On chip the weights are divided in place, zero
+  // past the CTA's tokens; in the global workspace the division waits for
+  // the staging of each tile.  Every CTA of the cluster runs it once.
+  auto softmax = [&]() {
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int r = warp; r < rows; r += kWarps) {  // this CTA's row max
+      const float* lr = L + static_cast<size_t>(r) * lst;
+      float mx = -INFINITY;
+      for (int t = lane; t < m; t += 32) mx = fmaxf(mx, lr[t]);
+      mx = warp_max(mx);
+      if (lane == 0) red[r] = mx;
+    }
+    if (cs > 1) cluster.sync();
+    else __syncthreads();
+    for (int r = warp; r < rows; r += kWarps) {  // exp, this CTA's sum
+      float* lr = L + static_cast<size_t>(r) * lst;
+      float mx = red[r];
+      if (cs > 1) {
+        mx = -INFINITY;
+        for (int k = 0; k < cs; ++k)
+          mx = fmaxf(mx, *cluster.map_shared_rank(red + r, k));
+      }
+      float sum = 0.0f;
+      for (int t = lane; t < m; t += 32) {
+        const float e = expf(lr[t] - mx);
+        lr[t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) red[rows + r] = sum;
+    }
+    if (cs > 1) cluster.sync();
+    else __syncthreads();
+    for (int r = warp; r < rows; r += kWarps) {  // the window's sum, divide
+      float sum = red[rows + r];
+      if (cs > 1) {
+        sum = 0.0f;
+        for (int k = 0; k < cs; ++k)  // rank order
+          sum += *cluster.map_shared_rank(red + rows + r, k);
+      }
+      if constexpr (kGlobalL) {
+        if (lane == 0) red[2 * rows + r] = sum;
+      } else {
+        float* lr = L + static_cast<size_t>(r) * lst;
+        for (int t = lane; t < lst; t += 32)
+          lr[t] = t < m ? lr[t] / sum : 0.0f;
+      }
+    }
+  };
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int s = 0; s < stages - 1; ++s) issue(s);
+
+  // Q.K: the lane's Q chunks of rows [qb, qb + 8), chunks db + dp (+ 16)
+  float4 qr[kRowTile][2];
+  auto load_qr = [&](int qb, int db) {
+#pragma unroll
+    for (int r = 0; r < kRowTile; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = db + dp + 16 * e;
+        qr[r][e] = qb + r < rows && c < cpr ? ld4(Qs + (qb + r) * hd + 4 * c)
+                                            : zero4;
+      }
+  };
+  const bool one_db = cpr <= kDBlock;
+  const bool q_resident = one_db && rows <= kRowTile;
+  if (q_resident) load_qr(0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    issue(it + stages - 1);
+    const T* st = landed(it);
+    const int t0 = it * tt;                    // within the CTA's share
+    const int cnt = min(tt, m - t0);
+    for (int qb = 0; qb < rows; qb += kRowTile) {
+      if (one_db && !q_resident) load_qr(qb, 0);
+      for (int pr = warp; 2 * pr < cnt; pr += kWarps) {
+        const int t = 2 * pr + half;           // < tt
+        float p[kRowTile];
+#pragma unroll
+        for (int r = 0; r < kRowTile; ++r) p[r] = 0.0f;
+        for (int db = 0; db < cpr; db += kDBlock) {
+          if (!one_db) load_qr(qb, db);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = db + dp + 16 * e;
+            const float4 k = c < cpr ? ld4(st + swz<T>(t, c, hd, mask))
+                                     : zero4;
+#pragma unroll
+            for (int r = 0; r < kRowTile; ++r) {
+              p[r] = fmaf(qr[r][e].x, k.x, p[r]);
+              p[r] = fmaf(qr[r][e].y, k.y, p[r]);
+              p[r] = fmaf(qr[r][e].z, k.z, p[r]);
+              p[r] = fmaf(qr[r][e].w, k.w, p[r]);
+            }
+          }
+        }
+        const float v = half_warp_rows8(p, lane);
+        const int r = qb + ((lane >> 1) & 7);
+        if ((lane & 1) == 0 && r < rows && t < cnt)
+          L[static_cast<size_t>(r) * lst + t0 + t] =
+              mask_logit(__fmul_rn(v, gm.scale), tb0 + t0 + t, r % gm.sq, qo,
+                         len, gm.causal);
+      }
+    }
+    __syncthreads();  // the slot is refilled stages - 1 tiles later
+  }
+
+  // P.V: pass by pass (rows [rb, rb + 8) x chunks [cb, cb + 32)), each
+  // over every V tile
+  float4 acc[kRowTile][2];
+  for (int it = n_tiles; it < total; ++it) {
+    issue(it + stages - 1);
+    if (it == n_tiles) softmax();
+    const T* st = landed(it);
+    const int vi = it - n_tiles;
+    const int vt = vi % n_tiles;
+    const int pass = vi / n_tiles;
+    const int rb = pass / col_blocks * kRowTile;
+    const int cb = pass % col_blocks * kDBlock;
+    const int nr = min(kRowTile, rows - rb);
+    const int t0 = vt * tt;
+    const int cnt = min(tt, m - t0);
+    const float* P;
+    int pst;
+    if constexpr (kGlobalL) {  // this tile's weights of the pass's rows
+      for (int i = threadIdx.x; i < kRowTile * tt; i += kThreads) {
+        const int rr = i / tt;
+        const int t = i - rr * tt;
+        pw[i] = rr < nr && t < cnt
+                    ? L[static_cast<size_t>(rb + rr) * lst + t0 + t] /
+                          red[2 * rows + rb + rr]
+                    : 0.0f;
+      }
+      __syncthreads();
+      P = pw;
+      pst = tt;
+    } else {
+      P = L + static_cast<size_t>(rb) * lst + t0;
+      pst = lst;
+    }
+    if (vt == 0) {
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) acc[r][0] = acc[r][1] = zero4;
+    }
+    for (int pr = warp; 2 * pr < cnt; pr += kWarps) {
+      const int t = 2 * pr + half;             // < tt; zero past cnt
+      float4 v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = cb + dp + 16 * e;
+        v[e] = c < cpr ? ld4(st + swz<T>(t, c, hd, mask)) : zero4;
+      }
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r) {
+        const float w = r < nr ? P[r * pst + t] : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[r][e].x = fmaf(w, v[e].x, acc[r][e].x);
+          acc[r][e].y = fmaf(w, v[e].y, acc[r][e].y);
+          acc[r][e].z = fmaf(w, v[e].z, acc[r][e].z);
+          acc[r][e].w = fmaf(w, v[e].w, acc[r][e].w);
+        }
+      }
+    }
+    if (vt == n_tiles - 1) {
+      // the pass's sums: the two halves of each warp, then the four warps
+      // in order, into part (the CTA's partial) or, alone in the window,
+      // into out
+#pragma unroll
+      for (int r = 0; r < kRowTile; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float4& a = acc[r][e];
+          a.x += __shfl_xor_sync(~0u, a.x, 16);
+          a.y += __shfl_xor_sync(~0u, a.y, 16);
+          a.z += __shfl_xor_sync(~0u, a.z, 16);
+          a.w += __shfl_xor_sync(~0u, a.w, 16);
+        }
+      for (int w = 0; w < kWarps; ++w) {
+        if (warp == w && half == 0) {
+#pragma unroll
+          for (int r = 0; r < kRowTile; ++r)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = cb + dp + 16 * e;
+              if (r < nr && c < cpr) {
+                float* pp = part + (rb + r) * hd + 4 * c;
+                float4 a = acc[r][e];
+                if (w > 0) {
+                  const float4 o = ld4(pp);
+                  a = make_float4(o.x + a.x, o.y + a.y, o.z + a.z,
+                                  o.w + a.w);
+                }
+                if (cs == 1 && w == kWarps - 1) {
+                  store_out(out, b, h, gm, rb + r, 4 * c, a.x);
+                  store_out(out, b, h, gm, rb + r, 4 * c + 1, a.y);
+                  store_out(out, b, h, gm, rb + r, 4 * c + 2, a.z);
+                  store_out(out, b, h, gm, rb + r, 4 * c + 3, a.w);
+                } else {
+                  *reinterpret_cast<float4*>(pp) = a;
+                }
+              }
+            }
+        }
+        if (w + 1 < kWarps) __syncthreads();
+      }
+    }
+    __syncthreads();  // the slot is refilled stages - 1 tiles later
+  }
+  if (n_tiles == 0) softmax();  // a CTA past the row's tokens
+  cp_async_wait<0>();
+  if (cs > 1) {
+    // out = the CTAs' partials summed in rank order; CTA `rank` stores
+    // every cs-th output
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int i = rank + cs * threadIdx.x; i < rows * hd; i += cs * kThreads) {
+      float v = 0.0f;
+      for (int k = 0; k < cs; ++k)
+        v += *cluster.map_shared_rank(part + i, k);
+      store_out(out, b, h, gm, i / hd, i % hd, v);
     }
     cluster.sync();  // the partials stay until every CTA has read them
   }
@@ -1492,19 +1713,6 @@ cudaError_t split_by_hd(const SplitArgs& a) {
   return cudaErrorInvalidValue;
 }
 
-// float32 scratch lane's shared memory: ring (2 tiles of KV) | widened
-// tile (e4m3) | Qs | on chip: the logits and the row's page table
-inline size_t scratch_f32_smem(int rows, int hd, int depth, int ps,
-                               int kv_bytes, bool global_l) {
-  const size_t tt = scratch_tile(hd, 4);
-  size_t s = 2 * tt * hd * kv_bytes + (kv_bytes != 4 ? tt * hd * 4 : 0) +
-             static_cast<size_t>(rows) * (hd + 4) * 4;
-  if (!global_l)
-    s += static_cast<size_t>(rows) * ((depth + 3) & ~3) * 4 +
-         static_cast<size_t>((depth + ps - 1) / ps) * 4;
-  return s;
-}
-
 struct ScratchArgs {
   const void *q, *kp, *vp, *pt, *kv_len, *q_off;
   void* out;
@@ -1514,28 +1722,12 @@ struct ScratchArgs {
   cudaStream_t st;
 };
 
-template <typename KV, bool kGlobalL>
-cudaError_t launch_scratch_f32(const ScratchArgs& a, size_t smem) {
-  static smem::SmemGrant grant;
-  cudaError_t err = grant.allow(paged_scratch_kernel<KV, kGlobalL>, smem);
-  if (err != cudaSuccess) return err;
-  paged_scratch_kernel<KV, kGlobalL>
-      <<<dim3(a.B, a.gm.kv), kThreads, smem, a.st>>>(
-          static_cast<const float*>(a.q), static_cast<const KV*>(a.kp),
-          static_cast<const KV*>(a.vp), static_cast<const int32_t*>(a.pt),
-          static_cast<const int32_t*>(a.kv_len),
-          static_cast<const int32_t*>(a.q_off), static_cast<float*>(a.out),
-          a.logits, a.gm);
-  return cudaGetLastError();
-}
-
-// the bf16 lane: a cluster of cs CTAs per (row, KV head) along z
-template <typename KV, bool kGlobalL>
-cudaError_t launch_scratch_mma(const ScratchArgs& a, int cs, int stages,
-                               size_t smem) {
-  using T = __nv_bfloat16;
-  auto kernel = paged_scratch_mma_kernel<KV, kGlobalL>;
-  static smem::SmemGrant grant;
+// either scratch kernel (T: q's and out's type): a cluster of cs CTAs per
+// (row, KV head) along z
+template <typename T, typename KV, typename K>
+cudaError_t launch_scratch(K kernel, smem::SmemGrant& grant,
+                           const ScratchArgs& a, int cs, int stages,
+                           size_t smem) {
   cudaError_t err = grant.allow(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -1560,6 +1752,21 @@ cudaError_t launch_scratch_mma(const ScratchArgs& a, int cs, int stages,
   return cudaGetLastError();
 }
 
+template <typename KV, bool kGlobalL>
+cudaError_t launch_scratch_mma(const ScratchArgs& a, int cs, int stages,
+                               size_t smem) {
+  static smem::SmemGrant grant;
+  return launch_scratch<__nv_bfloat16, KV>(
+      paged_scratch_mma_kernel<KV, kGlobalL>, grant, a, cs, stages, smem);
+}
+
+template <typename KV, bool kGlobalL>
+cudaError_t launch_scratch_f32(const ScratchArgs& a, int cs, size_t smem) {
+  static smem::SmemGrant grant;
+  return launch_scratch<float, KV>(paged_scratch_kernel<KV, kGlobalL>, grant,
+                                   a, cs, kF32Stages, smem);
+}
+
 // bytes of an element for a dtype code: 0 float32, 1 bfloat16, 2 e4m3
 inline int dtype_bytes(int code) {
   return code == 0 ? 4 : code == 1 ? 2 : code == 2 ? 1 : 0;
@@ -1573,23 +1780,22 @@ inline bool dtype_pair_ok(int dtype, int kv_dtype) {
 
 extern "C" {
 
-// Shared-memory bytes each lane's on-chip layout needs per block (the
-// wrapper compares them with the card's per-block limit).  depth is the
-// table's token depth P_seq * ps, blocks the launch's B * kv, kv_bytes
-// the K/V element size (1 for e4m3).  At bf16 each CTA of the cluster the
-// launch splits the window over (scratch_cluster) holds its share of the
-// logits, and this is the least it takes (a two-stage ring; the launch
-// deepens the ring where room is left); the float32 lane is one CTA per
-// (row, KV head).
+// Shared-memory bytes the scratch lane's on-chip layout needs per block
+// (the wrapper compares them with the card's per-block limit).  depth is
+// the table's token depth P_seq * ps, blocks the launch's B * kv,
+// kv_bytes the K/V element size (1 for e4m3).  Each CTA of the cluster
+// the launch splits the window over (scratch_cluster) holds its share of
+// the logits, and this is the least it takes (a two-stage ring; the bf16
+// launch deepens its ring where room is left).
 size_t paged_scratch_smem(int sq, int hq, int kv, int hd, int depth,
                           int ps, int elem_bytes, int kv_bytes, int blocks) {
   const int rows = hq / kv * sq;
+  const int cs = scratch_cluster(depth, blocks, sm_count());
   if (elem_bytes == 2)
-    return scratch_layout(rows, hd, depth, ps, 2,
-                          scratch_cluster(depth, blocks, sm_count()),
-                          kv_bytes, false)
-        .total;
-  return scratch_f32_smem(rows, hd, depth, ps, kv_bytes, false);
+    return scratch_layout(rows, hd, depth, ps, 2, cs, kv_bytes, false).total;
+  return scratch_f32_layout(rows, hd, depth, ps, kF32Stages, cs, kv_bytes,
+                            false)
+      .total;
 }
 
 // The deepest table (whole pages, in tokens) the on-chip layout holds at
@@ -1623,11 +1829,9 @@ size_t paged_scratch_workspace(int B, int sq, int hq, int kv, int hd,
     return 0;
   const int rows = hq / kv * sq;
   const size_t bk = static_cast<size_t>(B) * kv;
-  if (elem_bytes == 2) {
-    const int cs = scratch_cluster(depth, B * kv, sm_count());
-    return bk * cs * scratch_global_l(rows, depth, cs) * 4;
-  }
-  return bk * rows * ((depth + 3) & ~3) * 4;
+  const int cs = scratch_cluster(depth, B * kv, sm_count());
+  if (elem_bytes == 2) return bk * cs * scratch_global_l(rows, depth, cs) * 4;
+  return bk * cs * scratch_f32_global_l(rows, hd, depth, cs) * 4;
 }
 
 // split_pages: ceil(blocks / n_split) * block_pages; hd is the pools'
@@ -1687,17 +1891,21 @@ int paged_scratch_launch(const void* q, const void* kp, const void* vp,
                      : launch_scratch_mma<T, false>(a, cs, stages, smem);
     return static_cast<int>(err);
   }
-  const bool global_l = scratch_f32_smem(rows, hd, depth, ps, kvb, false) >
-                        static_cast<size_t>(kSmemLimit);
+  const int cs = scratch_cluster(depth, B * kv, sm_count());
+  const bool global_l =
+      scratch_f32_layout(rows, hd, depth, ps, kF32Stages, cs, kvb, false)
+          .total > static_cast<size_t>(kSmemLimit);
   if (global_l && logits == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = scratch_f32_smem(rows, hd, depth, ps, kvb, global_l);
+  const size_t smem =
+      scratch_f32_layout(rows, hd, depth, ps, kF32Stages, cs, kvb, global_l)
+          .total;
   if (fp8)
-    err = global_l ? launch_scratch_f32<Fp8, true>(a, smem)
-                   : launch_scratch_f32<Fp8, false>(a, smem);
+    err = global_l ? launch_scratch_f32<Fp8, true>(a, cs, smem)
+                   : launch_scratch_f32<Fp8, false>(a, cs, smem);
   else
-    err = global_l ? launch_scratch_f32<float, true>(a, smem)
-                   : launch_scratch_f32<float, false>(a, smem);
+    err = global_l ? launch_scratch_f32<float, true>(a, cs, smem)
+                   : launch_scratch_f32<float, false>(a, cs, smem);
   return static_cast<int>(err);
 }
 

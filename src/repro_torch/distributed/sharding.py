@@ -251,6 +251,23 @@ def logical_constraint(x, names: Sequence[Optional[str]]):
     return x.redistribute(mesh, want)
 
 
+def gather_dim(x, dim: int):
+    """``x`` with dim ``dim`` whole on every rank: a DTensor split on it
+    (``Shard(dim)``) is redistributed to ``Replicate()`` on those mesh
+    dims, whatever the rules map the other dims to; a plain tensor, or
+    a DTensor not split on ``dim``, is returned as it is.  For a fold of
+    ``dim`` into a neighbour, which some DTensor versions cannot do on a
+    split dim (``logical_constraint`` leaves a DTensor alone where every
+    name maps to None)."""
+    if not isinstance(x, DTensor):
+        return x
+    d = dim % x.ndim
+    want = tuple(Replicate() if p.is_shard(d) else p for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def zeros(shape, names: Sequence[Optional[str]], like, dtype=None):
     """``torch.zeros(shape)`` on ``like``'s device (in ``like``'s dtype
     unless given): a zero state made inside a step.  Under installed

@@ -136,11 +136,13 @@ def _check(q, k_pages, v_pages, page_table, kv_len, q_offset):
 def scratch_capacity(b: int, sq: int, hq: int, kv: int, hd: int,
                      page_size: int, elem_bytes: int) -> int:
     """Most tokens of table depth (whole pages) the scratch lane's on-chip
-    layout holds at this shape, K/V in q's type.  At bfloat16 the launch
-    splits a window of 512 tokens or more over a cluster of up to 8 CTAs
-    (fewer once B x kv fills the card), each holding the f32 logits of
-    its share; the float32 lane is one CTA.  A deeper table keeps its
-    logits in a global workspace (:func:`scratch_workspace`)."""
+    layout holds at this shape, K/V in q's type.  At either type the
+    launch splits a window of 512 tokens or more over a cluster of up to
+    8 CTAs (fewer once B x kv fills the card), each holding the f32
+    logits of its share: at 8 query rows per KV head, head dim 128,
+    8-token pages and B x kv <= 66, 47,104 tokens at bfloat16 and 47,616
+    at float32.  A deeper table keeps its logits in a global workspace
+    (:func:`scratch_workspace`)."""
     return _lib().paged_scratch_capacity(sq, hq, kv, hd, page_size,
                                          elem_bytes, elem_bytes, b * kv)
 
@@ -149,7 +151,8 @@ def scratch_workspace(b: int, sq: int, hq: int, kv: int, hd: int,
                       depth: int, page_size: int, elem_bytes: int,
                       kv_bytes: int) -> int:
     """Bytes of the global f32 logits workspace a scratch launch at this
-    shape takes: 0 within :func:`scratch_capacity`."""
+    shape takes: 0 within :func:`scratch_capacity`, else one region per
+    (row, KV head, cluster rank)."""
     return _lib().paged_scratch_workspace(b, sq, hq, kv, hd, depth,
                                           page_size, elem_bytes, kv_bytes)
 

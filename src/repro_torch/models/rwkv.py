@@ -104,12 +104,14 @@ def time_mix(p, cfg: RWKVConfig, x, shift_last, gla_state=None,
                                    u, chunk=min(cfg.chunk, s),
                                    state0=gla_state)
     # the norm spans every head's dv: a dv split is gathered first, in
-    # y and the gate (folding a split dim into another is beyond some
-    # DTensor versions)
+    # y and the gate, also where the rules map every name to None (a
+    # batch of 1) and the constraint leaves the split (folding a split
+    # dim into another is beyond some DTensor versions)
     whole = ("batch", "seq", "lin_heads", None)
-    y = lc(y, whole).reshape(b, s, h * hd)
+    y = shd.gather_dim(lc(y, whole), 3).reshape(b, s, h * hd)
     y = L.rmsnorm(y, p["ln_x"])                            # group-norm-ish
-    y = y.to(x.dtype) * L.silu(lc(g, whole).reshape(b, s, h * hd))
+    y = y.to(x.dtype) * L.silu(
+        shd.gather_dim(lc(g, whole), 3).reshape(b, s, h * hd))
     out = shd.einsum("bshk,hkd->bsd", y.reshape(b, s, h, hd),
                      p["wo"].to(x.dtype))
     return lc(out, ("batch", "seq", "act_embed")), (x[:, -1], new_state)

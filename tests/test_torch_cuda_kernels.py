@@ -437,17 +437,16 @@ def test_paged_lanes_at_the_prefix_sharing_serves_shape(cuda, dtype, rtol):
 
 
 def test_scratch_lane_computes_past_its_on_chip_capacity(cuda):
-    """The float32 lane's on-chip layout is one CTA per (row, KV head):
-    about 6,000 tokens at 8 query rows.  The bf16 lane splits a long
-    window over a cluster of up to 8 CTAs, so at B x kv = 16 it holds
-    eight times that.  Past either capacity the lane raises nothing: its
-    logits go to a global workspace, one launch, within the same bounds
-    of the plain version (the softmax stays exact over the window)."""
+    """Both lanes split a long window over a cluster of up to 8 CTAs, so
+    at B x kv = 16 and 8 query rows each holds about 8 x 5,900 tokens on
+    chip.  Past that capacity the lane raises nothing: its logits go to a
+    global workspace, one launch, within the same bounds of the plain
+    version (the softmax stays exact over the window)."""
     cap32 = pa.scratch_capacity(4, 4, 8, 4, 128, 8, 4)
     cap16 = pa.scratch_capacity(4, 4, 8, 4, 128, 8, 2)
-    assert 4096 < cap32 < 8192 < 40000 < cap16
+    assert 40000 < cap32 < 48000 and 40000 < cap16
     for dtype, cap, depth, rtol in (
-            (torch.float32, cap32, 8192, 1e-5),
+            (torch.float32, cap32, cap32 + 1024, 1e-5),
             (torch.bfloat16, cap16, cap16 + 1024, 2e-2)):
         args = _long_case(14, dtype, [depth, 100, 10, 1], max_len=depth)
         eb = args[0].element_size()
@@ -474,6 +473,25 @@ def test_scratch_lane_holds_an_8192_token_window_on_a_cluster(cuda):
     assert pa.LAUNCHES["paged_attention_scratch"] == before + 1
     assert _rel_err(pa_ref.paged_attention_ref(*args).float(),
                     out.float()) <= 2e-2
+
+
+@pytest.mark.parametrize("depth", [512, 2048, 8192])
+def test_f32_scratch_lane_on_a_cluster(cuda, depth):
+    """The float32 lane at qwen3-4b's heads (hq 32, 16 KV heads, hd 128),
+    B 4, chunk 4, at depths its launch splits over a cluster of 2, 4 and
+    8 CTAs: on chip (no workspace), one launch, within 1e-5 of the plain
+    version, and bitwise run to run."""
+    assert pa.scratch_workspace(4, 4, 32, 16, 128, depth, 8, 4, 4) == 0
+    args = _long_case(25, torch.float32,
+                      [depth, depth * 3 // 4, depth // 3, 17],
+                      max_len=depth, hq=32, kv=16)
+    before = pa.LAUNCHES["paged_attention_scratch"]
+    out = pa.paged_attention_scratch(*args)
+    again = pa.paged_attention_scratch(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention_scratch"] == before + 2
+    assert torch.equal(out, again)
+    assert _rel_err(pa_ref.paged_attention_ref(*args), out) <= 1e-5
 
 
 def _fp8_pages(args):
@@ -524,13 +542,16 @@ def test_paged_lanes_fp8_equal_the_lanes_on_upcast_pages(cuda, dtype, rtol,
         assert _rel_err(plain(*fp8, **kw).float(), out.float()) <= rtol, lane
 
 
-@pytest.mark.parametrize("dtype,depth", [(torch.float32, 8192),
+@pytest.mark.parametrize("dtype,depth", [(torch.float32, 65536),
                                          (torch.bfloat16, 65536)])
 def test_scratch_lane_fp8_past_its_capacity(cuda, dtype, depth):
     """fp8 pools past the on-chip layout (logits in the global workspace):
     bitwise the lane on upcast pages."""
     kv_len = [depth, 100, 10, 1] if depth < 65536 else [depth, 17]
     args = _long_case(24, dtype, kv_len, max_len=depth, b=len(kv_len))
+    eb = args[0].element_size()
+    assert pa.scratch_workspace(len(kv_len), 4, 8, 4, 128, depth, 8, eb,
+                                1) > 0
     fp8, up = _fp8_pages(args)
     out = pa.paged_attention_scratch(*fp8)
     assert torch.equal(out, pa.paged_attention_scratch(*up))
