@@ -1317,8 +1317,12 @@ def _paper_array(torch, dev):
 
 def _device_dynamics(torch, dev, pw, cfg):
     """(b) ``hysteresis_loop`` at its defaults and ``program_verify`` on
-    every cell of ``pw``'s planes (both sides, every slice), each held
-    against the CPU."""
+    every cell of ``pw``'s planes (both sides, every slice), each run
+    captured (its Euler blocks replayed from one CUDA graph) and eagerly
+    (``capture=False``): bitwise equal, and held against the CPU.  Wall
+    s of both, peak memory of both ``program_verify`` runs, and the
+    memory reserved but unused after each once the cache is emptied (the
+    captured call's graph pool must be released)."""
     import numpy as np
 
     from repro_torch.core import device as dm
@@ -1326,10 +1330,18 @@ def _device_dynamics(torch, dev, pw, cfg):
     from repro_torch.core.timing import PAPER
 
     out = {}
-    t0 = time.perf_counter()
-    v, i, w = dm.hysteresis_loop(device=dev)
-    torch.cuda.synchronize()
-    out["hysteresis_s"] = time.perf_counter() - t0
+    loops = {}
+    for capture in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loops[capture] = dm.hysteresis_loop(device=dev, capture=capture)
+        torch.cuda.synchronize()
+        out["hysteresis_s" if capture else "hysteresis_eager_s"] = (
+            time.perf_counter() - t0)
+    v, i, w = loops[True]
+    check(all(torch.equal(a, b) for a, b in zip(loops[True], loops[False])),
+          "hysteresis_loop: the captured trajectory differs from the eager")
+    del loops
     t0 = time.perf_counter()
     v_c, i_c, w_c = dm.hysteresis_loop(device="cpu")
     out["hysteresis_cpu_s"] = time.perf_counter() - t0
@@ -1346,10 +1358,11 @@ def _device_dynamics(torch, dev, pw, cfg):
     check(dv <= STATE_ATOL and dw <= STATE_ATOL and di <= LOOP_RTOL,
           f"hysteresis card vs CPU: v {dv:.3e}, w {dw:.3e}, i {di:.3e}")
     out.update(pinch=pinch, area=area, steps=len(vn), dv=dv, dw=dw, di=di)
-    log(f"  (b) hysteresis_loop, {len(vn)} steps: {out['hysteresis_s']:.2f} "
-        f"s on the card ({out['hysteresis_cpu_s']:.2f} s CPU); pinch "
-        f"{pinch:.2e}, area {area:.3e} V A; card vs CPU: v {dv:.2e}, w "
-        f"{dw:.2e}, i {di:.2e} of max")
+    log(f"  (b) hysteresis_loop, {len(vn)} steps: captured "
+        f"{out['hysteresis_s']:.3f} s, eager {out['hysteresis_eager_s']:.3f}"
+        f" s on the card, bitwise equal ({out['hysteresis_cpu_s']:.2f} s "
+        f"CPU); pinch {pinch:.2e}, area {area:.3e} V A; card vs CPU: v "
+        f"{dv:.2e}, w {dw:.2e}, i {di:.2e} of max")
 
     q = cfg.quant
     codes = torch.stack([pw.pos, pw.neg])          # (2, S, T, R, N)
@@ -1359,12 +1372,37 @@ def _device_dynamics(torch, dev, pw, cfg):
     w0 = torch.rand(target.shape, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(2))
     model = dm.MemristorModel()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    w_fin, g_tr = model.program_verify(w0, target, n_pulses=48,
-                                       n_steps=16)
-    torch.cuda.synchronize()
-    out["program_verify_s"] = time.perf_counter() - t0
+    runs = {}
+    for capture in (True, False):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        runs[capture] = model.program_verify(w0, target, n_pulses=48,
+                                             n_steps=16, capture=capture)
+        torch.cuda.synchronize()
+        tag = "" if capture else "_eager"
+        out[f"program_verify{tag}_s"] = time.perf_counter() - t0
+        out[f"program_verify{tag}_peak_gb"] = (
+            torch.cuda.max_memory_allocated(dev) - before) / 1e9
+        torch.cuda.empty_cache()
+        out[f"program_verify{tag}_cached_gb"] = (
+            torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev)) / 1e9
+    check(torch.equal(runs[True][0], runs[False][0])
+          and torch.equal(runs[True][1], runs[False][1]),
+          "program_verify: the captured states or trace differ from the "
+          "eager ones")
+    # a graph pool still held would stay reserved past empty_cache()
+    cached = (out["program_verify_cached_gb"],
+              out["program_verify_eager_cached_gb"])
+    check(cached[0] <= cached[1] + 0.1,
+          f"program_verify: {cached[0]:.3f} GB reserved and unused after "
+          f"the captured call (eager {cached[1]:.3f}): the graph's pool "
+          f"was not released")
+    w_fin, g_tr = runs[True]
+    del runs
     r_fin = 1.0 / model.conductance(w_fin)
     share = float(((r_fin * target - 1.0).abs() <= 0.25).double().mean())
     corner = (0, 0, 0, slice(0, 10), slice(0, 10))
@@ -1380,8 +1418,13 @@ def _device_dynamics(torch, dev, pw, cfg):
     out.update(cells=target.numel(), within_25pct=share, dw_pv=dw_pv,
                dg_pv=dg_pv, trace_gb=g_tr.numel() * 4 / 1e9)
     log(f"  (b) program_verify, 48 pulses x 16 steps, on {target.numel():,}"
-        f" cells (wq's planes, both sides): {out['program_verify_s']:.2f} s"
-        f"; {100 * share:.2f}% of cells within 25% of their target "
+        f" cells (wq's planes, both sides): captured "
+        f"{out['program_verify_s']:.2f} s, eager "
+        f"{out['program_verify_eager_s']:.2f} s, bitwise equal; peak "
+        f"{out['program_verify_peak_gb']:.2f} / "
+        f"{out['program_verify_eager_peak_gb']:.2f} GB over the inputs, "
+        f"reserved unused after {cached[0]:.3f} / {cached[1]:.3f} GB; "
+        f"{100 * share:.2f}% of cells within 25% of their target "
         f"resistance; the 10 x 10 corner vs CPU: w {dw_pv:.2e}, g "
         f"{dg_pv:.2e}")
     return out
@@ -2509,11 +2552,20 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _timed_generate(torch, model, params, batch, max_new, max_len=None):
-    """``greedy_generate`` with the model's prefill and each decode step
-    timed on the host clock, the device synchronized around each, and
-    every step's logits checked finite on the device.  Returns (tokens,
-    prefill ms, decode-step ms, wall s, logits finite)."""
+def _timed_generate(torch, model, params, batch, max_new, max_len=None,
+                    capture=True, replays=False):
+    """``greedy_generate`` with the model's prefill timed on the host
+    clock, the device synchronized around it, and every step's logits
+    checked finite on the device.  Captured (the default), a decode step
+    is the generate wall less the prefill over the ``max_new - 1`` steps
+    (the warm-up and the capture included): a sync inside the capture is
+    illegal.  With ``replays`` each run of the loop's ``GraphStep`` is
+    timed between syncs instead (outside the capture), and the decode
+    step ms are the replays' alone.  Eager (``capture=False``, the
+    witness), each decode step is timed between syncs.  Returns (tokens,
+    prefill ms, decode-step ms, wall s, logits finite,
+    ``greedy_generate``'s stats)."""
+    from repro_torch.graphs import GraphStep
     from repro_torch.serve.engine import greedy_generate
 
     ms = {"prefill": [], "decode_step": []}
@@ -2521,28 +2573,60 @@ def _timed_generate(torch, model, params, batch, max_new, max_len=None):
     inner = {key: getattr(model, key) for key in ms}
 
     def timed(key):
+        sync = key == "prefill" or not capture
+
         def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            if sync:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
             logits, cache = inner[key](*args, **kwargs)
             finite.logical_and_(torch.isfinite(logits).all())
-            torch.cuda.synchronize()
-            ms[key].append((time.perf_counter() - t0) * 1e3)
+            if sync:
+                torch.cuda.synchronize()
+                ms[key].append((time.perf_counter() - t0) * 1e3)
             return logits, cache
         return run
 
+    run, runs = GraphStep.run, []
+
+    def timed_run(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(step)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+
     for key in ms:
         setattr(model, key, timed(key))
+    if capture and replays:
+        GraphStep.run = timed_run
+    stats = {}
     try:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks = greedy_generate(model, params, batch, max_new,
-                               max_len=max_len)
+                               max_len=max_len, capture=capture,
+                               stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
+        GraphStep.run = run
         for key in ms:
             setattr(model, key, inner[key])
-    return toks, ms["prefill"][0], ms["decode_step"], wall, bool(finite)
+    step_ms = ms["decode_step"]
+    if capture:
+        step_ms = (runs[2:] if replays else
+                   [(wall * 1e3 - ms["prefill"][0]) / (max_new - 1)])
+    return toks, ms["prefill"][0], step_ms, wall, bool(finite), stats
+
+
+def _check_generate_stats(stats, max_new, what):
+    """One capture a call: the warm-up eager, every later decode step
+    served by the graph."""
+    want = (1, max_new - 2, 1)
+    got = (stats["captures"], stats["replays"], stats["eager_steps"])
+    check(got == want, f"{what}: captures, replays, eager steps {got}, "
+          f"want {want}")
 
 
 #: columns per call of the exact plain MAC (``_exact_plain_mac``): bounds
@@ -2645,7 +2729,9 @@ def phase_family_parity(torch, dev):
     rwkv6-3b at full width and 2 layers and zamba2-1.2b at 7 (one
     shared-attention application, then a trailing Mamba2 block), digital,
     must give on the card the streams the port gives on the CPU from the
-    same params."""
+    same params.  Every ``greedy_generate`` call on the card is captured
+    (the default): one capture a call, each decode step after the
+    warm-up served by the graph."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serve.engine import greedy_generate
@@ -2671,9 +2757,13 @@ def phase_family_parity(torch, dev):
             model = models[use_kernel] = build_model(cfg, device=dev)
             params = params if params is not None else model.init(0)
             _reset_counts()
-            toks = greedy_generate(model, params, batch, 4, max_len=max_len)
+            stats = {}
+            toks = greedy_generate(model, params, batch, 4, max_len=max_len,
+                                   stats=stats)
             torch.cuda.synchronize()
             counted, plain, _ = _read_counts()
+            _check_generate_stats(stats, 4, f"{arch} use_kernel="
+                                  f"{use_kernel}")
             n_mac = counted["crossbar_mac"]
             n_ref = plain["engine.matmul_reference"]
             check((n_mac > 0) == use_kernel and (n_ref > 0) != use_kernel,
@@ -2684,10 +2774,12 @@ def phase_family_parity(torch, dev):
                 f"{use_kernel}: streams {streams[use_kernel]} (MAC launches "
                 f"{n_mac}, plain MAC calls {n_ref})")
         _reset_counts()
+        stats = {}
         with _exact_plain_mac(torch):
             exact = greedy_generate(models[True], params, batch, 4,
-                                    max_len=max_len).tolist()
+                                    max_len=max_len, stats=stats).tolist()
         counted, plain, _ = _read_counts()
+        _check_generate_stats(stats, 4, f"{arch}, the exact plain MAC")
         check(counted["crossbar_mac"] == 0
               and plain["crossbar_mac_codes_ref"] > 0,
               f"{arch}: the exact plain MAC's run launched "
@@ -2727,7 +2819,10 @@ def phase_family_parity(torch, dev):
         gen.manual_seed(5)
         toks = torch.randint(0, cfg.vocab - 1, (2, 16), generator=gen,
                              dtype=torch.int32)
-        got = greedy_generate(model, params, {"tokens": toks.to(dev)}, 4)
+        stats = {}
+        got = greedy_generate(model, params, {"tokens": toks.to(dev)}, 4,
+                              stats=stats)
+        _check_generate_stats(stats, 4, arch)
         want = greedy_generate(build_model(cfg, device="cpu"),
                                _to(params, "cpu"), {"tokens": toks}, 4)
         check(got.cpu().tolist() == want.tolist(),
@@ -2792,9 +2887,19 @@ def phase_family_serves(torch, dev):
     crossbar with the kernels (every MAC read on the kernel, no plain
     version); rwkv6-3b and zamba2-1.2b at full depth, digital, 512-token
     prompts and 32 new, with ``chunked_gla`` held against ``naive_gla``
-    at the serve's shapes.  Each logs the prefill ms, the median decode
-    step ms, tokens/s, programming s and peak memory; every step's logits
-    must be finite and every token inside the padded vocab."""
+    at the serve's shapes.  Each serve runs captured (the decode loop
+    replayed from one CUDA graph), then eagerly (``capture=False``, the
+    witness) on the same model and batch: the streams must be equal bit
+    for bit, the captured call must capture once and serve every decode
+    step after the warm-up from the graph, and a crossbar serve must
+    launch the MAC kernel (its replays included) with no plain MAC call.
+    Each logs, captured and eager, the prefill ms, the decode step ms
+    (captured: the wall less the prefill over the steps; eager: the
+    median step), tokens/s and peak memory, and the programming s; and a
+    replay's ms, the median of a third, captured call of half the steps
+    whose loop runs are timed between syncs (its tokens the first half
+    of the full call's).  Every step's logits must
+    be finite and every token inside the padded vocab."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
@@ -2812,7 +2917,6 @@ def phase_family_serves(torch, dev):
         check(torch.cuda.memory_allocated(dev) < 1 << 30,
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
               f"allocated before the {arch} serve")
-        torch.cuda.reset_peak_memory_stats(dev)
         model = build_model(cfg, device=dev)
         params = model.init(0)
         program_s = 0.0
@@ -2824,41 +2928,73 @@ def phase_family_serves(torch, dev):
         gen = torch.Generator(device=dev)
         gen.manual_seed(7)
         batch = _family_batch(torch, dev, cfg, FAMILY_B, gen, **kw)
-        _reset_counts()
-        toks, prefill_ms, step_ms, wall, finite = _timed_generate(
-            torch, model, params, batch, new, max_len)
-        counted, plain, _ = _read_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-        check(finite, f"{arch}: non-finite logits")
-        check(tuple(toks.shape) == (FAMILY_B, new)
-              and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
-              f"{arch}: tokens {tuple(toks.shape)} outside the padded vocab")
+        runs = {}
+        for capture in (True, False):
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()
+            toks, prefill_ms, step_ms, wall, finite, stats = \
+                _timed_generate(torch, model, params, batch, new, max_len,
+                                capture=capture)
+            counted, plain, _ = _read_counts()
+            what = f"{arch} ({'captured' if capture else 'eager'})"
+            check(finite, f"{what}: non-finite logits")
+            check(tuple(toks.shape) == (FAMILY_B, new)
+                  and bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+                  f"{what}: tokens {tuple(toks.shape)} outside the padded "
+                  f"vocab")
+            if capture:
+                _check_generate_stats(stats, new, what)
+            launches = _executed(counted, {"generate": stats})
+            if backend == "crossbar":
+                check(launches["crossbar_mac"] > 0
+                      and all(v == 0 for v in plain.values()),
+                      f"{what}: MAC launches {launches['crossbar_mac']}, "
+                      f"plain versions {plain}")
+            runs[capture] = {
+                "prefill_ms": prefill_ms,
+                "decode_step_ms": statistics.median(step_ms),
+                "tok_per_s": FAMILY_B * new / wall, "seconds": wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                "launches": launches, "plain_calls": plain,
+                "generate_stats": stats, "streams": toks.tolist()}
+        check(runs[True]["streams"] == runs[False]["streams"],
+              f"{arch}: the captured streams differ from the eager ones")
+        # a replay's ms: a captured call of half the steps, each run of
+        # its loop timed between syncs (outside the capture)
+        half = new // 2
+        toks, _, replay_ms, _, _, _ = _timed_generate(
+            torch, model, params, batch, half, max_len, replays=True)
+        check(toks.tolist() == [r[:half] for r in runs[True]["streams"]],
+              f"{arch}: {half} captured tokens are not the first of {new}")
+        runs[True]["replay_ms"] = statistics.median(replay_ms)
         row = {"layers": cfg.n_layers, "backend": backend, "b": FAMILY_B,
                "prompt": kw, "new": new, "max_len": max_len,
-               "prefill_ms": prefill_ms,
-               "decode_step_ms": statistics.median(step_ms),
-               "tok_per_s": FAMILY_B * new / wall, "seconds": wall,
-               "program_s": program_s, "max_memory_allocated": peak,
-               "launches": counted, "plain_calls": plain,
-               "streams": toks.tolist()}
-        if backend == "crossbar":
-            check(counted["crossbar_mac"] > 0
-                  and all(v == 0 for v in plain.values()),
-                  f"{arch}: MAC launches {counted['crossbar_mac']}, plain "
-                  f"versions {plain}")
-        else:
+               "program_s": program_s, **runs[True],
+               "eager": {k: v for k, v in runs[False].items()
+                         if k != "streams"}}
+        if backend == "digital":
             row["gla_err"] = _gla_at_serve_shapes(torch, dev, cfg)
             check(max(row["gla_err"]) <= GLA_SERVE_BOUND,
                   f"{arch}: chunked_gla against naive_gla {row['gla_err']} "
                   f"> {GLA_SERVE_BOUND:.2e} of the largest magnitude")
         del model, params, batch
         row["phase_s"] = time.perf_counter() - t_arch
+        ev = row["eager"]
+        per_replay = row["generate_stats"]["launches_per_replay"].get(
+            "crossbar_mac", 0)
         log(f"  {arch} ({cfg.n_layers} layers, {backend}, bf16, B "
-            f"{FAMILY_B}, {kw}, {new} new): prefill {prefill_ms:.2f} ms, "
-            f"decode step {row['decode_step_ms']:.2f} ms (median of "
-            f"{len(step_ms)}), {row['tok_per_s']:.2f} tok/s; programming "
-            f"{program_s:.2f} s; peak {peak / 2**30:.2f} GiB; MAC launches "
-            f"{counted['crossbar_mac']}"
+            f"{FAMILY_B}, {kw}, {new} new), captured vs eager: prefill "
+            f"{row['prefill_ms']:.2f} / {ev['prefill_ms']:.2f} ms, decode "
+            f"step {row['decode_step_ms']:.3f} / {ev['decode_step_ms']:.3f}"
+            f" ms (a replay {row['replay_ms']:.3f} ms, the median of a "
+            f"captured call of {new // 2}), {row['tok_per_s']:.2f} / "
+            f"{ev['tok_per_s']:.2f} tok/s, "
+            f"peak {row['max_memory_allocated'] / 2**30:.2f} / "
+            f"{ev['max_memory_allocated'] / 2**30:.2f} GiB; streams equal; "
+            f"{row['generate_stats']['replays']} replays; programming "
+            f"{program_s:.2f} s; MAC launches "
+            f"{row['launches'].get('crossbar_mac', 0)} (per replay "
+            f"{per_replay})"
             + (f"; chunked_gla vs naive at the serve's shapes: y "
                f"{row['gla_err'][0]:.2e}, state {row['gla_err'][1]:.2e} of "
                f"the largest magnitude" if "gla_err" in row else "")

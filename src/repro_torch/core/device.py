@@ -9,22 +9,24 @@ with a Biolek window, calibrated to the paper's Table-I corners
 * SET/RESET programming dynamics (t_write = 250 ns at V_write = 1.2 V),
 * stochastic conductance sampling for Monte-Carlo fidelity studies.
 
-The reference's ``lax.scan`` transients are Python loops over the time
-steps here, each step one set of elementwise ops on any tensor of
-cells.  Random draws come from an explicit ``torch.Generator`` on the
-cells' device, through :func:`_normal`.
+The reference's ``lax.scan`` transients are Python loops here, over
+fixed blocks of Euler steps, each step one set of elementwise ops on any
+tensor of cells; on the card each block after the first replays one
+CUDA graph (``_run_blocks``).  Random draws come from an explicit
+``torch.Generator`` on the cells' device, through :func:`_normal`.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import string
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core.quant import true_div
 from repro_torch.core.timing import PAPER, CrossStackParams
+from repro_torch.graphs import GraphStep, resolve_capture
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +137,8 @@ class MemristorModel:
                ) -> torch.Tensor:
         return torch.clamp(w + self.dw_dt(v, w) * dt, 0.0, 1.0)
 
-    def transient(self, v_t: torch.Tensor, w0, dt: float
+    def transient(self, v_t: torch.Tensor, w0, dt: float,
+                  capture: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Integrate the device response to a voltage waveform.
 
@@ -143,59 +146,149 @@ class MemristorModel:
           v_t: (T,) applied voltage samples.
           w0:  scalar or tensor initial state.
           dt:  timestep [s].
+          capture: replay the blocks from a CUDA graph (``None``: on
+            CUDA); see :func:`_run_blocks`.
 
         Returns:
           (i_t, w_t): current and state trajectories, each (T,) + w0.shape.
         """
-        w = torch.as_tensor(w0, dtype=torch.float32, device=v_t.device)
+        dev = v_t.device
+        capture = resolve_capture(capture, dev)
+        state = torch.as_tensor(w0, dtype=torch.float32, device=dev).clone()
         v_t = v_t.to(torch.float32)
-        i_t = torch.empty((len(v_t),) + w.shape, dtype=torch.float32,
-                          device=v_t.device)
+        i_t = torch.empty((len(v_t),) + state.shape, dtype=torch.float32,
+                          device=dev)
         w_t = torch.empty_like(i_t)
-        for k, v in enumerate(v_t):
-            i_t[k] = self.current(v, w)
-            w = self._euler(v, w, dt)
-            w_t[k] = w
+        v_blk = torch.empty((_BLOCK,), dtype=torch.float32, device=dev)
+        i_blk = torch.empty((_BLOCK,) + state.shape, dtype=torch.float32,
+                            device=dev)
+        w_blk = torch.empty_like(i_blk)
+
+        def steps(v_s, i_s, w_s):
+            w = state
+            for k in range(len(v_s)):
+                v = v_s[k]
+                i_s[k] = self.current(v, w)
+                w = self._euler(v, w, dt)
+                w_s[k] = w
+            state.copy_(w)
+
+        def load(sl):
+            v_blk.copy_(v_t[sl])
+
+        def store(sl):
+            i_t[sl].copy_(i_blk)
+            w_t[sl].copy_(w_blk)
+
+        def tail(sl):
+            steps(v_t[sl], i_t[sl], w_t[sl])
+
+        _run_blocks(len(v_t), _BLOCK, lambda: steps(v_blk, i_blk, w_blk),
+                    load, store, tail, capture)
         return i_t, w_t
 
-    def program(self, w0, v_pulse, n_steps: int = 64) -> torch.Tensor:
+    def program(self, w0, v_pulse, n_steps: int = 64,
+                capture: Optional[bool] = None) -> torch.Tensor:
         """Apply one write pulse of duration t_write; returns the new state.
 
-        v_pulse > 0 SETs (w -> 1), v_pulse < 0 RESETs (w -> 0).
+        v_pulse > 0 SETs (w -> 1), v_pulse < 0 RESETs (w -> 0).  The steps
+        run in blocks (:func:`_run_blocks`; ``capture`` as there).
         """
-        w = _state(w0)
-        v = torch.as_tensor(v_pulse, dtype=torch.float32, device=w.device)
+        state = _state(w0).clone()
+        capture = resolve_capture(capture, state.device)
+        v = torch.as_tensor(v_pulse, dtype=torch.float32, device=state.device)
         dt = PAPER.t_write / n_steps
-        for _ in range(n_steps):
-            w = self._euler(v, w, dt)
-        return w
+
+        def steps(n):
+            w = state
+            for _ in range(n):
+                w = self._euler(v, w, dt)
+            state.copy_(w)
+
+        _run_blocks(n_steps, _BLOCK, lambda: steps(_BLOCK), None, None,
+                    lambda sl: steps(sl.stop - sl.start), capture)
+        return state
 
     def program_verify(self, w0, g_target, n_pulses: int = 16,
-                       n_steps: int = 16
+                       n_steps: int = 16, capture: Optional[bool] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Iterative program-and-verify to hit a target conductance.
 
         Mirrors multi-level cell tuning: apply short write pulses whose
         polarity is chosen from the sign of the conductance error, reading
         (verifying) between pulses.  Returns the final state and the
-        conductance after each pulse, (n_pulses,) + w0.shape.
+        conductance after each pulse, (n_pulses,) + w0.shape.  The pulses
+        run in blocks of ``max(1, _BLOCK // n_steps)`` (:func:`_run_blocks`;
+        ``capture`` as there).
         """
-        w = _state(w0)
+        state = _state(w0).clone()
+        dev = state.device
+        capture = resolve_capture(capture, dev)
         g_target = torch.as_tensor(g_target, dtype=torch.float32,
-                                   device=w.device)
+                                   device=dev)
         dt = PAPER.t_write / (n_pulses * n_steps)
         v_set = torch.full((), PAPER.v_write, dtype=torch.float32,
-                           device=w.device)
-        g_trace = torch.empty((n_pulses,) + w.shape, dtype=torch.float32,
-                              device=w.device)
-        for p in range(n_pulses):
-            err = g_target - self.conductance(w)
-            v = torch.where(err > 0, v_set, -v_set)
-            del err
-            for _ in range(n_steps):
-                w = self._euler(v, w, dt)
-            g_trace[p] = self.conductance(w)
-        return w, g_trace
+                           device=dev)
+        g_trace = torch.empty((n_pulses,) + state.shape, dtype=torch.float32,
+                              device=dev)
+        per_block = max(1, _BLOCK // n_steps)
+        g_blk = torch.empty((per_block,) + state.shape, dtype=torch.float32,
+                            device=dev)
+
+        def pulses(g_s):
+            w = state
+            for p in range(len(g_s)):
+                err = g_target - self.conductance(w)
+                v = torch.where(err > 0, v_set, -v_set)
+                del err
+                for _ in range(n_steps):
+                    w = self._euler(v, w, dt)
+                g_s[p] = self.conductance(w)
+            state.copy_(w)
+
+        def store(sl):
+            g_trace[sl].copy_(g_blk)
+
+        _run_blocks(n_pulses, per_block, lambda: pulses(g_blk), None, store,
+                    lambda sl: pulses(g_trace[sl]), capture)
+        return state, g_trace
+
+
+#: Euler steps in one block of ``transient`` and ``program``, and the
+#: micro-steps whose pulses fill one block of ``program_verify`` (at least
+#: one pulse a block)
+_BLOCK = 32
+
+
+def _run_blocks(n: int, size: int, block: Callable[[], None],
+                load: Optional[Callable[[slice], None]],
+                store: Optional[Callable[[slice], None]],
+                tail: Callable[[slice], None], capture: bool) -> None:
+    """The reference's ``lax.scan`` over ``n`` steps as ``n // size``
+    calls of ``block``, a zero-argument step over static buffers, then
+    ``tail`` over the last ``n % size`` steps, eagerly.  Before each
+    block ``load`` copies its inputs in and after it ``store`` copies its
+    outputs out (one device copy each), both given the block's slice of
+    the ``n`` steps.  With ``capture`` the first block runs eagerly as
+    the warm-up, the second is captured into one CUDA graph and every
+    later one replays it (``graphs.GraphStep``); the graph and its memory
+    pool are released before the call returns.  Captured or not, the
+    blocks run the same ops in the same order, so the trajectory is the
+    eager loop's bit for bit."""
+    step = GraphStep(capture, body=block, scope=torch.no_grad)
+    try:
+        for start in range(0, n - n % size, size):
+            sl = slice(start, start + size)
+            if load is not None:
+                load(sl)
+            step.run()
+            if store is not None:
+                store(sl)
+    finally:
+        step.reset()
+    if n % size:
+        with torch.no_grad():
+            tail(slice(n - n % size, n))
 
 
 def _linspace(stop: float, num: int, device) -> torch.Tensor:
@@ -211,7 +304,8 @@ def _linspace(stop: float, num: int, device) -> torch.Tensor:
 def hysteresis_loop(model: Optional[MemristorModel] = None,
                     freq_hz: float = 50.0, v_amp: float = 1.2,
                     n_cycles: int = 2, samples_per_cycle: int = 4096,
-                    w0: float = 0.05, device=None):
+                    w0: float = 0.05, device=None,
+                    capture: Optional[bool] = None):
     """Drive the device with a sinusoid and return (v, i, w) — the pinched
     hysteresis loop of paper Fig. 3a, on ``device`` (the card unless
     ``"cpu"`` is asked for).  At 50 Hz the loop must (a) pass through the
@@ -220,10 +314,12 @@ def hysteresis_loop(model: Optional[MemristorModel] = None,
     At 50 Hz the drive is quasi-static against the ~250 ns switching
     time, so the drift constant is scaled to the drive period (the loop
     SHAPE, not the absolute speed, is the fingerprint reproduced).
+    ``capture`` as in :meth:`MemristorModel.transient`.
     """
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
+    capture = resolve_capture(capture, dev)
     model = model or MemristorModel()
     period = 1.0 / freq_hz
     t = _linspace(n_cycles * period, n_cycles * samples_per_cycle, dev)
@@ -234,7 +330,7 @@ def hysteresis_loop(model: Optional[MemristorModel] = None,
                           k_drift=model.k_drift * (PAPER.t_write * freq_hz
                                                    * 4),
                           p_window=model.p_window)
-    i, w = slow.transient(v, w0, dt)
+    i, w = slow.transient(v, w0, dt, capture=capture)
     return v, i, w
 
 

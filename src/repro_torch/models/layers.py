@@ -14,6 +14,7 @@ Activations carry the reference's logical sharding constraints
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict
 
@@ -127,8 +128,12 @@ def apply_mrope(x, positions_thw, theta: float = 1e6, sections=None):
     n = d // 2
     sections = sections or mrope_sections(n)
     assert sum(sections) == n, (sections, n)
-    sec_ids = torch.tensor([i for i, w in enumerate(sections)
-                            for _ in range(w)], device=x.device)
+    # slot i's section, made on the device (no host copy, so a captured
+    # decode step can hold it): the count of section ends at or below i
+    slot = torch.arange(n, device=x.device)
+    sec_ids = torch.zeros_like(slot)
+    for end in itertools.accumulate(sections[:-1]):
+        sec_ids += slot >= end
     pos = positions_thw.to(torch.float32)[..., sec_ids]       # (B, S, D/2)
     ang = pos * inv
     cos = torch.cos(ang)[:, :, None, :]

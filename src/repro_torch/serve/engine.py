@@ -6,6 +6,8 @@ continuous-batching scheduler.
 encoder-decoder and recurrent ones included: one prefill over the whole
 batch, then ``max_new - 1`` decode steps, each an argmax over the padded
 vocabulary (ids past ``cfg.vocab`` can come out, as in the reference).
+The reference scans its decode loop in one compiled program; on the card
+the decode step is captured into one CUDA graph and replayed.
 
 The scheduler serves its tenant through ONE window step of fixed shape
 ``(width, chunk)`` with per-row valid counts.  Newly admitted prompts
@@ -58,7 +60,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.executor import flatten_with_path
-from repro_torch.kernels import launch_counts
+from repro_torch.graphs import GraphStep, resolve_capture
 from repro_torch.models.model import Model
 from repro_torch.serve.hotswap import HotSwapper, overlap_report
 from repro_torch.serve.kv_pool import PagedKVPool, default_pool_pages
@@ -93,7 +95,9 @@ def make_decode_step(model: Model, temperature: float = 0.0):
 
 
 def greedy_generate(model: Model, params, batch, max_new: int,
-                    max_len: Optional[int] = None):
+                    max_len: Optional[int] = None,
+                    capture: Optional[bool] = None,
+                    stats: Optional[Dict[str, Any]] = None):
     """Generate ``max_new`` tokens for every row of ``batch`` (a dict of
     tensors on the model's device: ``tokens`` (B, S), plus ``vis_emb``
     and ``positions_thw`` for a VLM, ``enc_emb`` for an
@@ -102,21 +106,94 @@ def greedy_generate(model: Model, params, batch, max_new: int,
     ``max_len`` defaults to S + max_new, text tokens only, as in the
     reference: a VLM batch's P patch embeddings also take cache slots, so
     at that default the cache is P slots short and the writes past its
-    end are dropped.  Pass ``max_len`` explicitly for a VLM."""
+    end are dropped.  Pass ``max_len`` explicitly for a VLM.
+
+    The reference runs the decode loop as one ``lax.scan``.  Here the
+    prefill runs once, then ``max_new - 1`` calls of one decode step over
+    static buffers (``_decode_body``: the token (B, 1) and the cache the
+    prefill returned), each token copied out into the result.  With
+    ``capture`` (``None``: on CUDA) the first decode step runs eagerly as
+    the warm-up, the second is captured into one CUDA graph and every
+    later step replays it (``graphs.GraphStep``); the graph is dropped
+    before the call returns.  ``capture=False`` runs the same step
+    eagerly; ``capture=True`` without CUDA raises.  ``stats``, a dict,
+    receives the captures, replays, eager steps and the kernel launches
+    one replay runs."""
+    capture = resolve_capture(capture, model.device)
     b, s = batch["tokens"].shape
     max_len = max_len or (s + max_new)
     if model.cfg.family == "encdec":
         cache = model.init_cache(b, max_len, src_len=s)
     else:
         cache = model.init_cache(b, max_len)
-    prefill = make_prefill_step(model)
+    tok, cache = make_prefill_step(model)(params, batch, cache)
+    out = torch.empty((b, max(max_new, 1)), dtype=torch.int32,
+                      device=tok.device)
+    out[:, :1].copy_(tok)
+    step = GraphStep(capture, body=_decode_body(model, params, tok, cache),
+                     scope=_decode_scope(model))
+    try:
+        for t in range(1, max_new):
+            step.run()
+            out[:, t:t + 1].copy_(tok)
+    finally:
+        step.reset()
+    if stats is not None:
+        stats.update(step.report())
+    return out
+
+
+def _decode_body(model: Model, params, tok: torch.Tensor, cache):
+    """``greedy_generate``'s decode step as a zero-argument closure over
+    static buffers: it reads the token ``tok`` (B, 1) int32 and ``cache``,
+    and writes the next token into ``tok`` and the new state into
+    ``cache``, all in place, so that a CUDA graph of one call replays the
+    next.  The dense, VLM, encoder-decoder and MoE caches are written in
+    place by the model; a leaf the step returns in new storage (RWKV6's
+    stacked states, Zamba2's Mamba2 states) is copied back into the
+    static leaf.  Positions come from the cache's device fill markers, so
+    nothing of a step is a host value fixed at the capture."""
     decode = make_decode_step(model)
-    tok, cache = prefill(params, batch, cache)
-    toks = [tok]
-    for _ in range(max_new - 1):
-        tok, cache = decode(params, tok, cache)
-        toks.append(tok)
-    return torch.cat(toks, dim=1)
+    static = {tuple(path): leaf for path, leaf in flatten_with_path(cache)}
+
+    def body() -> None:
+        nxt, new = decode(params, tok, cache)
+        for path, leaf in flatten_with_path(new):
+            held = static[tuple(path)]
+            if leaf is held:
+                continue
+            if leaf.shape != held.shape or leaf.dtype != held.dtype:
+                raise ValueError(
+                    f"decode step returned cache leaf {'/'.join(path)} as "
+                    f"{leaf.dtype}{tuple(leaf.shape)}; the static buffer "
+                    f"is {held.dtype}{tuple(held.shape)}")
+            held.copy_(leaf)
+        tok.copy_(nxt)
+
+    return body
+
+
+def _decode_scope(model: Model):
+    """The Python state the decode step reads, entered on the host
+    before each eager step and before the capture: no autograd, and on
+    the crossbar backend the executor active (so the step goes straight
+    to the tiles the prefill programmed, with no programming check
+    inside a capture), the ambient tenant and the leak device scalar
+    pinned."""
+    ex = model.executor
+
+    @contextlib.contextmanager
+    def scope():
+        with torch.no_grad():
+            if ex is None:
+                yield
+                return
+            tenant = ex._resolve_tenant(None)
+            with ex.activate(), ex.read_tenant(tenant), \
+                    ex.leak_scope(ex.current_leak_codes()):
+                yield
+
+    return scope
 
 
 @dataclasses.dataclass
@@ -154,7 +231,7 @@ class Request:
     t_done: Optional[float] = None
 
 
-class _WindowStep:
+class _WindowStep(GraphStep):
     """One lane's window step ``(params, tokens, m, leak) -> token`` over
     static device buffers: ``tokens`` (width, chunk) int32, ``m`` (width,)
     int32, ``leak`` 0-d float32 and ``token`` (width,) int32, beside the
@@ -174,9 +251,10 @@ class _WindowStep:
     With ``capture`` the first call runs eagerly as the warm-up (kernels
     built, the allocator warm; its result is used), the second is
     captured into one CUDA graph in the scheduler's memory pool and
-    replayed for its result, and every later call replays the graph.
-    The capture is the closure's trace (``obs.note_jit_trace``); a host
-    sync or a CUDA call that is no stream operation inside it raises.
+    replayed for its result, and every later call replays the graph
+    (``graphs.GraphStep``).  The capture is the closure's trace
+    (``obs.note_jit_trace``); a host sync or a CUDA call that is no
+    stream operation inside it raises.
     Without ``capture`` every call runs the same body eagerly, and the
     closure's first call is its trace.
 
@@ -193,23 +271,19 @@ class _WindowStep:
 
     def __init__(self, model: Model, cache: Dict[str, Any], width: int,
                  chunk: int, tenant: str, capture: bool, pool=None):
+        super().__init__(capture, pool=pool)
         dev = model.device
         self.model, self.cache, self.tenant = model, cache, tenant
-        self.capture, self.pool = capture, pool
         self.tokens = torch.zeros((width, chunk), dtype=torch.int32,
                                   device=dev)
         self.m = torch.zeros((width,), dtype=torch.int32, device=dev)
         self.leak = torch.zeros((), dtype=torch.float32, device=dev)
         self.token = torch.zeros((width,), dtype=torch.int32, device=dev)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._params = None
         self._leaves: Optional[Tuple[Any, ...]] = None
-        self._warm = False
         self._traces = 0                  # traces of the current closure
         # the tenant's plane generation the current closure was built at
         self._generation: Optional[int] = None
-        self.stats = {"captures": 0, "replays": 0, "eager_steps": 0}
-        #: kernel launches one replay runs (recorded at the capture)
-        self.launches_per_replay: Dict[str, int] = {}
 
     def __call__(self, params, tokens: np.ndarray, m: np.ndarray,
                  leak: Optional[torch.Tensor]) -> torch.Tensor:
@@ -224,19 +298,12 @@ class _WindowStep:
         self.m.copy_(torch.from_numpy(m))
         if leak is not None:
             self.leak.copy_(leak)
-        if self.graph is not None:
-            self.graph.replay()
-            self.stats["replays"] += 1
-        elif self.capture and self._warm:
-            self._capture(params)
-        else:
-            with self._reading():
-                self._body(params)
-            self.stats["eager_steps"] += 1
-            if self.capture:
-                self._warm = True
-            elif self._traces == 0:
-                self._note_trace()
+        self._params = params
+        captures = self.stats["captures"]
+        self.run()
+        if self.stats["captures"] > captures or (
+                not self.capture and self._traces == 0):
+            self._note_trace()
         return self.token
 
     def _planes_moved(self, ex) -> bool:
@@ -256,10 +323,8 @@ class _WindowStep:
         the built closure: the next call builds a new closure, runs it
         eagerly as the warm-up and captures it over the planes the
         executor holds then."""
-        if self.graph is not None:
-            self.graph.reset()
-        self.graph, self._warm, self._leaves = None, False, None
-        self._generation = None
+        super().reset()
+        self._leaves, self._generation = None, None
 
     def _build(self, params, leaves) -> None:
         """A new closure for ``params``: programming is host work, done
@@ -291,6 +356,12 @@ class _WindowStep:
                         ex.leak_scope(self.leak):
                     yield
 
+    def body(self) -> None:
+        self._body(self._params)
+
+    def scope(self):
+        return self._reading()
+
     def _body(self, params) -> None:
         fill = self.cache["layers"]["len"]                 # (L, B)
         old = fill.clone()
@@ -300,20 +371,6 @@ class _WindowStep:
         sel = logits[torch.arange(logits.shape[0], device=logits.device),
                      idx]
         self.token.copy_(torch.argmax(sel.to(torch.float32), dim=-1))
-
-    def _capture(self, params) -> None:
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with self._reading(), torch.cuda.graph(graph, pool=self.pool):
-            self._body(params)
-        self.launches_per_replay = {
-            k: n - before.get(k, 0) for k, n in launch_counts().items()
-            if n != before.get(k, 0)}
-        self.graph = graph
-        self.stats["captures"] += 1
-        self._note_trace()
-        graph.replay()             # the capture recorded; this step runs
-        self.stats["replays"] += 1
 
 
 @dataclasses.dataclass
@@ -1074,9 +1131,7 @@ class BatchScheduler:
         replays and eager steps, and the kernel launches one replay runs
         (so a serve ran ``launches_per_replay x replays`` launches from
         its graphs beside those the wrappers counted eagerly)."""
-        return {t: {"capture": lane.decode.capture, **lane.decode.stats,
-                    "launches_per_replay":
-                        dict(lane.decode.launches_per_replay)}
+        return {t: {"capture": lane.decode.capture, **lane.decode.report()}
                 for t, lane in sorted(self._lanes.items())}
 
     def kv_report(self) -> Dict[str, Dict[str, Any]]:
