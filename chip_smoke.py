@@ -163,24 +163,28 @@ Phases, each of which fails the run (exit code 1, no result line):
              (``phase_train``): (1) ``launch/train.py``'s ``main`` on
              qwen3-4b FULL at 8 of 36 layers (``TRAIN_ARGV``: bf16
              compute over float32 masters, 4 x 512 tokens in 2
-             microbatches, 12 steps), every loss and grad norm finite
-             and the last loss below the first (the median step ms of
-             steps 3-12, tokens/s, peak memory, the losses logged); (2)
-             qwen3-4b and phi3.5-moe SMOKE at float32 on the card and on
-             the CPU from the same params and batches (``TRAIN_PARITY``,
-             within ``TRAIN_LOSS_RTOL`` and ``TRAIN_PARAM_RTOL``); (3) with
-             deterministic algorithms, 2k steps of ``launch/train.py``
-             against k, a checkpoint, ``restore_or_init`` and k more, the
-             final state bit for bit, keep-3 and a stale ``.tmp``
-             collected;
+             microbatches, 12 steps), the train step captured in one
+             CUDA graph (one capture, then replays), then eager
+             (``capture=False``, the witness), both with deterministic
+             algorithms: every loss, grad norm and leaf of the final
+             state bit for bit, every loss and grad norm finite and the
+             last loss below the first (both runs' median step ms of
+             steps 3-12, tokens/s, peak and reserved memory, the losses
+             logged); (2) qwen3-4b and phi3.5-moe SMOKE at float32 on
+             the card (captured) and on the CPU from the same params and
+             batches (``TRAIN_PARITY``, within ``TRAIN_LOSS_RTOL`` and
+             ``TRAIN_PARAM_RTOL``); (3) with deterministic algorithms, 2k
+             captured steps of ``launch/train.py`` against k, a
+             checkpoint, ``restore_or_init`` and k more, the final state
+             bit for bit, keep-3 and a stale ``.tmp`` collected;
              (4) ``examples/torch_crossstack_deploy.py``'s crossbar
              reads (its precision sweep and its resident prefill) on the
              MAC kernel, one launch a read, each bit for bit the exact
              plain MAC's, then the four serve examples' ``main``; then
              the distribution slice (``phase_dist``): (a)
              ``launch/train.py --mesh local`` at world 1 on NCCL
-             (``DIST_TRAIN``, qwen3-4b SMOKE, 3 steps) against the same
-             steps on plain tensors without rules; (b)
+             (``DIST_TRAIN``, qwen3-4b SMOKE, 3 steps, captured) against
+             the same steps on plain tensors without rules; (b)
              ``compressed_psum`` and ``tp_bf16_matmul`` at world 1 on
              CUDA tensors, bitwise their formulas; (c) the MoE block at
              top_k 4 (``DIST_MOE``): two runs bitwise, within
@@ -203,7 +207,12 @@ Phases, each of which fails the run (exit code 1, no result line):
              activity (the host ops that cost most), and after it
              phi3.5-moe's captured serve once more with its replays in a
              trace of the card (the kernels that take most of a step;
-             the streams of its untraced serve).  Every serve traces
+             the streams of its untraced serve), and last the train
+             step of (1) under the default algorithms, one eager step and
+             three replays, each timed (CUDA events) and then traced on
+             the card (``phase_train_trace``: the device's idle share,
+             its events per step, the kernels with the most device
+             time).  Every serve traces
              its window step once (``serve_jit_traces_total``) and never
              again; every kernel of each path must have run (a captured
              serve runs the launches its capture recorded at each
@@ -3301,23 +3310,44 @@ def _example(name):
     return mod
 
 
-def _train_full_width(torch):
-    """(1) ``launch/train.py``'s ``main`` at ``TRAIN_ARGV`` on the card."""
-    from repro_torch import tree
+def _train_run(torch, capture):
+    """``launch/train.py``'s ``main`` at ``TRAIN_ARGV`` on the card:
+    (the per-step records, the final state, peak allocated and peak
+    reserved GiB above what was held before the run, wall s)."""
     from repro_torch.launch import train as train_cli
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
     rec = []
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        state = train_cli.main(TRAIN_ARGV, record=rec)
+        state = train_cli.main(TRAIN_ARGV, record=rec, capture=capture)
     wall = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree.leaves(state.params))
-    state_bytes = sum(t.numel() * t.element_size()
-                      for t in tree.leaves(state))
-    del state
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (rec, state,
+            (torch.cuda.max_memory_allocated() - held[0]) / 2 ** 30,
+            (torch.cuda.max_memory_reserved() - held[1]) / 2 ** 30, wall)
+
+
+def _train_full_width(torch):
+    """(1) ``launch/train.py``'s ``main`` at ``TRAIN_ARGV`` on the card,
+    captured (one capture, then replays), then eager (``capture=False``,
+    the witness), both under deterministic algorithms (``_resume``): every
+    loss, grad norm and leaf of the final state bit for bit."""
+    from repro_torch import tree
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rec, state, peak, reserved, wall = _train_run(torch, None)
+        n_params = sum(p.numel() for p in tree.leaves(state.params))
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree.leaves(state))
+        erec, estate, epeak, ereserved, ewall = _train_run(torch, False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    differ = [key for (key, a), b in zip(tree.leaves_with_keys(state),
+                                         tree.leaves(estate))
+              if not torch.equal(a, b)]
+    del state, estate
     gc.collect()
     torch.cuda.empty_cache()
     losses = [r["loss"] for r in rec]
@@ -3328,21 +3358,146 @@ def _train_full_width(torch):
     check(losses[-1] < losses[0],
           f"train: the last loss {losses[-1]} is not below the first "
           f"{losses[0]}")
-    step_ms = statistics.median(r["s"] for r in rec[2:]) * 1e3
+    last = rec[-1]
+    check((last.get("captures"), last.get("eager_steps"),
+           last.get("replays")) == (1, 1, 11),
+          f"train: the captured run's step stats {last}")
+    check("captures" not in erec[-1], "train: the witness was captured")
+    check(losses == [r["loss"] for r in erec]
+          and norms == [r["grad_norm"] for r in erec] and not differ,
+          f"train: captured against eager: losses {losses} vs "
+          f"{[r['loss'] for r in erec]}, leaves {differ[:4]} differ")
     tokens = 4 * 512
     out = {"argv": TRAIN_ARGV, "n_params": n_params,
-           "state_gib": state_bytes / 2 ** 30, "peak_gib": peak,
-           "step_ms": step_ms, "first_step_ms": rec[0]["s"] * 1e3,
-           "tok_per_s": tokens / (step_ms / 1e3), "wall_s": wall,
+           "state_gib": state_bytes / 2 ** 30,
            "loss_first": losses[0], "loss_last": losses[-1],
            "grad_norm_first": norms[0], "grad_norm_last": norms[-1],
-           "losses": losses}
-    log(f"  (1) qwen3-4b 8 layers, {n_params / 1e9:.3f} B params: step "
-        f"{step_ms:.1f} ms (median of steps 3-12; step 1 "
-        f"{out['first_step_ms']:.0f} ms), {out['tok_per_s']:.0f} tokens/s, "
-        f"state {out['state_gib']:.2f} GiB, peak {peak:.2f} GiB; loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norm {norms[0]:.3f} -> "
-        f"{norms[-1]:.3f}")
+           "losses": losses, "bitwise_eager": True}
+    for key, r, pk, rs, w in (("captured", rec, peak, reserved, wall),
+                              ("eager", erec, epeak, ereserved, ewall)):
+        ms = statistics.median(x["s"] for x in r[2:]) * 1e3
+        out[key] = {"step_ms": ms, "first_step_ms": r[0]["s"] * 1e3,
+                    "second_step_ms": r[1]["s"] * 1e3,
+                    "tok_per_s": tokens / (ms / 1e3), "peak_gib": pk,
+                    "reserved_gib": rs, "wall_s": w}
+    c, e = out["captured"], out["eager"]
+    log(f"  (1) qwen3-4b 8 layers, {n_params / 1e9:.3f} B params, "
+        f"deterministic algorithms: captured step {c['step_ms']:.1f} ms "
+        f"(median of steps 3-12, replays; step 1 {c['first_step_ms']:.0f} "
+        f"ms, step 2 with the capture {c['second_step_ms']:.0f} ms), "
+        f"{c['tok_per_s']:.0f} tokens/s, peak {c['peak_gib']:.2f} GiB, "
+        f"reserved {c['reserved_gib']:.2f}; eager {e['step_ms']:.1f} ms, "
+        f"{e['tok_per_s']:.0f} tokens/s, peak {e['peak_gib']:.2f}, "
+        f"reserved {e['reserved_gib']:.2f}; state {out['state_gib']:.2f} "
+        f"GiB; losses, grad norms and the final state bitwise; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norm {norms[0]:.3f} "
+        f"-> {norms[-1]:.3f}")
+    return out
+
+
+def _device_window(evs):
+    """Device busy ms, window ms and idle share over a list of the card's
+    events, and the kernels with the most device time."""
+    lo = min(float(e["ts"]) for e in evs)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in evs)
+    busy, end, by_name = 0.0, lo, {}
+    for e in evs:
+        a, b = max(float(e["ts"]), end), float(e["ts"]) + float(e["dur"])
+        if b > a:
+            busy += b - a
+            end = b
+        name = e["name"].replace("void ", "").replace("at::native::", "")
+        name = name.replace("(anonymous namespace)::", "")[:160]
+        by_name[name] = by_name.get(name, 0.0) + float(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"busy_ms": busy / 1e3, "window_ms": (hi - lo) / 1e3,
+            "idle_share": 1.0 - busy / (hi - lo), "events": len(evs),
+            "top_ms": {k: us / 1e3 for k, us in top}}
+
+
+def phase_train_trace(torch, dev, out_dir, replays=3):
+    """``TRAIN_ARGV``'s step under the default algorithms: one eager step
+    (``capture=False``) and ``replays`` replays of the captured step,
+    each timed between syncs (CUDA events) and then traced on the card
+    (``torch.profiler``): the device's idle share, its events per step,
+    the kernels with the most device time.  Run last: a trace slows the
+    phases after it."""
+    import dataclasses as dc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dc.replace(get_config(ARCH), n_layers=8)
+    model = build_model(cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=513,
+                                  global_batch=4), device=dev)
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=10, total_steps=12)
+    steps = {c: trainer.make_train_step(model, ocfg, microbatches=2,
+                                        donate=True, capture=c)
+             for c in (False, True)}
+    state = trainer.init_state(model, 0)
+    batch = data.batch_at(0)
+
+    def timed(fn, n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for i in range(n):
+            fn()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+
+    out = {}
+    for key, n in (("eager", 1), ("captured", replays)):
+        step = steps[key == "captured"]
+        if key == "captured":
+            step(state, batch)                 # the warm-up
+            step(state, batch)                 # the capture, one replay
+            fn = step.graph.replay
+        else:
+            step(state, batch)                 # kernels and cache warm
+            fn = lambda: step(state, batch)    # noqa: E731
+        ms = timed(fn, n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = _device_events(torch, prof, out_dir)
+        check(len(evs) > 0, f"train trace: no device events ({key})")
+        win = _device_window(evs)
+        out[key] = dict(win, ms=ms, steps=n,
+                        events_per_step=win["events"] / n)
+    cap = steps[True]
+    out["captured"].update(captures=cap.stats["captures"],
+                           launches_per_replay=cap.launches_per_replay)
+    check(cap.stats["captures"] == 1, f"train trace: {cap.report()}")
+    cap.reset()
+    del steps, cap, state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    e, c = out["eager"], out["captured"]
+    log(f"  train trace (default algorithms): eager step {e['ms'][0]:.1f} "
+        f"ms, {e['events_per_step']:.0f} device events, device idle "
+        f"{100 * e['idle_share']:.1f}% of {e['window_ms']:.1f} ms; replays "
+        f"{', '.join(f'{v:.1f}' for v in c['ms'])} ms, "
+        f"{c['events_per_step']:.0f} device events each, idle "
+        f"{100 * c['idle_share']:.1f}% of {c['window_ms']:.1f} ms; "
+        f"{c['captures']} capture, the port's kernel launches per replay "
+        f"{c['launches_per_replay'] or 'none'}")
+    for key in ("eager", "captured"):
+        log(f"    {key}, device ms per step by kernel: " + "; ".join(
+            f"{k[:110]} {v / out[key]['steps']:.2f}"
+            for k, v in out[key]["top_ms"].items()))
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3363,12 +3518,12 @@ def _card_against_cpu(torch, dev):
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=33,
                                       global_batch=8), device="cpu")
         runs = {}
-        for where in ("cpu", dev):
+        for where in ("cpu", dev):           # the card's step captured
             model = build_model(cfg, device=where)
             step = trainer.make_train_step(
                 model, opt.AdamWConfig(lr=1e-3, warmup_steps=2,
                                        total_steps=steps),
-                compute_dtype=torch.float32)
+                compute_dtype=torch.float32, donate=True)
             state = trainer.init_state(build_model(cfg, device="cpu"), 0)
             state = tree.map(lambda t: t.to(where), state)
             losses = []
@@ -3376,6 +3531,9 @@ def _card_against_cpu(torch, dev):
                 batch = {k: v.to(where) for k, v in data.batch_at(i).items()}
                 state, met = step(state, batch)
                 losses.append(float(met["loss"]))
+            if where != "cpu":
+                check(step.stats["captures"] == 1,
+                      f"train {arch}: the card's step {step.report()}")
             runs[str(where)] = (losses, tree.map(lambda t: t.cpu(),
                                                  state.params))
         (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
@@ -3522,7 +3680,7 @@ DIST_DRYRUN = (("decode_32k", None), ("train_4k", 1))
 
 def _train_without_rules(torch, argv_steps=3):
     """``DIST_TRAIN``'s run on plain tensors on the card (no mesh, no
-    rules): the trainer as ``launch/train.py`` builds it."""
+    rules): the trainer as ``launch/train.py`` builds it, captured."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import build_model
@@ -3539,6 +3697,9 @@ def _train_without_rules(torch, argv_steps=3):
     for i in range(argv_steps):
         state, met = step(state, data.batch_at(i))
         losses.append(float(met["loss"]))
+    check(step.stats["captures"] == 1,
+          f"dist: the step without rules {step.report()}")
+    step.reset()
     return losses, state
 
 
@@ -3703,9 +3864,11 @@ def phase_dist(torch, dev, out_dir):
     same = meshed == plain
     check(all(math.isfinite(v) for v in meshed) and len(meshed) == 3,
           f"dist: --mesh local losses {meshed}")
+    check(rec[-1].get("captures") == 1,
+          f"dist: --mesh local at world 1 was not captured: {rec[-1]}")
     diff = max(abs(a - b) for a, b in zip(meshed, plain))
     log(f"  (a) launch/train.py --mesh local, world 1 (NCCL), qwen3-4b "
-        f"SMOKE, 3 steps: losses {meshed}; without rules {plain}; "
+        f"SMOKE, 3 steps, captured: losses {meshed}; without rules {plain}; "
         f"{'bitwise' if same else f'max |diff| {diff:.3g}'}")
     check(same, f"dist: --mesh local losses {meshed} against {plain}")
     out = {"mesh_local": {"losses": meshed, "plain": plain,
@@ -4209,6 +4372,9 @@ def main() -> int:
         log(f"  {arch}'s captured serve traced")
         report["archs"][arch]["trace"] = phase_arch_trace(
             torch, dev, out_dir, report["archs"][arch]["streams"])
+        phase = "train"
+        log("  the train step traced: one eager step and three replays")
+        report["train"]["trace"] = phase_train_trace(torch, dev, out_dir)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print(f"chip_smoke: phase {phase} failed", file=sys.stderr)

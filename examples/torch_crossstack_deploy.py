@@ -27,6 +27,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import pipeline as pipe
 from repro_torch.core.quant import QuantConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.graphs import resolve_capture
 from repro_torch.models.model import ModelConfig, build_model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainer
@@ -38,15 +39,18 @@ CFG = ModelConfig(name="deploy-demo", family="dense", n_layers=2,
 SWEEP = ((8, 12), (4, 10), (2, 8))
 
 
-def train(device=None, steps: int = 60):
+def train(device=None, steps: int = 60, capture=None):
     """1) Train the tiny LM digitally; returns (model, data, float32
-    params, the last training loss)."""
+    params, the last training loss).  The train step is one CUDA graph
+    on the card (``capture=None``), as the reference jits it; ``False``
+    runs it eagerly, ``True`` raises without CUDA."""
+    resolve_capture(capture, torch.device(device or "cuda"))
     model = build_model(CFG, device=device)
     data = SyntheticLM(DataConfig(vocab=CFG.vocab, seq_len=65,
                                   global_batch=8), device=model.device)
     step_fn = trainer.make_train_step(
         model, opt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=steps),
-        donate=True)
+        donate=True, capture=capture)
     state = trainer.init_state(model, 0)
     for step in range(steps):
         state, metrics = step_fn(state, data.batch_at(step))
@@ -137,8 +141,8 @@ def deploy(model, data, params) -> dict:
     return out
 
 
-def main(device=None) -> dict:
-    model, data, params, digital_loss = train(device)
+def main(device=None, capture=None) -> dict:
+    model, data, params, digital_loss = train(device, capture=capture)
     return dict(deploy(model, data, params), digital_loss=digital_loss)
 
 

@@ -2,6 +2,8 @@
 synthetic pipeline with checkpoint/resume.  ~20M params by default;
 ``--d-model 768 --layers 12`` gives the ~100M variant (same code path).
 
+On the card the train step is one CUDA graph, replayed each step (the
+reference jits it with its state donated); on the CPU it runs eagerly.
 Run on the card (the default) or on the CPU:
 
     PYTHONPATH=src python examples/torch_train_lm.py --steps 120 [--device cpu]
@@ -13,16 +15,21 @@ import os
 import tempfile
 import time
 
+import torch
+
 from repro_torch import tree
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.graphs import resolve_capture
 from repro_torch.launch import ft
 from repro_torch.models.model import ModelConfig, build_model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainer
 
 
-def main(argv=None):
+def main(argv=None, capture=None):
+    """``capture`` (a keyword, no flag): ``None`` captures the step on
+    the card, ``False`` runs it eagerly, ``True`` raises without CUDA."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--d-model", type=int, default=256)
@@ -35,6 +42,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     args = ap.parse_args(argv)
+    resolve_capture(capture, torch.device(args.device or "cuda"))
 
     cfg = ModelConfig(
         name="train-lm", family="dense", n_layers=args.layers,
@@ -48,10 +56,12 @@ def main(argv=None):
                        device=model.device)
     opt_cfg = opt.AdamWConfig(lr=3e-3, warmup_steps=20,
                               total_steps=args.steps)
-    step_fn = trainer.make_train_step(model, opt_cfg, donate=True)
     mgr = CheckpointManager(args.ckpt_dir, keep=2)
     state, start = ft.restore_or_init(
         mgr, lambda: trainer.init_state(model, 0))
+    # the captured step binds the state of its first call: this one
+    step_fn = trainer.make_train_step(model, opt_cfg, donate=True,
+                                      capture=capture)
     n_params = sum(p.numel() for p in tree.leaves(state.params))
     print(f"model: {n_params/1e6:.1f}M params")
     if start:

@@ -280,7 +280,7 @@ def build_step(model, kind: str, rules: shd.ShardingRules, mesh,
         step = trainer.make_train_step(
             model, opt_cfg, microbatches=microbatches,
             grad_accum_dtype=_DTYPES[acc_dt], unroll_accum=unroll_accum,
-            donate=True)
+            donate=True, capture=False)   # fake tensors: nothing to replay
 
         def structs():
             return abstract(lambda: trainer.init_state(

@@ -16,6 +16,12 @@ runs on the 16 x 16 or 2 x 16 x 16 production mesh under
 ``fsdp_rules``; it needs a ``torchrun`` world of 256 or 512 ranks and
 raises otherwise.  The state and each batch are DTensors placed by
 their logical axes (``trainer.state_specs``).
+
+On the card the donated train step is captured
+(``trainer.GraphTrainStep``): one CUDA graph over the state that
+``restore_or_init`` returns, replayed each step after the warm-up and
+the capture.  A mesh of more than one rank runs the step eagerly (its
+collectives are not captured).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.distributed import sharding as shd
+from repro_torch.graphs import resolve_capture
 from repro_torch.launch import ft
 from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models.model import build_model
@@ -67,11 +74,16 @@ def place(tree_, specs, rules, mesh):
         specs, tree_)
 
 
-def main(argv=None, record=None):
+def main(argv=None, record=None, capture=None):
     """Run the CLI on ``argv``; returns the final ``TrainState``.
     ``record`` (a keyword, no flag) is a list that receives one dict per
     step: its loss, grad norm and lr as floats and its wall seconds,
-    the device synchronised at both ends."""
+    the device synchronised at both ends (the read of the metrics), and
+    for a captured step its captures, replays and eager steps so far.
+    ``capture`` (a keyword, no flag: the reference's CLI has none):
+    ``None`` captures the step on the card at one rank and runs it
+    eagerly elsewhere; ``False`` is the eager witness; ``True`` raises
+    without CUDA or on a mesh of more than one rank."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true",
@@ -92,6 +104,7 @@ def main(argv=None, record=None):
                     help="cut the config to its first N layers (0: all)")
     args = ap.parse_args(argv)
 
+    resolve_capture(capture, torch.device(args.device or "cuda"))
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family in ("encdec", "vlm"):
         raise SystemExit("train driver covers LM families; see examples/")
@@ -100,13 +113,13 @@ def main(argv=None, record=None):
     started = _start_world(args.device)
     owned = not dist.is_initialized()   # a one-rank group of our own
     try:
-        return _run(args, cfg, record)
+        return _run(args, cfg, record, capture)
     finally:
         if (started or owned) and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _run(args, cfg, record):
+def _run(args, cfg, record, capture):
     if args.mesh == "local":
         mesh = make_local_mesh(args.device)
         rules = shd.ShardingRules(rules={"batch": "data"})
@@ -118,11 +131,15 @@ def _run(args, cfg, record):
         device = torch.device("cuda", torch.cuda.current_device())
     model = build_model(cfg, device=device)
 
+    if mesh.size() > 1:
+        if capture:
+            raise ValueError(
+                f"capture=True on a mesh of {mesh.size()} ranks: the "
+                f"step's collectives are not captured; pass capture=None "
+                f"or False")
+        capture = False
     opt_cfg = opt.AdamWConfig(lr=args.lr, warmup_steps=10,
                               total_steps=args.steps)
-    step_fn = trainer.make_train_step(model, opt_cfg,
-                                      microbatches=args.microbatches,
-                                      donate=True)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len + 1,
                                   global_batch=args.batch),
                        device=model.device)
@@ -143,6 +160,10 @@ def _run(args, cfg, record):
             print(f"[resume] from step {start}")
     else:
         state, start = init(), 0
+    # the captured step binds the state its first call gets: this one
+    step_fn = trainer.make_train_step(model, opt_cfg,
+                                      microbatches=args.microbatches,
+                                      donate=True, capture=capture)
 
     t0 = time.time()
     try:
@@ -152,6 +173,8 @@ def _run(args, cfg, record):
                                 record, t0)
     finally:
         handler.restore()
+        if isinstance(step_fn, trainer.GraphTrainStep):
+            step_fn.reset()
     if done:
         print("done.")
     return tree.map(_whole, state)
@@ -173,6 +196,8 @@ def _loop(args, state, start, step_fn, data, batch_specs, rules, mesh,
         if record is not None:
             row = {k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")}
             row.update(step=step, s=time.perf_counter() - t_step)
+            if isinstance(step_fn, trainer.GraphTrainStep):
+                row.update(step_fn.stats)
             record.append(row)
         if step % args.log_every == 0 or step == args.steps - 1:
             loss = float(metrics["loss"])
@@ -183,6 +208,8 @@ def _loop(args, state, start, step_fn, data, batch_specs, rules, mesh,
         if mgr is not None and (
                 (step + 1) % args.ckpt_every == 0 or handler.requested
                 or step == args.steps - 1):
+            # a synchronous copy to the host, so the next replay cannot
+            # overwrite the state before it is read
             mgr.save(step + 1, state)
             if handler.requested:
                 print(f"[preempt] checkpoint at step {step + 1}; bye")

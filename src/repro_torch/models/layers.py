@@ -232,8 +232,11 @@ def _sdpa(q, k, v, cfg: AttnConfig, q_offset, kv_len=None,
     logits = shd.einsum("bskgh,btkh->bkgst", qg.to(torch.float32),
                         k.to(torch.float32)) * scale
     if cfg.causal and not cross:
-        qpos = (torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
-                + torch.arange(sq, device=dev)[None])         # (B or 1, sq)
+        if isinstance(q_offset, int):   # no host value copied to the card
+            qpos = torch.arange(q_offset, q_offset + sq, device=dev)[None]
+        else:
+            qpos = (q_offset.reshape(-1, 1)
+                    + torch.arange(sq, device=dev)[None])     # (B, sq)
         mask = qpos[:, :, None] >= torch.arange(sk, device=dev)[None, None]
         logits = torch.where(mask[:, None, None], logits, -1e30)
     if kv_len is not None:

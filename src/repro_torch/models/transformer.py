@@ -192,7 +192,10 @@ def remat(fn, policy: str):
     keeps every activation, "full" recomputes the whole of ``fn`` in the
     backward pass (``torch.utils.checkpoint``), "dots" recomputes all but
     the matmul outputs (a selective checkpoint).  Outside autograd (no
-    grad mode, or no input that needs a gradient) ``fn`` runs as it is."""
+    grad mode, or no input that needs a gradient) ``fn`` runs as it is.
+    No block draws random numbers, so the RNG state is not saved for
+    the recomputation (reading the CUDA RNG state is not allowed inside
+    a CUDA graph capture)."""
     if policy == "none":
         return fn
     if policy not in ("full", "dots"):
@@ -203,7 +206,8 @@ def remat(fn, policy: str):
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, **extra)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False, **extra)
 
     return wrapped
 

@@ -118,14 +118,16 @@ def update(cfg: AdamWConfig, params, grads, state: OptState,
     (``jax.jit(..., donate_argnums=(0,))``): each new param, ``m`` and
     ``v`` is written into the old one's storage as soon as it is made,
     so one state's memory serves both, and the caller must not read the
-    old state again.  The values are the same bit for bit."""
+    old state again; the step counter is advanced in place too, so a
+    CUDA graph of the update reads the new count at every replay.  The
+    values are the same bit for bit."""
     with torch.no_grad():
         gnorm = global_norm(grads)
         # a Python number over a tensor is a reciprocal times the number
         # in torch; the reference divides
         scale = torch.clamp(torch.div(_f32(cfg.grad_clip, gnorm.device),
                                       gnorm + 1e-9), max=1.0)
-        step = state.step + 1
+        step = state.step.add_(1) if donate else state.step + 1
         lr = lr_at(cfg, step)
         b1c, b2c = bias_corrections(cfg, step)
 

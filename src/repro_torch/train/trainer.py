@@ -10,18 +10,26 @@ gradient is taken with respect to that copy, as the reference
 differentiates through its cast.  The step builds new tensors and writes
 none of the state's in place unless asked to (``donate``).
 
+On a CUDA device the donated step is captured: ``make_train_step``
+returns a ``GraphTrainStep``, the reference's ``jax.jit(train_step,
+donate_argnums=(0,))`` as one CUDA graph over static buffers (the state
+it is first called with, a batch buffer, the metrics), warmed up
+eagerly, captured at its second call and replayed after that.
+
 ``state_specs`` is the state's logical layout (the params' specs for
 the masters and both moments); under installed sharding rules the
 compute copy is pinned to its master's placements.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import contextlib
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import tree
 from repro_torch.distributed import sharding as shd
+from repro_torch.graphs import GraphStep, resolve_capture
 from repro_torch.models.model import Model
 from repro_torch.train import optimizer as opt
 
@@ -75,7 +83,8 @@ def _split_rows(x, n: int, i: int):
 def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
                     microbatches: int = 1, compute_dtype=torch.bfloat16,
                     grad_accum_dtype=torch.float32,
-                    unroll_accum: bool = False, donate: bool = False):
+                    unroll_accum: bool = False, donate: bool = False,
+                    capture: Optional[bool] = None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``donate=True`` is the reference CLIs' ``donate_argnums=(0,)``:
@@ -83,14 +92,29 @@ def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
     (``optimizer.update(..., donate=True)``), so the old state must not
     be read again; the default writes nothing in place.
 
+    ``capture`` (``None``: on a CUDA model) makes the donated step a
+    ``GraphTrainStep``, replayed from one CUDA graph; ``False`` returns
+    the eager step, the witness; ``True`` on a model that is not on CUDA
+    raises.  A graph replays into fixed buffers, so capture needs
+    ``donate=True``: on a CUDA model the undonated step raises unless
+    ``capture=False`` is passed.
+
     ``grad_accum_dtype=torch.bfloat16`` halves the microbatch gradient
     accumulator: each microbatch's gradient is added in float32 and the
     sum rounded once to it, as the reference.  The accumulated gradient
     is divided by ``microbatches`` in float32.  ``unroll_accum`` is the
     reference's cost-probe switch between a rolled and an unrolled loop;
-    here the loop is always a Python loop, so it changes nothing.
+    here the loop is always a Python loop (unrolled in a captured
+    graph), so it changes nothing.
     """
     del unroll_accum
+    if not donate and (capture or (capture is None
+                                   and model.device.type == "cuda")):
+        raise ValueError(
+            "a captured train step needs donate=True (a CUDA graph "
+            "replays into the state's own tensors); pass capture=False "
+            "for the undonated step")
+    capture = resolve_capture(capture, model.device)
 
     def cast(params):
         c = tree.map(
@@ -152,7 +176,108 @@ def make_train_step(model: Model, opt_cfg: opt.AdamWConfig,
                                                 donate=donate)
         return TrainState(new_params, new_opt), dict(metrics, **stats)
 
+    if capture:
+        return GraphTrainStep(train_step, model.device, capture=True)
     return train_step
+
+
+class GraphTrainStep(GraphStep):
+    """A donated train step ``step_fn(state, batch) -> (state, metrics)``
+    over static buffers, run as ``step(state, batch)``: with ``capture``
+    replayed from one CUDA graph (``graphs.GraphStep``: the first call
+    the eager warm-up, on a side stream; the second captured, the cache
+    emptied first; every later call a replay), without it the same body
+    run eagerly each call.
+
+    The first call binds ``state`` as the static state: the float32
+    masters, ``m``, ``v`` and ``step``, each written in place by every
+    call.  A later call must pass a state whose leaves are that storage
+    (the state a call returned); any other state raises, so a restored
+    or fresh state needs a new step.  The batch is copied into a static
+    buffer made at the first call (a later batch of other keys, shapes
+    or dtypes raises).  A call returns the bound state object and the
+    static metrics, which the next call overwrites: read them before it.
+    :meth:`reset` releases the graph.
+    """
+
+    def __init__(self, step_fn: Callable, device, capture: bool):
+        super().__init__(capture)
+        self._fn, self.device = step_fn, torch.device(device)
+        self.state: Optional[TrainState] = None
+        self.batch: Optional[Dict[str, torch.Tensor]] = None
+        self.metrics: Optional[Dict[str, torch.Tensor]] = None
+        self._leaves: Tuple[torch.Tensor, ...] = ()
+
+    def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if self.state is None:
+            self.state, self._leaves = state, tuple(tree.leaves(state))
+            self.batch = {k: torch.empty(v.shape, dtype=v.dtype,
+                                         device=self.device)
+                          for k, v in batch.items()}
+        else:
+            self._check_state(state)
+        self._load(batch)
+        self.run()
+        return self.state, self.metrics
+
+    def _check_state(self, state) -> None:
+        leaves = tree.leaves(state)
+        if len(leaves) != len(self._leaves) or any(
+                a is not b and (a.data_ptr() != b.data_ptr()
+                                or a.shape != b.shape or a.dtype != b.dtype)
+                for a, b in zip(leaves, self._leaves)):
+            raise ValueError(
+                "this train step's static state is the state of its first "
+                "call, and the state given is not its storage (a restored "
+                "or fresh state?); build a new step for it")
+
+    def _load(self, batch) -> None:
+        if set(batch) != set(self.batch) or any(
+                v.shape != self.batch[k].shape
+                or v.dtype != self.batch[k].dtype for k, v in batch.items()):
+            raise ValueError(
+                f"batch {_shapes(batch)} does not fit the static batch "
+                f"{_shapes(self.batch)}")
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+
+    def body(self) -> None:
+        state, metrics = self._fn(self.state, self.batch)
+        if any(a is not b for a, b in zip(tree.leaves(state),
+                                          self._leaves)):
+            raise RuntimeError("the donated step returned a state leaf in "
+                               "new storage")
+        if self.metrics is None:
+            self.metrics = {k: v.detach().clone()
+                            for k, v in metrics.items()}
+        else:
+            for k, v in metrics.items():
+                self.metrics[k].copy_(v)
+
+    def scope(self):
+        """The warm-up runs on a side stream, as PyTorch's recipe for
+        capturing a whole training step asks."""
+        if self.capture and not self._warm:
+            return _side_stream()
+        return contextlib.nullcontext()
+
+    def _capture(self) -> None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()      # the warm-up's blocks, not the pool's
+        super()._capture()
+
+
+@contextlib.contextmanager
+def _side_stream():
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        yield
+    torch.cuda.current_stream().wait_stream(side)
+
+
+def _shapes(batch) -> Dict[str, Tuple]:
+    return {k: (str(v.dtype), tuple(v.shape)) for k, v in batch.items()}
 
 
 def _pin(x, master):
